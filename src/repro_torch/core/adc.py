@@ -1,0 +1,94 @@
+"""Edge ADC model (paper §2.1) and the digital wire format.
+
+What crosses the imager boundary is the ADC code: signed integer codes
+plus static ``(scale, zero)`` metadata, ``digital_v = code * scale +
+zero`` with ``scale = lsb`` and ``zero = v_min + half·lsb - V_R + b``.
+The float readout is defined as the dequantized codes, so the two views
+agree bit for bit.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch._arith import div
+
+
+@dataclasses.dataclass(frozen=True)
+class ADCSpec:
+    bits: int = 8
+    v_min: float = -1.0
+    v_max: float = 1.0
+    ste: bool = True
+
+    @property
+    def levels(self) -> int:
+        return 2 ** self.bits
+
+    @property
+    def lsb(self) -> float:
+        return (self.v_max - self.v_min) / (self.levels - 1)
+
+    @property
+    def code_dtype(self) -> torch.dtype:
+        """Smallest signed integer dtype that holds the (centered) codes."""
+        if self.bits <= 8:
+            return torch.int8
+        if self.bits <= 16:
+            return torch.int16
+        return torch.int32
+
+
+def _code_grid(v: torch.Tensor, spec: ADCSpec) -> torch.Tensor:
+    """Centered code values as float32: round half to even of
+    ``(clip(v) - v_min) / lsb``, with a true division by the float32 LSB."""
+    half = spec.levels // 2
+    clipped = torch.clamp(v, spec.v_min, spec.v_max)
+    return torch.round(div(clipped - spec.v_min, spec.lsb)) - half
+
+
+def encode(v: torch.Tensor, spec: ADCSpec = ADCSpec()) -> torch.Tensor:
+    """Voltage -> signed integer code (codes carry no gradients)."""
+    return _code_grid(v, spec).to(spec.code_dtype)
+
+
+def readout_scale_zero(
+    v_ref: float, bias: torch.Tensor | float = 0.0, spec: ADCSpec = ADCSpec()
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The static ``(scale, zero)`` metadata of the code wire for a given
+    reference and bias. Each constant is rounded to float32 once."""
+    half = spec.levels // 2
+    dev = bias.device if isinstance(bias, torch.Tensor) else None
+    scale = torch.tensor(spec.lsb, dtype=torch.float32, device=dev)
+    zero = torch.tensor(spec.v_min + half * spec.lsb - v_ref,
+                        dtype=torch.float32, device=dev) + torch.as_tensor(
+        bias, dtype=torch.float32, device=dev)
+    return scale, zero
+
+
+def dequantize(codes: torch.Tensor, scale: torch.Tensor, zero: torch.Tensor) -> torch.Tensor:
+    """codes -> float readout, the one affine allowed to leave code space."""
+    return codes.to(torch.float32) * scale + zero
+
+
+def sign_encode(out_v: torch.Tensor, v_ref: float) -> torch.Tensor:
+    """The ADC-less comparator: one bit per vector, ``out_v >= V_R``."""
+    return out_v >= v_ref
+
+
+def digital_readout(
+    out_v: torch.Tensor,
+    v_ref: float,
+    bias: torch.Tensor | float = 0.0,
+    spec: ADCSpec = ADCSpec(),
+) -> torch.Tensor:
+    """ADC conversion followed by the digital ``V_R - b`` subtraction,
+    defined as the dequantized codes plus an exact-forward STE residual."""
+    scale, zero = readout_scale_zero(v_ref, bias, spec)
+    deq = dequantize(encode(out_v, spec), scale, zero)
+    if spec.ste:
+        lin = torch.clamp(out_v, spec.v_min, spec.v_max)
+        return deq + (lin - lin.detach())
+    return deq

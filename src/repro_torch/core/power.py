@@ -1,0 +1,119 @@
+"""Event-metered energy of the IP2 front-end (paper §2.1.3).
+
+:class:`EventCounts` counts what costs energy (ADC conversions, DAC loads,
+cap charges, CDS samples, dumps, comparator/OpAmp windows);
+:class:`EnergyMeter` prices any bag of counts. Pricing is plain arithmetic
+on the leaves, so it works on Python floats, numpy arrays and tensors.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+
+@dataclasses.dataclass(frozen=True)
+class EnergyConstants:
+    """Per-event energies / static currents, 65 nm-plausible defaults."""
+
+    e_adc_j: float = 4.0e-9
+    e_dac_j: float = 0.5e-9
+    cap_f: float = 30e-15
+    v_dd: float = 1.0
+    mean_signal_v: float = 0.1
+    i_pwm_comparator_a: float = 20e-9
+    i_opamp_a: float = 2e-6
+    compute_duty: float = 0.5
+    e_pixel_dump_j: float = 1e-15
+    e_sign_cmp_j: float = 5e-14
+    e_dac_reprogram_j: float = 2e-9
+    e_backend_mac_j: float = 1e-12
+
+
+class EventCounts(NamedTuple):
+    """One frame's (or one window's) energy-costing events; leaves may be
+    scalars or slot-major tensors."""
+
+    adc_conversions: object = 0.0
+    dac_loads: object = 0.0
+    cap_charges: object = 0.0
+    cds_samples: object = 0.0
+    pixel_dumps: object = 0.0
+    pwm_pixel_frames: object = 0.0
+    opamp_patch_frames: object = 0.0
+    sign_comparisons: object = 0.0
+    dac_reprograms: object = 0.0
+    backend_macs: object = 0.0
+
+    def scale(self, s) -> "EventCounts":
+        return EventCounts(*(a * s for a in self))
+
+
+def frontend_frame_events(
+    n_pixels: float,
+    pixels_per_patch: int,
+    n_vectors: int,
+    n_selected_patches,
+    n_converted_patches,
+) -> EventCounts:
+    """The events one compact frontend frame executes on the ADC readout
+    (the sign readout is not ported yet). The ``0·count`` terms broadcast
+    the per-frame constants to the batch shape."""
+    n2 = pixels_per_patch
+    m = n_vectors
+    converted_px = n_converted_patches * n2
+    conversions = n_converted_patches * m
+    return EventCounts(
+        adc_conversions=conversions,
+        dac_loads=0.0 * n_converted_patches + float(m * n2),
+        cap_charges=converted_px * m,
+        cds_samples=0.0 * n_converted_patches + 2.0 * n_pixels,
+        pixel_dumps=n_pixels - n_selected_patches * n2,
+        pwm_pixel_frames=converted_px,
+        opamp_patch_frames=1.0 * n_converted_patches,
+        sign_comparisons=0.0 * conversions,
+        dac_reprograms=0.0 * n_converted_patches,
+        backend_macs=0.0 * n_converted_patches,
+    )
+
+
+class PowerBreakdown(NamedTuple):
+    components: dict            # name -> W
+    total_w: object
+
+
+@dataclasses.dataclass(frozen=True)
+class EnergyMeter:
+    """Prices :class:`EventCounts` with :class:`EnergyConstants`."""
+
+    k: EnergyConstants = EnergyConstants()
+
+    def energy_j(self, ev: EventCounts, frame_hz: float) -> dict:
+        k = self.k
+        e_cap = k.cap_f * k.mean_signal_v * k.v_dd
+        e_cds = 0.5 * k.cap_f * k.v_dd ** 2
+        window_s = k.compute_duty / frame_hz
+        return {
+            "adc": ev.adc_conversions * k.e_adc_j,
+            "weight_dac": ev.dac_loads * k.e_dac_j,
+            "cap_charging": ev.cap_charges * e_cap,
+            "pwm_comparators": ev.pwm_pixel_frames
+            * k.i_pwm_comparator_a * k.v_dd * window_s,
+            "opamps": ev.opamp_patch_frames * k.i_opamp_a * k.v_dd * window_s,
+            "cds_sampling": ev.cds_samples * e_cds,
+            "pixel_dump": ev.pixel_dumps * k.e_pixel_dump_j,
+            "sign_comparators": ev.sign_comparisons * k.e_sign_cmp_j,
+            "weight_reprogram": ev.dac_reprograms * k.e_dac_reprogram_j,
+            "backend": ev.backend_macs * k.e_backend_mac_j,
+        }
+
+    def power_w(self, ev: EventCounts, frame_hz: float,
+                n_frames: float = 1.0) -> PowerBreakdown:
+        e = self.energy_j(ev, frame_hz)
+        scale = frame_hz / n_frames
+        comp = {name: v * scale for name, v in e.items()}
+        return PowerBreakdown(comp, sum(comp.values()))
+
+    def power_mw(self, ev: EventCounts, frame_hz: float, n_frames: float = 1.0):
+        """Total milliwatts only."""
+        return self.power_w(ev, frame_hz, n_frames).total_w * 1e3

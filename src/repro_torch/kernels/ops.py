@@ -1,0 +1,390 @@
+"""Public wrappers around the hand-written CUDA kernels.
+
+Each wrapper prepares its operands (DAC weight programming, batch
+flattening, row tables) and then routes on the device of the tensors it is
+given: a CPU tensor runs the plain PyTorch version in :mod:`ref`; a CUDA
+tensor launches the kernel, and a failed launch raises. There is no
+fallback from one to the other.
+
+``LAUNCHES`` counts kernel launches per wrapper (and nothing else), so a
+run can show that its path really went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+from typing import NamedTuple
+
+import torch
+
+from repro_torch._arith import div
+from repro_torch.core import adc as adc_mod
+from repro_torch.core import projection as proj_mod
+from repro_torch.core import pwm as pwm_mod
+from repro_torch.kernels import _build, ref
+
+LAUNCHES = {"ip2_project": 0, "quant_matmul": 0, "ip2_fused_embed": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class IP2KernelParams:
+    """Static analog-model constants of the projection epilogue."""
+
+    n2: int                      # true pixels/patch (charge-share divisor)
+    pwm_levels: int = 64         # 6-bit PWM
+    droop: float = 1.0           # summer retention factor
+    v_ref: float = 0.0
+    nl_kind: str = "none"        # "none" | "relu" (2T stage), clip at v_sat
+    v_sat: float = 1.0
+    adc_bits: int = 8
+    adc_vmin: float = -1.0
+    adc_vmax: float = 1.0
+    adc_enable: bool = True
+    adc_out_codes: bool = False  # emit int codes (the wire format)
+    readout: str = "adc"         # "adc" | "sign"
+
+    def __post_init__(self):
+        if self.readout not in ("adc", "sign"):
+            raise ValueError(f"unknown readout mode {self.readout!r}")
+
+    def adc_spec(self) -> adc_mod.ADCSpec:
+        return adc_mod.ADCSpec(bits=self.adc_bits, v_min=self.adc_vmin,
+                               v_max=self.adc_vmax)
+
+    @property
+    def out_dtype(self) -> torch.dtype:
+        if self.readout == "sign":
+            return torch.int8  # {0,1}; the wrapper re-types to bool
+        if self.adc_enable and self.adc_out_codes:
+            return self.adc_spec().code_dtype
+        return torch.float32
+
+
+def kernel_params_from_spec(spec: proj_mod.PatchSpec, adc=None, codes: bool = False,
+                            readout: str = "adc") -> IP2KernelParams:
+    if codes and adc is None:
+        raise ValueError("codes=True requires an ADCSpec (the codes ARE the ADC output)")
+    if readout == "sign" and codes:
+        raise ValueError("readout='sign' emits the 1-bit sign wire; the int "
+                         "code wire (codes=True) only exists on the ADC readout")
+    return IP2KernelParams(
+        readout=readout,
+        n2=spec.pixels_per_patch,
+        pwm_levels=spec.quant.pwm_levels,
+        droop=spec.summer.droop_factor(),
+        v_ref=spec.summer.v_ref,
+        nl_kind=spec.nl.kind if spec.nl.kind in ("relu",) else "none",
+        v_sat=spec.nl.v_sat,
+        adc_bits=adc.bits if adc is not None else 8,
+        adc_vmin=adc.v_min if adc is not None else -1.0,
+        adc_vmax=adc.v_max if adc is not None else 1.0,
+        adc_enable=adc is not None,
+        adc_out_codes=codes,
+    )
+
+
+class ProgrammedWeights(NamedTuple):
+    """DAC-programmed projection weights, computed once at deploy time."""
+
+    w_q: torch.Tensor     # (M, N2) float weights ON the DAC grid
+    scale: torch.Tensor   # per-output scale (diagnostic; kernels ignore it)
+
+
+def program_weights(weights, spec: proj_mod.PatchSpec) -> ProgrammedWeights:
+    """Run the weight-DAC quantisation once; idempotent."""
+    if isinstance(weights, ProgrammedWeights):
+        return weights
+    w_q, scale = pwm_mod.quantize_weights(weights, spec.quant)
+    return ProgrammedWeights(w_q=w_q, scale=scale)
+
+
+def _dac_weights(weights, spec: proj_mod.PatchSpec) -> torch.Tensor:
+    if isinstance(weights, ProgrammedWeights):
+        return weights.w_q
+    return pwm_mod.quantize_weights(weights, spec.quant)[0]
+
+
+# ---------------------------------------------------------------------------
+# device routing and the C interface
+# ---------------------------------------------------------------------------
+
+class _Epilogue(ctypes.Structure):
+    """Mirror of ``ip2::Epilogue`` (csrc/ip2_common.cuh). Each float field
+    is a Python double rounded to float32 once, on assignment."""
+
+    _fields_ = [
+        ("pwm_n", ctypes.c_float), ("pwm_inv_n", ctypes.c_float),
+        ("acc_scale", ctypes.c_float), ("v_ref", ctypes.c_float),
+        ("relu", ctypes.c_int), ("v_sat", ctypes.c_float),
+        ("mode", ctypes.c_int), ("adc_vmin", ctypes.c_float),
+        ("adc_vmax", ctypes.c_float), ("adc_lsb", ctypes.c_float),
+        ("adc_half", ctypes.c_float),
+    ]
+
+
+_CODES, _DEQUANT, _NOADC, _SIGN = 0, 1, 2, 3
+
+
+def _readout_mode(p: IP2KernelParams) -> int:
+    if p.readout == "sign":
+        return _SIGN
+    if not p.adc_enable:
+        return _NOADC
+    return _CODES if p.adc_out_codes else _DEQUANT
+
+
+def _epilogue(p: IP2KernelParams) -> _Epilogue:
+    spec = p.adc_spec()
+    n = p.pwm_levels - 1
+    return _Epilogue(
+        pwm_n=n, pwm_inv_n=1.0 / n, acc_scale=p.droop / p.n2, v_ref=p.v_ref,
+        relu=int(p.nl_kind == "relu"), v_sat=p.v_sat, mode=_readout_mode(p),
+        adc_vmin=spec.v_min, adc_vmax=spec.v_max, adc_lsb=spec.lsb,
+        adc_half=spec.levels // 2,
+    )
+
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_EP = ctypes.POINTER(_Epilogue)
+_ARGTYPES = {
+    "ip2_project": [_P, _P, _P, _P, _I, _I, _I, _I, _EP, _P],
+    "quant_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "ip2_fused_embed": [_P, _P, _P, _I, _I, _I, _P, _I, _P, _P, _F, _I, _P, _EP, _P],
+}
+
+
+def _entry(name: str):
+    fn = getattr(_build.load(name), f"{name}_launch")
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES[name]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _on_cuda(*tensors: torch.Tensor) -> bool:
+    """True for CUDA operands (launch the kernel), False for CPU operands
+    (plain version); anything else, or mixed devices, raises."""
+    dev = tensors[0].device
+    for t in tensors[1:]:
+        if t.device != dev:
+            raise ValueError(f"operands on {dev} and {t.device}")
+    if dev.type == "cuda":
+        return True
+    if dev.type == "cpu":
+        return False
+    raise RuntimeError(f"no kernel or plain version for device {dev}")
+
+
+def _launch(name: str, *args) -> None:
+    rc = _entry(name)(*args)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
+    LAUNCHES[name] += 1
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _need(t: torch.Tensor, dtype: torch.dtype, shape: tuple, name: str) -> None:
+    """Checks made before a pointer goes to native code."""
+    if t.dtype != dtype or not t.is_contiguous() or tuple(t.shape) != shape:
+        raise ValueError(f"{name}: need a contiguous {dtype} tensor of shape "
+                         f"{shape}, got {t.dtype} {tuple(t.shape)} "
+                         f"(contiguous={t.is_contiguous()})")
+
+
+def _ip2_project_cuda(x, w_t, bias, p: IP2KernelParams) -> torch.Tensor:
+    r, k = x.shape
+    m = w_t.shape[1]
+    _need(x, torch.float32, (r, k), "patches")
+    _need(w_t, torch.float32, (k, m), "weights")
+    _need(bias, torch.float32, (m,), "bias")
+    mode = _readout_mode(p)
+    colv = None
+    if mode == _DEQUANT:
+        colv = adc_mod.readout_scale_zero(p.v_ref, bias, p.adc_spec())[1].contiguous()
+    elif mode == _NOADC:
+        colv = bias
+    out = torch.empty((r, m), dtype=p.out_dtype, device=x.device)
+    _launch("ip2_project", x.data_ptr(), w_t.data_ptr(),
+            None if colv is None else colv.data_ptr(), out.data_ptr(),
+            out.element_size(), r, k, m, ctypes.byref(_epilogue(p)), _stream(x))
+    return out
+
+
+def _quant_matmul_cuda(a8, s_a, w8, s_w) -> torch.Tensor:
+    r, k = a8.shape
+    n = w8.shape[1]
+    _need(a8, torch.int8, (r, k), "a8")
+    _need(w8, torch.int8, (k, n), "w8")
+    _need(s_a, torch.float32, (r,), "s_a")
+    _need(s_w, torch.float32, (n,), "s_w")
+    out = torch.empty((r, n), dtype=torch.float32, device=a8.device)
+    _launch("quant_matmul", a8.data_ptr(), s_a.data_ptr(), w8.data_ptr(),
+            s_w.data_ptr(), out.data_ptr(), r, k, n, _stream(a8))
+    return out
+
+
+def _fused_embed_cuda(table, counts, patches, w_t, w8, s_w, s_a: float,
+                      p: IP2KernelParams, k: int) -> torch.Tensor:
+    """``table`` rows must lie in the patch grid (``ip2_fused_embed``
+    clamps them; checking here would cost a device sync per call)."""
+    if p.adc_bits > 8:
+        raise ValueError(f"ip2_fused_embed kernel: {p.adc_bits}-bit ADC codes do "
+                         "not fit its int8 code bank (8 bits at most)")
+    n_rows, kk = patches.shape
+    m = w_t.shape[1]
+    d = w8.shape[1]
+    s = counts.shape[0]
+    _need(patches, torch.float32, (n_rows, kk), "patches")
+    _need(w_t, torch.float32, (kk, m), "weights")
+    _need(table, torch.int32, (s * k,), "table")
+    _need(counts, torch.int32, (s,), "counts")
+    _need(w8, torch.int8, (m, d), "w8")
+    _need(s_w, torch.float32, (d,), "s_w")
+    out = torch.empty((s * k, d), dtype=torch.float32, device=patches.device)
+    _launch("ip2_fused_embed", patches.data_ptr(), table.data_ptr(),
+            counts.data_ptr(), s, k, kk, w_t.data_ptr(), m, w8.data_ptr(),
+            s_w.data_ptr(), s_a, d, out.data_ptr(),
+            ctypes.byref(_epilogue(p)), _stream(patches))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# public wrappers
+# ---------------------------------------------------------------------------
+
+def ip2_project(
+    patches: torch.Tensor,          # (..., P, N2) in [0,1]
+    weights,                        # (M, N2) float (pre-DAC) or ProgrammedWeights
+    spec: proj_mod.PatchSpec,
+    adc=None,
+    bias: torch.Tensor | None = None,
+    codes: bool = False,
+    readout: str = "adc",
+) -> torch.Tensor:
+    """Kernel-backed analog projection with the fused readout: (..., P, M)
+    float32, int codes (``codes=True``; the bias then lives in the wire's
+    ``zero``) or the bool sign wire (``readout="sign"``)."""
+    w_q = _dac_weights(weights, spec)
+    m, n2 = w_q.shape
+    lead = patches.shape[:-1]
+    flat = patches.reshape(-1, n2).to(torch.float32)
+    b = (torch.zeros((m,), dtype=torch.float32, device=w_q.device)
+         if bias is None else bias.to(torch.float32))
+    w_t = w_q.T.to(torch.float32)
+    params = kernel_params_from_spec(spec, adc, codes, readout)
+    if _on_cuda(flat, w_t, b):
+        out = _ip2_project_cuda(flat.contiguous(), w_t.contiguous(),
+                                b.contiguous(), params)
+    else:
+        out = ref.ip2_project_ref(flat, w_t, b, params)
+    if readout == "sign":
+        out = out.to(torch.bool)
+    return out.reshape(*lead, m)
+
+
+def ip2_codes_fn(spec: proj_mod.PatchSpec, adc):
+    """Frontend ``ProjectFn`` whose output is the wire format: int8 codes
+    straight from the kernel's fused ADC epilogue (``emits_codes``)."""
+
+    def fn(patches, weights, _spec):
+        return ip2_project(patches, weights, _spec, adc=adc, codes=True)
+
+    fn.emits_codes = True
+    return fn
+
+
+def quant_matmul_pre(
+    a8: torch.Tensor,               # (..., K) int8 pre-quantized activations
+    s_a,                            # (...,) float32 per-row scales (or scalar)
+    w8: torch.Tensor,               # (K, N) int8 codes
+    s_w: torch.Tensor,              # (N,) scales
+    out_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """y = (a8 @ w8) * s_a * s_w for already-quantised activations (the
+    edge-ADC codes): no second rounding of the activations."""
+    k, n = w8.shape
+    lead = a8.shape[:-1]
+    flat = a8.reshape(-1, k)
+    s_flat = torch.broadcast_to(
+        torch.as_tensor(s_a, dtype=torch.float32, device=flat.device), lead
+    ).reshape(-1).contiguous()
+    s_w = s_w.to(torch.float32)
+    if _on_cuda(flat, s_flat, w8, s_w):
+        out = _quant_matmul_cuda(flat.contiguous(), s_flat, w8.contiguous(),
+                                 s_w.contiguous())
+    else:
+        out = ref.quant_matmul_ref(flat, s_flat, w8, s_w)
+    return out.to(out_dtype).reshape(*lead, n)
+
+
+def quantize_weights_int8(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(K, N) float -> int8 codes + per-column scale (offline weight prep)."""
+    amax = torch.amax(torch.abs(w), dim=0)
+    scale = div(torch.clamp_min(amax, 1e-12), 127.0)
+    w8 = torch.clamp(torch.round(w / scale[None, :]), -127, 127).to(torch.int8)
+    return w8, scale.to(torch.float32)
+
+
+def ip2_fused_embed(
+    patches: torch.Tensor,          # (..., P, N2) dense patch grid in [0,1]
+    weights,                        # (M, N2) float (pre-DAC) or ProgrammedWeights
+    indices: torch.Tensor,          # (..., k) active patch indices
+    spec: proj_mod.PatchSpec,
+    adc,                            # ADCSpec — the fused seam is code space
+    w8: torch.Tensor,               # (M, D) int8 embed weight codes
+    s_w: torch.Tensor,              # (D,) float32 per-column embed scales
+    row_counts=None,                # (...,) int real rows per slot, or None
+) -> torch.Tensor:
+    """Projection + fused ADC + the w8a8 embed in one kernel: (..., k, D)
+    float32 ``(codes @ w8) * lsb * s_w``, bit for bit the staged
+    ``ip2_project(codes=True)`` -> ``quant_matmul_pre`` pair. Rows at or
+    past their slot's count are zero."""
+    if adc is None:
+        raise ValueError("ip2_fused_embed requires an ADCSpec: the fused seam "
+                         "only exists in ADC code space")
+    w_q = _dac_weights(weights, spec)
+    m, n2 = w_q.shape
+    if w8.shape[0] != m:
+        raise ValueError(f"embed rows {w8.shape[0]} != n_vectors {m}")
+    lead = patches.shape[:-2]
+    n_patches = patches.shape[-2]
+    if indices.shape[:-1] != lead:
+        raise ValueError(f"indices lead {tuple(indices.shape[:-1])} != patches "
+                         f"lead {tuple(lead)}")
+    k = indices.shape[-1]
+    flat_p = patches.reshape(-1, n2).to(torch.float32)
+    batch = flat_p.shape[0] // n_patches
+    dev = flat_p.device
+    offsets = torch.arange(batch, dtype=torch.int32, device=dev) * n_patches
+    table = torch.clamp(indices.reshape(batch, k).to(torch.int32) + offsets[:, None],
+                        0, batch * n_patches - 1).reshape(-1).to(torch.int32)
+    if row_counts is None:
+        counts = torch.full((batch,), k, dtype=torch.int32, device=dev)
+    else:
+        counts = torch.broadcast_to(torch.as_tensor(row_counts, device=dev), lead)
+        counts = torch.clamp(counts.reshape(-1).to(torch.int32), 0, k).to(torch.int32)
+    w_t = w_q.T.to(torch.float32)
+    s_w = s_w.to(torch.float32)
+    params = kernel_params_from_spec(spec, adc, codes=True)
+    if _on_cuda(flat_p, w_t, w8, s_w):
+        out = _fused_embed_cuda(table, counts, flat_p.contiguous(), w_t.contiguous(),
+                                w8.contiguous(), s_w.contiguous(), adc.lsb,
+                                params, k)
+    else:
+        out = ref.ip2_fused_embed_ref(table, counts, flat_p, w_t, w8, s_w, params, k)
+    return out.reshape(*lead, k, w8.shape[1])
+
+
+def fused_embed_zero_term(zero, w8: torch.Tensor, s_w: torch.Tensor) -> torch.Tensor:
+    """The selection-independent ``zero @ dequant(w8)`` term the fused kernel
+    leaves to the caller (the same expression as the staged embed)."""
+    return zero @ (w8.to(torch.float32) * s_w[None, :])

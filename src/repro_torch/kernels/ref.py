@@ -1,0 +1,63 @@
+"""Plain PyTorch versions of the CUDA kernels (same function, same
+arithmetic order as the kernels, unpadded shapes).
+
+The ops wrappers take these for CPU tensors; on the card they are what
+``chip_smoke.py`` holds each kernel against.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import adc as adc_mod
+
+
+def ip2_project_ref(patches: torch.Tensor, w_q: torch.Tensor,
+                    bias: torch.Tensor, params) -> torch.Tensor:
+    """ip2_project: (R, K) pixels, (K, M) DAC-grid weights, (M,) bias ->
+    (R, M) int8 codes / int8 sign bits / float32 readout, per ``params``
+    (an ``ops.IP2KernelParams``). PWM multiplies by 1/n and the epilogue is
+    ``acc·(droop/n2) + V_R``: the kernel's order, not the frontend's."""
+    n = params.pwm_levels - 1
+    xq = torch.round(torch.clamp(patches, 0.0, 1.0) * n) * (1.0 / n)
+    acc = xq.to(torch.float32) @ w_q.to(torch.float32)
+    out = acc * (params.droop / params.n2) + params.v_ref
+    if params.nl_kind == "relu":
+        out = torch.clamp(out, 0.0, params.v_sat)
+    if params.readout == "sign":
+        return adc_mod.sign_encode(out, params.v_ref).to(torch.int8)
+    if not params.adc_enable:
+        return out - (params.v_ref - bias[None, :])
+    spec = params.adc_spec()
+    if params.adc_out_codes:
+        return adc_mod.encode(out, spec)
+    return adc_mod.digital_readout(out, params.v_ref, bias[None, :], spec)
+
+
+def quant_matmul_ref(a8: torch.Tensor, s_a: torch.Tensor, w8: torch.Tensor,
+                     s_w: torch.Tensor) -> torch.Tensor:
+    """(R, K) int8 @ (K, N) int8 -> (float(acc) * s_a[r]) * s_w[c], float32.
+
+    The integer sum is taken in float64: CUDA has no int32 matmul, and
+    every partial sum (|acc| <= K·127·128) is an exact float64 integer, so
+    this is the int32 accumulation bit for bit on either device."""
+    acc = a8.to(torch.float64) @ w8.to(torch.float64)
+    return acc.to(torch.float32) * s_a[:, None] * s_w[None, :]
+
+
+def ip2_fused_embed_ref(table: torch.Tensor, counts: torch.Tensor,
+                        patches: torch.Tensor, w_q: torch.Tensor,
+                        w8: torch.Tensor, s_w: torch.Tensor, params,
+                        k: int) -> torch.Tensor:
+    """ip2_fused_embed as the staged composition: gather the ``table`` rows
+    of the dense (rows, K) patch grid, project to ADC codes (bias 0), then
+    the w8a8 embed with the ADC LSB as activation scale; (S·k, D) with rows
+    at or past their slot's count set to 0."""
+    bias = torch.zeros(w_q.shape[1], dtype=torch.float32, device=w_q.device)
+    codes = ip2_project_ref(patches[table.long()], w_q, bias, params)
+    lsb = torch.full((codes.shape[0],), params.adc_spec().lsb,
+                     dtype=torch.float32, device=codes.device)
+    y = quant_matmul_ref(codes, lsb, w8, s_w.to(torch.float32))
+    pos = torch.arange(k, device=y.device)[None, :]
+    live = (pos < counts[:, None]).reshape(-1, 1)
+    return torch.where(live, y, torch.zeros((), dtype=y.dtype, device=y.device))

@@ -1,0 +1,217 @@
+"""IP2-ViT: the paper's backend, a patch-token transformer classifier fed by
+the analog frontend, on the compact path.
+
+``vit_forward_compact`` runs exactly the k active tokens (positional
+embeddings looked up by patch index) and returns the attention each token
+received, scattered back onto the patch grid: the next frame's saccade
+signal. With ``quant_embed`` the int8 ADC codes feed the w8a8 embed kernel;
+with ``fused_embed`` one kernel gathers, projects, converts and embeds.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch._arith import div
+from repro_torch._device import resolve_device
+from repro_torch.convert import tree_to
+from repro_torch.core import power as power_mod
+from repro_torch.core.frontend import (
+    CompactFeatures,
+    FrontendConfig,
+    apply_frontend,
+    dequantize_features,
+    feature_scale_zero,
+    init_frontend_params,
+    select_compact,
+)
+from repro_torch.kernels import ops
+from repro_torch.models.attention import init_attention
+from repro_torch.models.layers import apply_mlp, dense_init, init_mlp, rms_norm
+
+NEG_INF = -1e30
+
+
+@dataclasses.dataclass(frozen=True)
+class ViTConfig:
+    frontend: FrontendConfig = FrontendConfig()
+    n_classes: int = 4
+    n_layers: int = 4
+    d_model: int = 128
+    n_heads: int = 4
+    d_ff: int = 256
+    qth: bool = False          # power-of-2 attention (not ported yet)
+    quant_embed: bool = False  # consume ADC codes via the w8a8 kernel
+    fused_embed: bool = False  # one kernel: project + ADC + embed
+    saliency_layers: str = "all"  # "all" (mean over layers) or "last"
+    delta_kernel: bool = False    # delta-gated backend only (not ported yet)
+    norm_eps: float = 1e-5
+
+
+def init_vit(cfg: ViTConfig, generator: torch.Generator, device=None) -> dict:
+    """Random parameters in the reference's tree layout, drawn on the CPU
+    from ``generator`` and placed on ``device`` (the GPU by default)."""
+    dev = resolve_device(device)
+    d, h = cfg.d_model, cfg.n_heads
+    p = {
+        "ip2": init_frontend_params(cfg.frontend, generator),
+        "embed": dense_init(generator, cfg.frontend.patch.n_vectors, d),
+        "pos": torch.randn((cfg.frontend.n_patches, d), generator=generator) * 0.02,
+        "layers": [],
+        "final_norm": torch.ones((d,), dtype=torch.float32),
+        "head": dense_init(generator, d, cfg.n_classes),
+    }
+    for _ in range(cfg.n_layers):
+        p["layers"].append({
+            "norm1": torch.ones((d,), dtype=torch.float32),
+            "attn": init_attention(generator, d, h, d // h),
+            "norm2": torch.ones((d,), dtype=torch.float32),
+            "mlp": init_mlp(generator, d, cfg.d_ff, "gelu"),
+        })
+    return tree_to(p, dev)
+
+
+def prepare_quant_embed(params: dict) -> dict:
+    """Quantise the embed matrix to int8 once, as ``params["embed_q"]``."""
+    return {**params, "embed_q": ops.quantize_weights_int8(params["embed"])}
+
+
+def _embed_q(params: dict):
+    eq = params.get("embed_q")
+    return eq if eq is not None else ops.quantize_weights_int8(params["embed"])
+
+
+def _encoder_attention(lp: dict, h: torch.Tensor, cfg: ViTConfig,
+                       token_valid: torch.Tensor, need_probs: bool = True):
+    """Bidirectional self-attention over the tokens: scores / sqrt(dh),
+    invalid keys masked to -1e30, softmax. Returns (out (B, S, d), probs
+    (B, H, S, S) or None)."""
+    if cfg.qth:
+        raise NotImplementedError("qth attention is not ported yet")
+    dh = cfg.d_model // cfg.n_heads
+    a = lp["attn"]
+    q = torch.einsum("bsd,dhk->bshk", h, a["wq"]) + a["bq"]
+    k = torch.einsum("bsd,dhk->bshk", h, a["wk"]) + a["bk"]
+    v = torch.einsum("bsd,dhk->bshk", h, a["wv"]) + a["bv"]
+    scores = torch.einsum("bqhk,bshk->bhqs", q, k) / torch.sqrt(
+        torch.tensor(dh, dtype=h.dtype, device=h.device))
+    scores = torch.where(token_valid[:, None, None, :], scores,
+                         torch.tensor(NEG_INF, dtype=scores.dtype, device=scores.device))
+    probs = torch.softmax(scores, dim=-1)
+    o = torch.einsum("bhqs,bshk->bqhk", probs.to(v.dtype), v)
+    out = torch.einsum("bshk,hkd->bsd", o, a["wo"])
+    return out, (probs if need_probs else None)
+
+
+def _encoder(params: dict, x: torch.Tensor, cfg: ViTConfig,
+             token_valid: torch.Tensor):
+    """Transformer trunk + masked mean pool -> (logits, received): the
+    attention mass each token collected over heads and valid queries."""
+    if cfg.saliency_layers not in ("all", "last"):
+        raise ValueError(f"saliency_layers must be 'all' or 'last', "
+                         f"got {cfg.saliency_layers!r}")
+    n_layers = len(params["layers"])
+    received = torch.zeros(x.shape[:2], dtype=torch.float32, device=x.device)
+    qv = token_valid.to(torch.float32)
+    n_q = torch.clamp_min(torch.sum(qv, dim=-1, keepdim=True), 1.0)
+    for li, lp in enumerate(params["layers"]):
+        need = cfg.saliency_layers == "all" or li == n_layers - 1
+        h = rms_norm(x, lp["norm1"], cfg.norm_eps)
+        out, probs = _encoder_attention(lp, h, cfg, token_valid, need_probs=need)
+        x = x + out
+        h = rms_norm(x, lp["norm2"], cfg.norm_eps)
+        x = x + apply_mlp(lp["mlp"], h, "gelu")
+        if need:
+            per_key = torch.einsum("bhqs,bq->bs", probs.to(torch.float32), qv)
+            received = received + per_key / (n_q * probs.shape[1])
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    w = token_valid.to(x.dtype)[..., None]
+    pooled = torch.sum(x * w, dim=1) / torch.clamp_min(torch.sum(w, dim=1), 1.0)
+    logits = pooled @ params["head"]
+    if cfg.saliency_layers == "all":
+        received = div(received, n_layers)
+    return logits, received
+
+
+def _embed_tokens(params: dict, cf: CompactFeatures, cfg: ViTConfig) -> torch.Tensor:
+    """The backend's first matmul, the one place the wire is dequantised.
+    With ``quant_embed`` the codes feed the w8a8 kernel and the affine
+    distributes: ((c·s + z)⊙g) @ W = g⊙(s·(c @ W8)·s_w + z @ dequant(W8))."""
+    if cfg.quant_embed:
+        w8, s_w = _embed_q(params)
+        y = ops.quant_matmul_pre(cf.features, cf.scale, w8, s_w)
+        return (y + ops.fused_embed_zero_term(cf.zero, w8, s_w)) * cf.gain[..., None]
+    return dequantize_features(cf) @ params["embed"]
+
+
+def _saliency(received, indices, valid, n_patches):
+    """Backend attention scattered back onto the patch grid (max per patch,
+    unobserved patches 0)."""
+    received = torch.where(valid, received, torch.zeros_like(received))
+    grid = torch.zeros((received.shape[0], n_patches), dtype=torch.float32,
+                       device=received.device)
+    return grid.scatter_reduce(1, indices.long(), received, reduce="amax",
+                               include_self=True)
+
+
+def _forward_compact_fused(params, rgb, cfg: ViTConfig, indices, mask,
+                           project_fn, precomputed):
+    """The fused compact path: one kernel gathers, projects, converts and
+    embeds; the affine and gain algebra is exactly ``_embed_tokens``'."""
+    fe_cfg = cfg.frontend
+    if not cfg.quant_embed:
+        raise ValueError("fused_embed requires quant_embed=True")
+    if not fe_cfg.analog:
+        raise ValueError("fused_embed requires an analog frontend")
+    if project_fn is not None:
+        raise ValueError("fused_embed IS the projector; a project_fn cannot "
+                         "be substituted into it — use fused_embed=False")
+    sel = select_compact(params["ip2"], rgb, fe_cfg, mask=mask, indices=indices,
+                         precomputed=precomputed)
+    counts = torch.sum(sel.valid, dim=-1).to(torch.int32)
+    w8, s_w = _embed_q(params)
+    y = ops.ip2_fused_embed(sel.patches, sel.weights, sel.indices, fe_cfg.patch,
+                            fe_cfg.adc, w8, s_w, row_counts=counts)
+    _, zero = feature_scale_zero(params["ip2"], fe_cfg)
+    gain = sel.valid.to(torch.float32)
+    x = (y + ops.fused_embed_zero_term(zero, w8, s_w)) * gain[..., None]
+    x = x + params["pos"][sel.indices.long()]
+    logits, received = _encoder(params, x, cfg, sel.valid)
+    n_selected = torch.sum(sel.valid, dim=-1).to(torch.float32)
+    events = power_mod.frontend_frame_events(
+        float(fe_cfg.image_h * fe_cfg.image_w), fe_cfg.patch.pixels_per_patch,
+        fe_cfg.patch.n_vectors, n_selected_patches=n_selected,
+        n_converted_patches=n_selected,
+    )
+    aux = {
+        "indices": sel.indices, "valid": sel.valid,
+        "saliency": _saliency(received, sel.indices, sel.valid, fe_cfg.n_patches),
+        "energy": sel.energy, "events": events,
+    }
+    return logits, aux
+
+
+def vit_forward_compact(params: dict, rgb: torch.Tensor, cfg: ViTConfig,
+                        indices: torch.Tensor | None = None,
+                        mask: torch.Tensor | None = None,
+                        project_fn=None, precomputed=None):
+    """Compact path: rgb (B, H, W, 3) -> (logits (B, n_classes), aux) with
+    aux ``indices`` (B, k), ``valid`` (B, k), ``saliency`` (B, P),
+    ``energy`` (B, P) and ``events`` (EventCounts of (B,) tensors)."""
+    if cfg.fused_embed:
+        return _forward_compact_fused(params, rgb, cfg, indices, mask,
+                                      project_fn, precomputed)
+    cf = apply_frontend(params["ip2"], rgb, cfg.frontend, mask=mask,
+                        indices=indices, mode="compact", project_fn=project_fn,
+                        precomputed=precomputed)
+    x = _embed_tokens(params, cf, cfg) + params["pos"][cf.indices.long()]
+    logits, received = _encoder(params, x, cfg, cf.valid)
+    aux = {
+        "indices": cf.indices, "valid": cf.valid,
+        "saliency": _saliency(received, cf.indices, cf.valid,
+                              cfg.frontend.n_patches),
+        "energy": cf.energy, "events": cf.events,
+    }
+    return logits, aux

@@ -1,0 +1,55 @@
+"""The IP2 closed saccade loop: frame t's patch selection comes from the
+backend's attention on frame t-1 (paper §1 "shifted attention")."""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import frontend as fe
+from repro_torch.core import saliency as sal
+from repro_torch.models.vit import vit_forward_compact
+
+
+def make_bootstrap_indices(cfg):
+    """First-frame selection from the in-pixel patch-energy proxy:
+    fn(params, rgb (B,H,W,3)) -> (B, k) int32."""
+    fcfg = cfg.frontend
+
+    def bootstrap(params, rgb):
+        patches, _ = fe.sensor_patches(params["ip2"], rgb, fcfg)
+        return sal.topk_patch_indices(sal.patch_energy(patches), fcfg.n_active)
+
+    return bootstrap
+
+
+def saccade_scores(aux: dict, explore: float) -> torch.Tensor:
+    """Next-frame selection scores (B, P) from one compact forward's aux.
+
+    Unobserved patches score the mean observed attention; ``explore``
+    weights the max-normalised patch energy added on top (a 1e-3 floor
+    keeps a content-aware tie-break at explore=0)."""
+    att = aux["saliency"]                               # (B, P), 0 unobserved
+    observed = torch.zeros(att.shape, dtype=torch.int32, device=att.device)
+    observed = observed.scatter_reduce(
+        1, aux["indices"].long(), aux["valid"].to(torch.int32), reduce="amax",
+        include_self=True).to(torch.bool)
+    n_obs = torch.clamp_min(observed.sum(-1, keepdim=True), 1)
+    baseline = att.sum(-1, keepdim=True) / n_obs
+    scores = torch.where(observed, att, baseline)
+    energy = aux["energy"]
+    energy = energy / torch.clamp_min(torch.amax(energy, dim=-1, keepdim=True), 1e-9)
+    return scores + max(explore, 1e-3) * baseline * energy
+
+
+def make_saccade_step(cfg, explore: float = 0.1, project_fn=None):
+    """Closed-loop step(params, rgb, indices) -> (logits, next_indices, aux)
+    on the compact path; seed ``indices`` with :func:`make_bootstrap_indices`."""
+    fcfg = cfg.frontend
+
+    def step(params, rgb, indices):
+        logits, aux = vit_forward_compact(params, rgb, cfg, indices=indices,
+                                          project_fn=project_fn)
+        scores = saccade_scores(aux, explore)
+        return logits, sal.topk_patch_indices(scores, fcfg.n_active), aux
+
+    return step

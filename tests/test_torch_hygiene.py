@@ -1,0 +1,127 @@
+"""Port hygiene: the port imports neither JAX nor the JAX package, its
+config dataclasses keep the reference's field names and defaults, its
+entry points refuse to guess a device, and its wrappers route on the
+device of their tensors without touching the CUDA build on the CPU."""
+
+import ast
+import dataclasses
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import repro.core.adc
+import repro.core.analog_nl
+import repro.core.frontend
+import repro.core.power
+import repro.core.projection
+import repro.core.pwm
+import repro.core.switched_cap
+import repro.core.temporal
+import repro.models.vit
+from repro.kernels.ip2_project import IP2KernelParams as RefKernelParams
+import repro_torch.convert
+import repro_torch.core.adc
+import repro_torch.core.analog_nl
+import repro_torch.core.frontend
+import repro_torch.core.power
+import repro_torch.core.projection
+import repro_torch.core.pwm
+import repro_torch.core.switched_cap
+import repro_torch.core.temporal
+import repro_torch.kernels.ops
+import repro_torch.models.vit
+import repro_torch.serve.engine
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _port_files():
+    return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_imports(path):
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+PAIRS = [
+    (repro.core.pwm.QuantSpec, repro_torch.core.pwm.QuantSpec),
+    (repro.core.switched_cap.SummerSpec, repro_torch.core.switched_cap.SummerSpec),
+    (repro.core.analog_nl.AnalogNLSpec, repro_torch.core.analog_nl.AnalogNLSpec),
+    (repro.core.adc.ADCSpec, repro_torch.core.adc.ADCSpec),
+    (repro.core.projection.PatchSpec, repro_torch.core.projection.PatchSpec),
+    (repro.core.temporal.TemporalSpec, repro_torch.core.temporal.TemporalSpec),
+    (repro.core.frontend.FrontendConfig, repro_torch.core.frontend.FrontendConfig),
+    (repro.models.vit.ViTConfig, repro_torch.models.vit.ViTConfig),
+    (RefKernelParams, repro_torch.kernels.ops.IP2KernelParams),
+    (repro.core.power.EnergyConstants, repro_torch.core.power.EnergyConstants),
+]
+
+
+def _plain(v):
+    """A default reduced to comparable values (nested dataclasses by fields)."""
+    if dataclasses.is_dataclass(v):
+        return {f.name: _plain(getattr(v, f.name)) for f in dataclasses.fields(v)}
+    return v
+
+
+@pytest.mark.parametrize("ref_cls,port_cls", PAIRS, ids=lambda c: c.__name__)
+def test_config_fields_match_reference(ref_cls, port_cls):
+    rf, pf = dataclasses.fields(ref_cls), dataclasses.fields(port_cls)
+    assert [f.name for f in pf] == [f.name for f in rf]
+    for a, b in zip(rf, pf):
+        assert _plain(b.default) == _plain(a.default), a.name
+
+
+@pytest.mark.parametrize("ref_t,port_t", [
+    (repro.core.power.EventCounts, repro_torch.core.power.EventCounts),
+    (repro.core.frontend.CompactFeatures, repro_torch.core.frontend.CompactFeatures),
+    (repro.core.frontend.CompactSelection, repro_torch.core.frontend.CompactSelection),
+], ids=lambda c: c.__name__)
+def test_named_tuple_fields_match_reference(ref_t, port_t):
+    assert port_t._fields == ref_t._fields
+
+
+def test_entry_points_need_cuda_when_device_is_none(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = repro_torch.models.vit.ViTConfig()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        repro_torch.models.vit.init_vit(cfg, torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        repro_torch.convert.params_from_numpy({"w": np.zeros(2, np.float32)})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        repro_torch.serve.engine.SaccadeEngine(cfg, {}, capacity=1)
+
+
+def test_cpu_tensors_never_reach_the_cuda_build(monkeypatch):
+    from repro_torch.kernels import _build, ops
+
+    def refuse(name):
+        raise AssertionError(f"CPU call tried to load the {name} kernel")
+
+    monkeypatch.setattr(_build, "load", refuse)
+    ops.reset_launches()
+    spec = repro_torch.core.projection.PatchSpec(8, 8, n_vectors=8)
+    adc = repro_torch.core.adc.ADCSpec()
+    x = torch.rand((2, 4, 64), generator=torch.Generator().manual_seed(0))
+    w = torch.randn((8, 64), generator=torch.Generator().manual_seed(1))
+    codes = ops.ip2_project(x, w, spec, adc=adc, codes=True)
+    w8, s_w = ops.quantize_weights_int8(torch.randn(8, 16))
+    ops.quant_matmul_pre(codes, adc.lsb, w8, s_w)
+    ops.ip2_fused_embed(x, w, torch.zeros((2, 3), dtype=torch.int32), spec, adc, w8, s_w)
+    assert all(n == 0 for n in ops.LAUNCHES.values())
+    with pytest.raises(RuntimeError, match="device"):
+        ops.ip2_project(x.to("meta"), w.to("meta"), spec, adc=adc, codes=True)

@@ -1,0 +1,124 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+These need an NVIDIA GPU with ``nvcc`` (the kernels are built at first
+use); everywhere else they skip. Run them on the card with
+``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py``.
+Tolerances: quant_matmul bitwise; ip2_project codes within 1 LSB on a
+bounded number of rows (cuBLAS and the kernel sum fp32 in different
+orders); ip2_fused_embed bitwise equal to ip2_project -> quant_matmul.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import adc as adc_mod
+from repro_torch.core import projection as proj
+from repro_torch.kernels import ops, ref
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _operands(dev, n_slots=5, n_patches=16, k=4, n2=256, m=32, d=40, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    spec = proj.PatchSpec(16, 16, n_vectors=m)
+    x = torch.rand((n_slots, n_patches, n2), generator=g)
+    w = torch.randn((m, n2), generator=g) * 6.4
+    idx = torch.stack([torch.randperm(n_patches, generator=g)[:k] for _ in range(n_slots)])
+    w8, s_w = ops.quantize_weights_int8(torch.randn((m, d), generator=g) * 0.1)
+    return spec, x.to(dev), w.to(dev), idx.to(torch.int32).to(dev), w8.to(dev), s_w.to(dev)
+
+
+@pytest.mark.parametrize("readout", ["codes", "dequant", "noadc", "sign"])
+def test_ip2_project_kernel_vs_plain(dev, readout):
+    spec, x, w, _, _, _ = _operands(dev)
+    adc = adc_mod.ADCSpec() if readout in ("codes", "dequant") else None
+    bias = torch.linspace(-0.1, 0.1, 32, device=dev)
+    flat = x.reshape(-1, x.shape[-1])
+    params = ops.kernel_params_from_spec(spec, adc, readout == "codes",
+                                         "sign" if readout == "sign" else "adc")
+    w_t = ops._dac_weights(w, spec).T.contiguous()
+    n0 = ops.LAUNCHES["ip2_project"]
+    got = ops._ip2_project_cuda(flat.contiguous(), w_t, bias, params)
+    assert ops.LAUNCHES["ip2_project"] == n0 + 1
+    want = ref.ip2_project_ref(flat, w_t, bias, params)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if readout == "noadc":
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+        return
+    d = (got.double() - want.double()).abs()
+    if readout == "dequant":
+        d = d / adc.lsb
+    assert d.max().item() <= 1 + 1e-4
+    assert (d.amax(-1) > 0.5).sum().item() <= max(2, flat.shape[0] // 100)
+
+
+@pytest.mark.parametrize("bits", [10, 20])
+def test_ip2_project_wide_codes_kernel(dev, bits):
+    """int16 / int32 code stores: the kernel's codes equal the plain ADC on
+    the kernel's own analog output (V_R = 0 and no bias: the no-ADC
+    readout) bit for bit, and stay within 1 LSB of the plain version at
+    10 bits."""
+    spec, x, w, _, _, _ = _operands(dev)
+    adc = adc_mod.ADCSpec(bits=bits)
+    got = ops.ip2_project(x, w, spec, adc=adc, codes=True)
+    assert got.dtype == adc.code_dtype
+    v_out = ops.ip2_project(x, w, spec)
+    assert torch.equal(got, adc_mod.encode(v_out, adc))
+    if bits == 10:
+        flat = x.reshape(-1, x.shape[-1])
+        w_t = ops._dac_weights(w, spec).T.contiguous()
+        params = ops.kernel_params_from_spec(spec, adc, codes=True)
+        bias = torch.zeros(w_t.shape[1], device=dev)
+        want = ref.ip2_project_ref(flat, w_t, bias, params).reshape(got.shape)
+        d = (got.int() - want.int()).abs()
+        assert d.max().item() <= 1
+        assert (d.reshape(-1, d.shape[-1]).amax(-1) > 0).sum().item() <= 2
+
+
+def test_quant_matmul_kernel_bitwise(dev):
+    g = torch.Generator().manual_seed(1)
+    a8 = torch.randint(-128, 128, (37, 192), generator=g, dtype=torch.int8).to(dev)
+    w8 = torch.randint(-127, 128, (192, 100), generator=g, dtype=torch.int8).to(dev)
+    s_a = (torch.rand(37, generator=g) * 0.01).to(dev)
+    s_w = (torch.rand(100, generator=g) * 0.01).to(dev)
+    got = ops._quant_matmul_cuda(a8, s_a, w8, s_w)
+    want = ref.quant_matmul_ref(a8, s_a, w8, s_w)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_fused_embed_equals_staged_kernels(dev):
+    spec, x, w, idx, w8, s_w = _operands(dev)
+    adc = adc_mod.ADCSpec()
+    fused = ops.ip2_fused_embed(x, w, idx, spec, adc, w8, s_w)
+    gathered = torch.gather(x, 1, idx.long()[..., None].expand(*idx.shape, x.shape[-1]))
+    codes = ops.ip2_project(gathered, w, spec, adc=adc, codes=True)
+    staged = ops.quant_matmul_pre(codes, adc.lsb, w8, s_w)
+    torch.cuda.synchronize()
+    assert torch.equal(fused, staged)
+    cnt = torch.tensor([4, 2, 0, 1, 3], dtype=torch.int32, device=dev)
+    ragged = ops.ip2_fused_embed(x, w, idx, spec, adc, w8, s_w, row_counts=cnt)
+    live = torch.arange(4, device=dev)[None, :] < cnt[:, None]
+    assert torch.equal(ragged[live], fused[live])
+    assert not ragged[~live].any()
+
+
+def test_embed_kernels_reject_wide_codes(dev):
+    """The int8 embed kernels raise on codes wider than 8 bits rather than
+    wrapping them."""
+    spec, x, w, idx, w8, s_w = _operands(dev)
+    adc = adc_mod.ADCSpec(bits=10)
+    with pytest.raises(ValueError, match="8 bits"):
+        ops.ip2_fused_embed(x, w, idx, spec, adc, w8, s_w)
+    codes = ops.ip2_project(x, w, spec, adc=adc, codes=True)
+    with pytest.raises(ValueError, match="int8"):
+        ops.quant_matmul_pre(codes, adc.lsb, w8, s_w)

@@ -1,0 +1,157 @@
+"""Port parity: the kernels' plain PyTorch versions (what the ops wrappers
+run on CPU tensors) against the JAX ops wrappers, whose Pallas kernels run
+in interpret mode here.
+
+* ``quant_matmul_pre``: bitwise (integer sums, one fixed epilogue order).
+* ``ip2_project``: an fp32 sum may land on the other side of an ADC (or
+  sign) boundary when XLA and PyTorch add in different orders, so codes
+  may differ by exactly 1 LSB on a counted, bounded number of rows; float
+  readouts carry that LSB, and otherwise agree to atol 1e-6.
+* ``ip2_fused_embed``: equal to the port's own staged pair bitwise, and to
+  the JAX fused kernel on every row whose codes agree.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import adc as j_adc
+from repro.core import projection as j_proj
+from repro.core.analog_nl import AnalogNLSpec as JNL
+from repro.kernels import ops as j_ops
+from repro_torch.core import adc as t_adc
+from repro_torch.core import projection as t_proj
+from repro_torch.core.analog_nl import AnalogNLSpec as TNL
+from repro_torch.kernels import ops as t_ops
+
+RNG = np.random.default_rng(1)
+MAX_FLIP_ROWS = 2   # bound on rows with a 1-LSB difference, per call
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x, copy=True))
+
+
+def _operands(n_rows=24, n2=256, m=32, nl="none"):
+    js = j_proj.PatchSpec(patch_h=16, patch_w=16, n_vectors=m, nl=JNL(kind=nl))
+    ts = t_proj.PatchSpec(patch_h=16, patch_w=16, n_vectors=m, nl=TNL(kind=nl))
+    x = RNG.uniform(size=(2, n_rows // 2, n2)).astype(np.float32)
+    w = (RNG.normal(size=(m, n2)) * 6.4).astype(np.float32)
+    bias = (RNG.normal(size=(m,)) * 0.05).astype(np.float32)
+    return js, ts, x, w, bias
+
+
+def _flip_rows(a, b):
+    d = np.abs(a.astype(np.int64) - b.astype(np.int64))
+    assert d.max() <= 1, f"code difference {d.max()} > 1 LSB"
+    rows = d.reshape(-1, d.shape[-1]).max(-1) > 0
+    assert rows.sum() <= MAX_FLIP_ROWS, f"{rows.sum()} rows moved by 1 LSB"
+    return rows
+
+
+@pytest.mark.parametrize("nl", ["none", "relu"])
+def test_ip2_project_codes(nl):
+    js, ts, x, w, _ = _operands(nl=nl)
+    jc = np.asarray(j_ops.ip2_project(jnp.asarray(x), jnp.asarray(w), js,
+                                      adc=j_adc.ADCSpec(), codes=True))
+    tc = t_ops.ip2_project(_t(x), _t(w), ts, adc=t_adc.ADCSpec(), codes=True)
+    assert tc.dtype == torch.int8 and tuple(tc.shape) == jc.shape
+    _flip_rows(tc.numpy(), jc)
+
+
+@pytest.mark.parametrize("bits", [10, 20])
+def test_ip2_project_wide_codes(bits):
+    """ADCs wider than 8 bits emit int16 / int32 codes. At 10 bits they
+    follow the 1-LSB rule against JAX; at 20 bits an LSB is below the fp32
+    sums' order noise, so they are held instead to the ADC applied to the
+    port's own analog output (V_R = 0 and no bias: the no-ADC readout)."""
+    js, ts, x, w, _ = _operands()
+    tadc = t_adc.ADCSpec(bits=bits)
+    tc = t_ops.ip2_project(_t(x), _t(w), ts, adc=tadc, codes=True)
+    jc = np.asarray(j_ops.ip2_project(jnp.asarray(x), jnp.asarray(w), js,
+                                      adc=j_adc.ADCSpec(bits=bits), codes=True))
+    assert tc.dtype == tadc.code_dtype and tc.numpy().dtype == jc.dtype
+    assert tuple(tc.shape) == jc.shape
+    if bits == 10:
+        _flip_rows(tc.numpy(), jc)
+    v_out = t_ops.ip2_project(_t(x), _t(w), ts)
+    np.testing.assert_array_equal(tc.numpy(), t_adc.encode(v_out, tadc).numpy())
+
+
+def test_program_weights_as_weights():
+    """Weights programmed once give the same projection as raw weights, and
+    programming is idempotent."""
+    _, ts, x, w, bias = _operands()
+    prog = t_ops.program_weights(_t(w), ts)
+    assert t_ops.program_weights(prog, ts) is prog
+    for kw in ({"adc": t_adc.ADCSpec(), "codes": True}, {"bias": _t(bias)}):
+        np.testing.assert_array_equal(
+            t_ops.ip2_project(_t(x), prog, ts, **kw).numpy(),
+            t_ops.ip2_project(_t(x), _t(w), ts, **kw).numpy())
+
+
+@pytest.mark.parametrize("readout", ["dequant", "noadc", "sign"])
+def test_ip2_project_float_and_sign_readouts(readout):
+    js, ts, x, w, bias = _operands()
+    kw_j = {"bias": jnp.asarray(bias)}
+    kw_t = {"bias": _t(bias)}
+    if readout == "dequant":
+        kw_j["adc"], kw_t["adc"] = j_adc.ADCSpec(), t_adc.ADCSpec()
+    if readout == "sign":
+        kw_j["readout"] = kw_t["readout"] = "sign"
+    jo = np.asarray(j_ops.ip2_project(jnp.asarray(x), jnp.asarray(w), js, **kw_j))
+    to = t_ops.ip2_project(_t(x), _t(w), ts, **kw_t).numpy()
+    assert to.dtype == jo.dtype and to.shape == jo.shape
+    if readout == "sign":
+        _flip_rows(to, jo)
+    elif readout == "noadc":
+        np.testing.assert_allclose(to, jo, atol=1e-6, rtol=0)
+    else:
+        lsb = t_adc.ADCSpec().lsb
+        codes = np.rint((to - jo) / lsb)
+        np.testing.assert_allclose(to - codes * lsb, jo, atol=1e-6, rtol=0)
+        _flip_rows(codes.astype(np.int64), np.zeros_like(codes, np.int64))
+
+
+def test_quant_matmul_pre_bitwise():
+    a8 = RNG.integers(-128, 128, size=(3, 7, 48)).astype(np.int8)
+    w = (RNG.normal(size=(48, 40)) * 0.1).astype(np.float32)
+    jw8, jsw = j_ops.quantize_weights_int8(jnp.asarray(w))
+    tw8, tsw = t_ops.quantize_weights_int8(_t(w))
+    np.testing.assert_array_equal(tw8.numpy(), np.asarray(jw8))
+    np.testing.assert_array_equal(tsw.numpy(), np.asarray(jsw))
+    for s_a in (np.float32(2.0 / 255), RNG.uniform(0.001, 0.1, (3, 7)).astype(np.float32)):
+        jy = np.asarray(j_ops.quant_matmul_pre(jnp.asarray(a8), jnp.asarray(s_a), jw8, jsw))
+        ty = t_ops.quant_matmul_pre(_t(a8), _t(s_a), tw8, tsw).numpy()
+        np.testing.assert_array_equal(ty, jy)
+
+
+def test_ip2_fused_embed():
+    js, ts, x, w, _ = _operands()
+    n_patches = x.shape[1]
+    idx = np.stack([RNG.permutation(n_patches)[:5] for _ in range(2)]).astype(np.int32)
+    emb = (RNG.normal(size=(32, 24)) * 0.1).astype(np.float32)
+    tw8, tsw = t_ops.quantize_weights_int8(_t(emb))
+    jw8, jsw = jnp.asarray(tw8.numpy()), jnp.asarray(tsw.numpy())
+    tadc = t_adc.ADCSpec()
+    ty = t_ops.ip2_fused_embed(_t(x), _t(w), _t(idx), ts, tadc, tw8, tsw).numpy()
+    # the port's staged pair, bitwise
+    gathered = np.take_along_axis(x, idx[..., None].astype(np.int64), axis=1)
+    codes = t_ops.ip2_project(_t(gathered), _t(w), ts, adc=tadc, codes=True)
+    staged = t_ops.quant_matmul_pre(codes, torch.tensor(tadc.lsb, dtype=torch.float32),
+                                    tw8, tsw).numpy()
+    np.testing.assert_array_equal(ty, staged)
+    # the JAX fused kernel, on rows whose codes agree
+    jy = np.asarray(j_ops.ip2_fused_embed(jnp.asarray(x), jnp.asarray(w), jnp.asarray(idx),
+                                          js, j_adc.ADCSpec(), jw8, jsw))
+    jcodes = np.asarray(j_ops.ip2_project(jnp.asarray(gathered), jnp.asarray(w), js,
+                                          adc=j_adc.ADCSpec(), codes=True))
+    same = ~_flip_rows(codes.numpy(), jcodes).reshape(idx.shape)
+    np.testing.assert_array_equal(ty[same], jy[same])
+    # ragged counts: rows at or past the count are zero
+    cnt = np.array([2, 0], np.int32)
+    tr = t_ops.ip2_fused_embed(_t(x), _t(w), _t(idx), ts, tadc, tw8, tsw,
+                               row_counts=_t(cnt)).numpy()
+    np.testing.assert_array_equal(tr[0, :2], ty[0, :2])
+    assert not tr[0, 2:].any() and not tr[1].any()
