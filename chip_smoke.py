@@ -6,27 +6,42 @@
 Runs from the repository root (it finds the port under ``src/``) and needs
 one CUDA device. Phases, any failure exits non-zero:
 
-  build  compile the three CUDA kernels from ``src/repro_torch/kernels/csrc``
+  build  compile the five CUDA sources from ``src/repro_torch/kernels/csrc``
          into ``build/`` (one nvcc per source, in parallel).
   (a)    each kernel against its plain PyTorch version on the card, at the
          serving path's shapes, through the public ops wrappers:
          quant_matmul bitwise; ip2_project's ADC codes and other readouts
          within 1 step on at most 1% of rows, and its 10- and 20-bit codes
          (int16, int32) bitwise equal to the ADC on its own analog output;
-         ip2_fused_embed bitwise equal to ip2_project -> quant_matmul.
-  (b)    the main path: two SaccadeEngines at ip2-vit width (256x256 frames,
-         32x32 patches, M=192, 6 layers, d_model 256) and capacity 64, one
-         on the staged kernel route, one on the fused kernel, same seeded
-         parameters and SceneStream frames, 12 ticks of admit / evict /
-         partial-fed churn. Logits and gaze of the two must be bitwise
-         equal, logits finite, held slots frozen, and every kernel's launch
-         count (reset just before, read just after) above 0.
-  (ref)  a small input through the kernel route on the card and the plain
+         ip2_fused_embed bitwise equal to ip2_project -> quant_matmul; the
+         sparse projection bitwise ip2_project on the gathered rows; the
+         ragged one with counts 0, partial and full per slot bitwise the
+         same below the count and 0 past it, and within 1 LSB on at most
+         1% of rows of its plain version; delta_attention within 1e-5 of
+         its plain version, 0 past the counts.
+  (b)    the main paths, each with the launch counts reset just before and
+         read just after, on 12 ticks of admit / evict / partial-fed churn
+         at ip2-vit width (256x256 frames, 32x32 patches, M=192, 6 layers,
+         d_model 256) and capacity 64, seeded parameters and SceneStream
+         frames:
+         - plain mode: a SaccadeEngine on the staged kernel route and one
+           on the fused kernel; logits and gaze bitwise equal, logits
+           finite, held slots frozen, each of their kernels launched;
+         - the gated engine (temporal gate j=8 of k=16, power governor at
+           half the fleet mW the ungoverned engine meters, delta-gated
+           backend with the ragged attention kernel): ip2_ragged once per
+           tick, delta_attention 5 times per computed tick, some slot
+           ragged (0 < count < rows) for both, held slots frozen; and in
+           the exact backend regime (eps 0) the engine with the kernel and
+           the same engine with dense attention (delta_kernel=False) agree:
+           logits within 1e-5 every tick, integer state equal.
+  (ref)  small inputs through the kernel route on the card and the plain
          route on the CPU: same indices, logits and saliency within 1e-4
-         on every slot whose codes agree.
+         on every slot whose codes agree; the same for the gated engine.
   (c)    times with CUDA events after warm-up: per-tick engine ms and
-         stream-frames/s, each kernel's ms beside its plain version's, a
-         PyTorch yardstick call's (never used by the port) and its bound.
+         stream-frames/s (plain routes and the gated engine), each kernel's
+         ms beside its plain version's, a PyTorch yardstick call's (never
+         used by the port) and its bound.
 
 Prints the kernel table as one JSON line, the card's name and power limit
 (nvidia-smi), and last ``{"ok": true, "device": {...}}``. With ``--out DIR``
@@ -51,6 +66,9 @@ HBM_BPS = 3.35e12
 FP32_FLOPS = 67e12
 INT8_OPS = 1979e12
 CAPACITY = 64
+# the kernel table's rows, numbered as in ROADMAP.md's kernel queue
+KERNELS = ("ip2_project_sparse", "ip2_ragged", "delta_attention", "ip2_fused_embed",
+           "quant_matmul", "ip2_project")
 
 
 def _fail(msg):
@@ -77,6 +95,16 @@ def _bound(n_bytes, t_ops):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def _flip_rows(a, b, rows_per_call):
+    """Rows whose integer codes differ, asserting at most 1 LSB on at most
+    1 % of the rows."""
+    d = (a.reshape(-1, a.shape[-1]).int() - b.reshape(-1, b.shape[-1]).int()).abs()
+    flips = int((d.amax(-1) > 0).sum())
+    assert int(d.max()) <= 1, f"codes differ by {int(d.max())} LSB"
+    assert flips <= rows_per_call // 100, f"{flips} rows moved by 1 LSB"
+    return int(d.max()), flips
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", type=Path, default=None,
@@ -89,17 +117,21 @@ def main():
         _fail("no CUDA device: the port's kernels run on an NVIDIA GPU")
     sys.path.insert(0, str(ROOT / "src"))
     try:
+        import numpy as np
         from repro_torch.convert import tree_to
         from repro_torch.core import frontend as fe
         from repro_torch.core.adc import ADCSpec, encode
         from repro_torch.core import saliency as sal
         from repro_torch.core.frontend import FrontendConfig
         from repro_torch.core.projection import PatchSpec
+        from repro_torch.core.switched_cap import SummerSpec
+        from repro_torch.core.temporal import TemporalSpec
         from repro_torch.data.pipeline import SceneStream
         from repro_torch.kernels import _build, ops, ref
         from repro_torch.models.vit import ViTConfig, init_vit, prepare_quant_embed, \
             vit_forward_compact
         from repro_torch.serve.engine import SaccadeEngine
+        from repro_torch.serve.governor import GovernorSpec
     except ImportError as e:
         _fail(f"the port is not beside this script ({e})")
 
@@ -140,14 +172,25 @@ def main():
     cfg_s = ViTConfig(frontend=fcfg, n_layers=6, d_model=256, n_heads=4, d_ff=1024,
                       quant_embed=True)
     cfg_f = dataclasses.replace(cfg_s, fused_embed=True)
+    # the gated engine: droop-free summer (held gains stay 1.0, so unchanged
+    # rows are bitwise unchanged), temporal gate j = 8 of k = 16, the delta
+    # backend with the ragged attention kernel on layers 0-4
+    fcfg_g = dataclasses.replace(
+        fcfg, patch=PatchSpec(32, 32, n_vectors=192,
+                              summer=SummerSpec(mode="passive", hold_time_s=0.0)),
+        temporal=TemporalSpec(delta_threshold=1e-3, recompute_budget=8))
+    cfg_g = dataclasses.replace(cfg_s, frontend=fcfg_g, saliency_layers="last",
+                                delta_kernel=True)
     params = prepare_quant_embed(init_vit(cfg_s, torch.Generator().manual_seed(0)))
     adc = fcfg.adc
     stream = SceneStream(seed=7, image=256)
+    k_tok = fcfg.n_active
+    j_rows = fcfg_g.temporal.budget(k_tok)
 
     # path-shaped operands: 64 slots of the first frames, energy bootstrap
     rgb0, _ = stream.batch(1000, CAPACITY)
     patches, weights = fe.sensor_patches(params["ip2"], torch.from_numpy(rgb0).to(dev), fcfg)
-    idx = sal.topk_patch_indices(sal.patch_energy(patches), fcfg.n_active)
+    idx = sal.topk_patch_indices(sal.patch_energy(patches), k_tok)
     gathered = sal.gather_patches(patches, idx).reshape(-1, patches.shape[-1]).contiguous()
     w_t = ops._dac_weights(weights, fcfg.patch).T.contiguous()
     zero_bias = torch.zeros(w_t.shape[1], device=dev)
@@ -156,15 +199,34 @@ def main():
     r_rows, k_in, m = gathered.shape[0], gathered.shape[1], w_t.shape[1]
     d = w8.shape[1]
     s_a = torch.full((r_rows,), adc.lsb, dtype=torch.float32, device=dev)
-    # the fused kernel's own operands: dense row table, per-slot counts
+    # the fused and sparse kernels' own operands: dense row table, counts
     table = (idx.int() + torch.arange(CAPACITY, device=dev, dtype=torch.int32)[:, None]
              * patches.shape[1]).reshape(-1).contiguous()
-    counts = torch.full((CAPACITY,), fcfg.n_active, dtype=torch.int32, device=dev)
+    counts = torch.full((CAPACITY,), k_tok, dtype=torch.int32, device=dev)
     flat_p = patches.reshape(-1, k_in).contiguous()
+    # the ragged projection's: each slot's j stale rows, gathered (the gate
+    # hands the codes adapter these, with identity indices)
+    stale = sal.gather_patches(patches, idx[:, :j_rows]).contiguous()
+    stale_flat = stale.reshape(-1, k_in)
+    table2, _ = ops._ragged_tables(ops._identity_indices(stale), j_rows, None)
+    cnt_mix = torch.tensor([(0, 3, j_rows, 5)[i % 4] for i in range(CAPACITY)],
+                           dtype=torch.int32, device=dev)
+    pf = ops.ip2_codes_fn(fcfg.patch, adc)
+    # delta_attention's: layer 0's q, k, v over seeded tokens; 16, 12 or 8
+    # valid tokens per slot (the governor's tiers)
+    g3 = torch.Generator().manual_seed(5)
+    h3 = (torch.randn((CAPACITY, k_tok, cfg_s.d_model), generator=g3)).to(dev)
+    a0 = params["layers"][0]["attn"]
+    q3, k3, v3 = (torch.einsum("bsd,dhk->bshk", h3, a0[w]) + a0[b]
+                  for w, b in (("wq", "bq"), ("wk", "bk"), ("wv", "bv")))
+    q3, k3, v3 = q3.contiguous(), k3.contiguous(), v3.contiguous()
+    n_valid = torch.tensor([(16, 12, 8)[i % 3] for i in range(CAPACITY)], device=dev)
+    valid3 = torch.arange(k_tok, device=dev)[None, :] < n_valid[:, None]
+    cnt3_mix = torch.tensor([(0, 5, k_tok, 11)[i % 4] for i in range(CAPACITY)],
+                            dtype=torch.int32, device=dev)
 
     def fused_plain():
-        return ref.ip2_fused_embed_ref(table, counts, flat_p, w_t, w8, s_w, p_codes,
-                                       fcfg.n_active)
+        return ref.ip2_fused_embed_ref(table, counts, flat_p, w_t, w8, s_w, p_codes, k_tok)
 
     kernels = {}
 
@@ -223,7 +285,41 @@ def main():
         assert torch.equal(fused[same], fused_plain()[same]), \
             "ip2_fused_embed differs from its plain version on rows whose codes agree"
 
-    # ---- (b) the main path: staged and fused engines ---------------------
+    @phase("a_kernels_1_to_3_vs_plain")
+    def _a2():
+        codes = ops.ip2_project(gathered, weights, fcfg.patch, adc=adc, codes=True)
+        # kernel 1: the sparse gather on the dense 64-slot grid
+        sp = ops.ip2_project_sparse(patches, weights, idx, fcfg.patch, adc=adc, codes=True)
+        plain1 = ref.ip2_project_sparse_ref(table, None, flat_p, w_t, zero_bias, p_codes, k_tok)
+        torch.cuda.synchronize()
+        assert torch.equal(sp.reshape(r_rows, m), codes), \
+            "ip2_project_sparse differs from ip2_project on the gathered rows"
+        err, flips = _flip_rows(sp, plain1, r_rows)
+        kernels["ip2_project_sparse"] = {"max_abs_err": err, "flip_rows": flips, "rows": r_rows}
+        # kernel 2 through the codes adapter, as the gate calls it, with
+        # counts 0, partial and full per slot
+        rg = pf(stale, weights, fcfg.patch, row_counts=cnt_mix)
+        plain2 = ref.ip2_project_sparse_ref(table2, cnt_mix, stale_flat, w_t, zero_bias,
+                                            p_codes, j_rows)
+        torch.cuda.synchronize()
+        live = torch.arange(j_rows, device=dev)[None, :] < cnt_mix[:, None]
+        assert torch.equal(rg[live], sp[:, :j_rows][live]), \
+            "ip2_ragged differs from the sparse kernel below the counts"
+        assert not rg[~live].any(), "ip2_ragged rows past the counts are not zero"
+        err, flips = _flip_rows(rg, plain2, rg.shape[0] * rg.shape[1])
+        kernels["ip2_ragged"] = {"max_abs_err": err, "flip_rows": flips,
+                                 "rows": int(cnt_mix.sum())}
+        # kernel 3
+        o3 = ops._delta_attention_cuda(q3, k3, v3, valid3, cnt3_mix)
+        plain3 = ref.delta_attention_ref(q3, k3, v3, valid3, cnt3_mix)
+        torch.cuda.synchronize()
+        err3 = float((o3 - plain3).abs().max())
+        kernels["delta_attention"] = {"max_abs_err": err3}
+        assert err3 <= 1e-5, f"delta_attention off its plain version by {err3}"
+        live3 = torch.arange(k_tok, device=dev)[None, :] < cnt3_mix[:, None]
+        assert not o3[~live3].any(), "delta_attention rows past the counts are not zero"
+
+    # ---- (b) the main paths ------------------------------------------------
     engines = {
         "staged": SaccadeEngine(cfg_s, params, capacity=CAPACITY,
                                 project_fn=ops.ip2_codes_fn(fcfg.patch, adc)),
@@ -273,32 +369,203 @@ def main():
             after = engines["staged"].state.indices
             assert torch.equal(after[held], before[held]), f"tick {t}: a held slot moved"
         launches = dict(ops.LAUNCHES)
-        for name, n in launches.items():
-            kernels.setdefault(name, {})["launches"] = n
+        for name in ("ip2_project", "quant_matmul", "ip2_fused_embed"):
+            kernels.setdefault(name, {})["launches"] = launches[name]
         report["main_path"] = {"ticks": len(schedule), "launches": launches}
-        assert all(n > 0 for n in launches.values()), f"a kernel never ran: {launches}"
+        assert all(launches[n] > 0 for n in ("ip2_project", "quant_matmul",
+                                              "ip2_fused_embed")), \
+            f"a kernel never ran: {launches}"
+
+    # the gated path: each stream watches one scene that changes every 4
+    # ticks, so held charge and backend work get reused
+    scene_pool, _ = SceneStream(seed=9, image=256).batch(0, 24)
+    pf_g = ops.ip2_codes_fn(fcfg_g.patch, adc)
+    gated = {}
+
+    def gated_frames(t, sids):
+        return {s: scene_pool[(ids.index(s) + t // 4) % len(scene_pool)] for s in sids}
+
+    def drive(eng, on_tick):
+        """The 12-tick schedule on one engine; ``on_tick(t, frames, outs,
+        held, before, launched)`` after each step."""
+        for t, (evicts, admits, fed) in enumerate(schedule):
+            for sid in evicts:
+                eng.evict(sid)
+            for sid in admits:
+                eng.admit(sid)
+            live = eng.stream_ids
+            feed = live if fed is None else [s for s in fed if s in live]
+            frames = gated_frames(t, feed)
+            held = [eng.slot_of(s) for s in live if s not in frames]
+            before = int_state(eng)
+            pre = dict(ops.LAUNCHES)
+            outs = eng.step(frames)
+            launched = {n: ops.LAUNCHES[n] - pre[n] for n in pre}
+            on_tick(t, frames, outs, held, before, launched)
+
+    def int_state(eng):
+        """The engine's integer (and discrete) state, copied."""
+        st = eng.state
+        parts = {"indices": st.indices, "frame_age": st.frame_age, "active": st.active}
+        for group in ("cache", "controls", "bcache"):
+            leaf = getattr(st, group)
+            for name, x in zip(leaf._fields if leaf is not None else (), leaf or ()):
+                if not x.is_floating_point() or name == "eps":
+                    parts[f"{group}.{name}"] = x
+        return {n: x.clone() for n, x in parts.items()}
+
+    @phase("b_gated_path")
+    def _bg():
+        # the ungoverned engine's metered fleet power on the same frames;
+        # the governor gets half of it
+        ung = SaccadeEngine(cfg_g, params, capacity=CAPACITY, project_fn=pf_g,
+                            temporal=True, backend_delta=True)
+        fleet_mw = []
+        drive(ung, lambda *a: fleet_mw.append(ung.fleet_power_mw()))
+        del ung
+        budget = 0.5 * float(np.mean(fleet_mw))
+        gov = GovernorSpec(budget_mw=budget, backend_eps=1e-3)
+
+        # record the ragged kernels' counts as the path hands them over
+        rec = {"ip2_ragged": [], "delta_attention": []}
+        orig = {"ip2_ragged": ops._ip2_sparse_cuda, "delta_attention": ops._delta_attention_cuda}
+
+        def rec_sparse(table, counts, *a, **kw):
+            out = orig["ip2_ragged"](table, counts, *a, **kw)
+            rec["ip2_ragged"].append(None if counts is None else counts.cpu())
+            return out
+
+        def rec_attn(q, k, v, key_mask, q_counts):
+            out = orig["delta_attention"](q, k, v, key_mask, q_counts)
+            rec["delta_attention"].append(q_counts.cpu())
+            return out
+
+        main = SaccadeEngine(cfg_g, params, capacity=CAPACITY, project_fn=pf_g,
+                             temporal=True, governor=gov, backend_delta=True)
+        gated["main"] = main
+        ticks = []
+
+        def on_main(t, frames, outs, held, before, launched):
+            st = main.state
+            after = int_state(main)
+            for s in held:
+                for n in after:
+                    assert torch.equal(after[n][s], before[n][s]), f"tick {t}: held {n} moved"
+            fed = [main.slot_of(s) for s in frames]
+            for sid in frames:
+                assert np.isfinite(outs[sid]).all(), f"tick {t}: non-finite logits"
+            macs = st.events_last.backend_macs[fed]
+            computed = bool((macs > 0).any())
+            assert computed == bool((macs > 0).all()), "the batch skip split the fleet"
+            k3 = rec["delta_attention"][-launched["delta_attention"]:] \
+                if launched["delta_attention"] else []
+            ticks.append({
+                "tick": t, "fed": len(fed), "launches": {n: c for n, c in launched.items() if c},
+                "computed": computed,
+                "mean_n_stale": float(st.cache.n_stale[fed].float().mean()),
+                "mean_q_counts": (float(torch.stack(k3)[:, fed].float().mean())
+                                  if k3 else None),
+                "j_cap_hist": {int(v): int(c) for v, c in zip(
+                    *np.unique(st.controls.j_cap[fed].cpu().numpy(), return_counts=True))},
+                "tier_hist": {int(v): int(c) for v, c in zip(
+                    *np.unique(st.controls.tier[fed].cpu().numpy(), return_counts=True))},
+            })
+
+        ops._ip2_sparse_cuda, ops._delta_attention_cuda = rec_sparse, rec_attn
+        try:
+            ops.reset_launches()
+            drive(main, on_main)
+            launches = dict(ops.LAUNCHES)
+        finally:
+            ops._ip2_sparse_cuda, ops._delta_attention_cuda = \
+                orig["ip2_ragged"], orig["delta_attention"]
+        n_computed = sum(t["computed"] for t in ticks)
+        for name in ("ip2_ragged", "delta_attention"):
+            kernels.setdefault(name, {})["launches"] = launches[name]
+        k2 = torch.stack([c for c in rec["ip2_ragged"] if c is not None])
+        k3 = torch.stack(rec["delta_attention"]) if rec["delta_attention"] else None
+        ragged2 = int(((k2 > 0) & (k2 < j_rows)).sum())
+        ragged3 = 0 if k3 is None else int(((k3 > 0) & (k3 < k_tok)).sum())
+        # the last counts with work in them, for the kernel timings of (c)
+        gated["counts"] = tuple(None if c is None else c[int(torch.nonzero(
+            c.sum(1) > 0).max())] for c in (k2, k3))
+        report["gated_path"] = {
+            "budget_mw": budget, "ungoverned_fleet_mw": fleet_mw, "launches": launches,
+            "computed_ticks": n_computed, "ragged_slot_ticks": {
+                "ip2_ragged": ragged2, "delta_attention": ragged3},
+            "ticks": ticks}
+        print(json.dumps({"gated_ticks": ticks}))
+        print(json.dumps({"gated_path": {k: v for k, v in report["gated_path"].items()
+                                         if k != "ticks"}}))
+        assert launches["ip2_ragged"] == len(schedule), launches
+        assert launches["delta_attention"] == (cfg_g.n_layers - 1) * n_computed, launches
+        assert launches["quant_matmul"] == n_computed, launches
+        assert n_computed > 0 and launches["delta_attention"] > 0, launches
+        assert all(launches[n] == 0 for n in ("ip2_project", "ip2_fused_embed",
+                                               "ip2_project_sparse")), launches
+        assert ragged2 > 0, "ip2_ragged never ran ragged (0 < count < j)"
+        assert ragged3 > 0, "delta_attention never ran ragged (0 < count < k)"
+        caps = set().union(*(t["j_cap_hist"] for t in ticks))
+        tiers = set().union(*(t["tier_hist"] for t in ticks))
+        assert len(caps) > 1 and len(tiers) > 1, f"the governor never moved: {caps} {tiers}"
+
+        # delta_kernel=True against dense attention (delta_kernel=False). With
+        # eps > 0 the two differ by design, in the JAX package too: the
+        # ragged kernel leaves the rows past the stale prefix on their cached
+        # values, where dense attention keeps every row that moved by more
+        # than eps. In the exact regime (backend_eps 0) a changed layer
+        # re-attends every row, so there they must agree.
+        exact = dataclasses.replace(gov, backend_eps=0.0)
+        pair = {dk: SaccadeEngine(dataclasses.replace(cfg_g, delta_kernel=dk), params,
+                                  capacity=CAPACITY, project_fn=pf_g, temporal=True,
+                                  governor=exact, backend_delta=True)
+                for dk in (True, False)}
+        hist, n_attn = [], [0]
+
+        def on_kernel(t, frames, outs, held, before, launched):
+            hist.append((outs, int_state(pair[True])))
+            n_attn[0] += launched["delta_attention"]
+
+        worst = [0.0]
+
+        def on_dense(t, frames, outs, held, before, launched):
+            ref_outs, ref_state = hist[t]
+            for sid in frames:
+                e = float(np.abs(outs[sid] - ref_outs[sid]).max())
+                worst[0] = max(worst[0], e)
+                assert e <= 1e-5, f"tick {t} {sid}: dense attention off by {e}"
+            now = int_state(pair[False])
+            for n in now:
+                assert torch.equal(now[n], ref_state[n]), f"tick {t}: {n} differs"
+
+        drive(pair[True], on_kernel)
+        drive(pair[False], on_dense)
+        report["gated_path"]["exact_regime"] = {
+            "delta_attention_launches": n_attn[0], "kernel_vs_dense_max_logit_err": worst[0]}
+        assert n_attn[0] > 0, "the exact-regime engine never launched delta_attention"
 
     # ---- (ref) small input: kernel route on the card vs plain on the CPU --
+    small_fe = FrontendConfig(image_h=64, image_w=64,
+                              patch=PatchSpec(16, 16, n_vectors=32), active_fraction=0.25)
+    small = ViTConfig(frontend=small_fe, n_layers=2, d_model=64, n_heads=4,
+                      d_ff=128, quant_embed=True)
+
     @phase("ref_small_input")
     def _ref():
-        small_fe = FrontendConfig(image_h=64, image_w=64,
-                                  patch=PatchSpec(16, 16, n_vectors=32), active_fraction=0.25)
-        small = ViTConfig(frontend=small_fe, n_layers=2, d_model=64, n_heads=4,
-                          d_ff=128, quant_embed=True)
         p_cpu = prepare_quant_embed(init_vit(small, torch.Generator().manual_seed(1),
                                              device="cpu"))
         p_gpu = tree_to(p_cpu, dev)
         rgb, _ = SceneStream(seed=3, image=64).batch(0, 8)
         x_cpu = torch.from_numpy(rgb)
-        pf = ops.ip2_codes_fn(small_fe.patch, small_fe.adc)
-        cf_cpu = fe.apply_frontend(p_cpu["ip2"], x_cpu, small_fe, project_fn=pf)
-        cf_gpu = fe.apply_frontend(p_gpu["ip2"], x_cpu.to(dev), small_fe, project_fn=pf)
+        pf_s = ops.ip2_codes_fn(small_fe.patch, small_fe.adc)
+        cf_cpu = fe.apply_frontend(p_cpu["ip2"], x_cpu, small_fe, project_fn=pf_s)
+        cf_gpu = fe.apply_frontend(p_gpu["ip2"], x_cpu.to(dev), small_fe, project_fn=pf_s)
         assert torch.equal(cf_gpu.indices.cpu(), cf_cpu.indices), "selection differs"
         agree = (cf_gpu.features.cpu() == cf_cpu.features).all(-1).all(-1)
         assert int((~agree).sum()) <= 1, f"{int((~agree).sum())} slots with a moved code"
-        l_cpu, a_cpu = vit_forward_compact(p_cpu, x_cpu, small, project_fn=pf)
+        l_cpu, a_cpu = vit_forward_compact(p_cpu, x_cpu, small, project_fn=pf_s)
         outs = {route: vit_forward_compact(p_gpu, x_cpu.to(dev), c, **kw) for route, c, kw in
-                (("staged", small, {"project_fn": pf}),
+                (("staged", small, {"project_fn": pf_s}),
                  ("fused", dataclasses.replace(small, fused_embed=True), {}))}
         report["ref_small_input"] = {"slots_with_moved_codes": int((~agree).sum())}
         for route, (l_gpu, a_gpu) in outs.items():
@@ -310,6 +577,47 @@ def main():
             assert float(err_l) <= 1e-4 and float(err_s) <= 1e-4, report["ref_small_input"]
         assert torch.equal(outs["staged"][0], outs["fused"][0]), \
             "fused and staged differ on the card"
+
+    @phase("ref_gated_small_input")
+    def _refg():
+        """The gated engine at small size: kernel route on the card, plain
+        route on the CPU, 6 ticks on 8 streams whose scenes hold for two
+        ticks; held to 1e-4 on the slots whose codes have agreed so far."""
+        sfe = dataclasses.replace(
+            small_fe, patch=PatchSpec(16, 16, n_vectors=32,
+                                      summer=SummerSpec(mode="passive", hold_time_s=0.0)),
+            temporal=TemporalSpec(delta_threshold=1e-3, recompute_budget=2))
+        scfg = dataclasses.replace(small, frontend=sfe, saliency_layers="last",
+                                   delta_kernel=True)
+        p_cpu = prepare_quant_embed(init_vit(scfg, torch.Generator().manual_seed(1),
+                                             device="cpu"))
+        gov = GovernorSpec(budget_mw=1.0, backend_eps=1e-3, refresh_horizon=2)
+        pf_s = ops.ip2_codes_fn(sfe.patch, sfe.adc)
+        engs = {d_: SaccadeEngine(scfg, p_cpu, capacity=8, project_fn=pf_s, temporal=True,
+                                  governor=gov, backend_delta=True, device=d_)
+                for d_ in ("cpu", "cuda")}
+        pool, _ = SceneStream(seed=4, image=64).batch(0, 10)
+        for e in engs.values():
+            for i in range(8):
+                e.admit(f"s{i}")
+        agree = torch.ones(8, dtype=torch.bool)
+        worst = 0.0
+        for t in range(6):
+            frames = {f"s{i}": pool[(i + t // 2) % 10] for i in range(8)}
+            outs = {d_: e.step(frames) for d_, e in engs.items()}
+            st = {d_: e.state for d_, e in engs.items()}
+            agree &= (st["cuda"].cache.features.cpu() == st["cpu"].cache.features) \
+                .all(-1).all(-1)
+            for i in torch.nonzero(agree).flatten().tolist():
+                e = float(np.abs(outs["cuda"][f"s{i}"] - outs["cpu"][f"s{i}"]).max())
+                worst = max(worst, e)
+                assert e <= 1e-4, f"tick {t} slot {i}: logits off by {e}"
+                for name in ("j_cap", "tier"):
+                    assert int(getattr(st["cuda"].controls, name)[i]) == \
+                        int(getattr(st["cpu"].controls, name)[i])
+        report["ref_gated_small_input"] = {"slots_agreeing": int(agree.sum()),
+                                           "max_logit_err": worst}
+        assert int(agree.sum()) >= 6, f"only {int(agree.sum())} of 8 slots kept equal codes"
 
     # ---- (c) times -------------------------------------------------------
     @phase("c_times")
@@ -331,21 +639,90 @@ def main():
                 eng.step(frames)
             ms = (time.perf_counter() - t0) * 1e3 / n
             timing[name] = {"tick_ms": ms, "stream_frames_per_s": CAPACITY / ms * 1e3}
+        if "main" in gated:
+            # the gated engine on fresh streams whose scenes change every 4
+            # ticks: compute, partial-reuse and cached ticks mixed
+            eng = gated["main"]
+            for sid in list(eng.stream_ids):
+                eng.evict(sid)
+            for i in range(CAPACITY):
+                eng.admit(f"t{i}")
+            per_tick = []
+            for t in range(15):
+                frames = {f"t{i}": scene_pool[(i + t // 4) % len(scene_pool)]
+                          for i in range(CAPACITY)}
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                eng.step(frames)
+                per_tick.append((time.perf_counter() - t0) * 1e3)
+            ms = float(np.mean(per_tick[3:]))
+            timing["gated"] = {"tick_ms": ms, "stream_frames_per_s": CAPACITY / ms * 1e3,
+                               "tick_ms_each": per_tick[3:]}
         report["engine"] = timing
-        print(json.dumps({"engine": timing}))
+        print(json.dumps({"engine": {n: {k: v for k, v in t.items() if k != "tick_ms_each"}
+                                     for n, t in timing.items()}}))
 
         codes = ops._ip2_project_cuda(gathered, w_t, zero_bias, p_codes)
         fp32_ops = 2.0 * r_rows * k_in * m
         int8_ops = 2.0 * r_rows * m * d
+        # kernels 2 and 3 at counts the gated path produced (its last tick)
+        cnt2, cnt3 = gated.get("counts", (cnt_mix, cnt3_mix))
+        cnt2 = cnt2.to(dev).int().contiguous()
+        cnt3 = (cnt3_mix if cnt3 is None else cnt3).to(dev).int().contiguous()
+        live2 = (torch.arange(j_rows, device=dev)[None, :] < cnt2[:, None]).reshape(-1)
+        rows2 = int(cnt2.sum())
+        live_rows2 = stale_flat[live2].contiguous()
+        rows3 = int(cnt3.sum())
+        slots3 = int((cnt3 > 0).sum())
+        h, dh = q3.shape[2], q3.shape[3]
+        qt, kt, vt = (x.transpose(1, 2) for x in (q3, k3, v3))
+        sdpa_mask = valid3[:, None, None, :]
         rows = {
-            "ip2_project": dict(
-                replaces="src/repro/kernels/ip2_project.py:138",
-                source="src/repro_torch/kernels/csrc/ip2_project.cu",
-                kernel=lambda: ops._ip2_project_cuda(gathered, w_t, zero_bias, p_codes),
-                plain=lambda: ref.ip2_project_ref(gathered, w_t, zero_bias, p_codes),
+            "ip2_project_sparse": dict(
+                replaces="src/repro/kernels/ip2_project_sparse.py:79",
+                source="src/repro_torch/kernels/csrc/ip2_ragged.cu",
+                kernel=lambda: ops._ip2_sparse_cuda(table, None, flat_p, w_t, zero_bias,
+                                                    p_codes, k_tok),
+                plain=lambda: ref.ip2_project_sparse_ref(table, None, flat_p, w_t, zero_bias,
+                                                         p_codes, k_tok),
                 library=lambda: torch.matmul(gathered, w_t),
-                bytes=r_rows * k_in * 4 + k_in * m * 4 + r_rows * m,
+                bytes=r_rows * k_in * 4 + r_rows * 4 + k_in * m * 4 + r_rows * m,
                 t_ops=fp32_ops / FP32_FLOPS),
+            "ip2_ragged": dict(
+                replaces="src/repro/kernels/ip2_megakernel.py:122",
+                source="src/repro_torch/kernels/csrc/ip2_ragged.cu",
+                kernel=lambda: ops._ip2_sparse_cuda(table2, cnt2, stale_flat, w_t, zero_bias,
+                                                    p_codes, j_rows),
+                plain=lambda: ref.ip2_project_sparse_ref(table2, cnt2, stale_flat, w_t,
+                                                         zero_bias, p_codes, j_rows),
+                library=lambda: torch.matmul(live_rows2, w_t),
+                # the rows below the counts are read; every output row written
+                bytes=(rows2 * k_in * 4 + table2.numel() * 4 + CAPACITY * 4
+                       + k_in * m * 4 + table2.numel() * m),
+                t_ops=2.0 * rows2 * k_in * m / FP32_FLOPS),
+            "delta_attention": dict(
+                replaces="src/repro/kernels/vit_delta_attention.py:130",
+                source="src/repro_torch/kernels/csrc/delta_attention.cu",
+                kernel=lambda: ops._delta_attention_cuda(q3, k3, v3, valid3, cnt3),
+                plain=lambda: ref.delta_attention_ref(q3, k3, v3, valid3, cnt3),
+                library=lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=sdpa_mask),
+                # query rows below the counts, keys and values of the slots
+                # with any, the mask and counts; every output row written
+                bytes=(rows3 * h * dh * 4 + 2 * slots3 * k_tok * h * dh * 4
+                       + CAPACITY * k_tok + CAPACITY * 4 + q3.numel() * 4),
+                t_ops=4.0 * rows3 * h * k_tok * dh / FP32_FLOPS),
+            "ip2_fused_embed": dict(
+                replaces="src/repro/kernels/ip2_megakernel.py:251",
+                source="src/repro_torch/kernels/csrc/ip2_fused_embed.cu",
+                kernel=lambda: ops._fused_embed_cuda(
+                    table, counts, flat_p, w_t, w8, s_w, adc.lsb, p_codes, k_tok),
+                plain=fused_plain,
+                library=None,
+                # the gathered rows this run's selection needs, read once
+                bytes=(r_rows * k_in * 4 + r_rows * 4 + CAPACITY * 4 + k_in * m * 4
+                       + m * d + d * 4 + r_rows * d * 4),
+                t_ops=fp32_ops / FP32_FLOPS + int8_ops / INT8_OPS),
             "quant_matmul": dict(
                 replaces="src/repro/kernels/quant_matmul.py:55",
                 source="src/repro_torch/kernels/csrc/quant_matmul.cu",
@@ -354,30 +731,27 @@ def main():
                 library=lambda: torch._int_mm(codes, w8),
                 bytes=r_rows * m + r_rows * 4 + m * d + d * 4 + r_rows * d * 4,
                 t_ops=int8_ops / INT8_OPS),
-            "ip2_fused_embed": dict(
-                replaces="src/repro/kernels/ip2_megakernel.py:251",
-                source="src/repro_torch/kernels/csrc/ip2_fused_embed.cu",
-                kernel=lambda: ops._fused_embed_cuda(
-                    table, counts, flat_p, w_t, w8, s_w, adc.lsb, p_codes, fcfg.n_active),
-                plain=fused_plain,
-                library=None,
-                # the gathered rows this run's selection needs, read once
-                bytes=(r_rows * k_in * 4 + r_rows * 4 + CAPACITY * 4 + k_in * m * 4
-                       + m * d + d * 4 + r_rows * d * 4),
-                t_ops=fp32_ops / FP32_FLOPS + int8_ops / INT8_OPS),
+            "ip2_project": dict(
+                replaces="src/repro/kernels/ip2_project.py:138",
+                source="src/repro_torch/kernels/csrc/ip2_project.cu",
+                kernel=lambda: ops._ip2_project_cuda(gathered, w_t, zero_bias, p_codes),
+                plain=lambda: ref.ip2_project_ref(gathered, w_t, zero_bias, p_codes),
+                library=lambda: torch.matmul(gathered, w_t),
+                bytes=r_rows * k_in * 4 + k_in * m * 4 + r_rows * m,
+                t_ops=fp32_ops / FP32_FLOPS),
         }
+        report["timed_counts"] = {"ip2_ragged": cnt2.tolist(), "delta_attention": cnt3.tolist()}
         for name, row in rows.items():
-            n_launch = kernels.get(name, {}).get("launches", 0)
             ms = _time_ms(row["kernel"])
             plain_ms = _time_ms(row["plain"])
             lib_ms = _time_ms(row["library"]) if row["library"] else None
             bound_ms, bound_by = _bound(row["bytes"], row["t_ops"])
             kernels.setdefault(name, {}).update(
                 name=name, route="cuda", source=row["source"], replaces=row["replaces"],
-                launches=n_launch, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=lib_ms)
+                launches=kernels.get(name, {}).get("launches", 0), ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
 
-    # ---- where the device time goes in the engine's tick ------------------
+    # ---- where the device time goes in the engines' ticks -----------------
     @phase("profile")
     def _prof():
         from torch.profiler import ProfilerActivity, profile
@@ -392,7 +766,8 @@ def main():
             engines["staged"].step(frames)
         out = {}
         n = 3
-        for name, eng in engines.items():
+        for name, eng in {**engines, **({"gated": gated["main"]} if "main" in gated
+                                       else {})}.items():
             eng.step(frames)
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -415,7 +790,7 @@ def main():
             }
         report["profile"] = out
 
-    report["kernels"] = [kernels[n] for n in ("ip2_project", "quant_matmul", "ip2_fused_embed")]
+    report["kernels"] = [kernels.get(n, {"name": n}) for n in KERNELS]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: row.get(k) for k in keys} for row in report["kernels"]]}))

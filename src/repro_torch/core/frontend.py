@@ -3,8 +3,9 @@
 scene RGB -> optics AA filter -> Bayer mosaic -> patch grid -> select k
 salient patches -> analog projection -> edge ADC -> int8 codes (the wire).
 
-Ported so far: the compact mode without the temporal cache, on the code
-wire, with selection by indices, mask or patch energy.
+Ported so far: the compact mode on the code wire, with selection by
+indices, mask or patch energy, the governor's token shed (``k_cap``) and
+the temporal gate (``cache``, ``stale_cap``).
 """
 
 from __future__ import annotations
@@ -119,22 +120,34 @@ def feature_scale_zero(params: dict, cfg: FrontendConfig) -> tuple[torch.Tensor,
     return adc_mod.readout_scale_zero(cfg.patch.summer.v_ref, params["bias"], cfg.adc)
 
 
+def _call_project_fn(fn, patches, weights, spec, row_counts):
+    """Call a ProjectFn, handing the per-slot row counts only to adapters
+    that advertise ``supports_row_counts`` (rows past a count come back
+    zero, so callers pass counts only where those rows are discarded or
+    gained out)."""
+    if row_counts is not None and getattr(fn, "supports_row_counts", False):
+        return fn(patches, weights, spec, row_counts=row_counts)
+    return fn(patches, weights, spec)
+
+
 def project_wire(
     patches: torch.Tensor,
     weights: torch.Tensor,
     cfg: FrontendConfig,
     project_fn: ProjectFn | None,
+    row_counts=None,
 ) -> torch.Tensor:
-    """Project a gathered patch set onto the code wire: int8 ADC codes,
+    """Project a gathered patch set onto the code wire: int ADC codes,
     straight from a kernel adapter that advertises ``emits_codes``, else
-    the plain projection encoded here. (The float and sign wires are not
-    ported yet.)"""
+    the plain projection encoded here. ``row_counts`` rides to
+    ragged-capable adapters. (The float and sign wires are not ported yet.)"""
     if not cfg.analog:
         raise NotImplementedError("the float simulation (analog=False) has no "
                                   "code wire; its float wire is not ported yet")
     if project_fn is not None and getattr(project_fn, "emits_codes", False):
-        return project_fn(patches, weights, cfg.patch)
-    out_v = (project_fn or proj_mod.analog_project_patches)(patches, weights, cfg.patch)
+        return _call_project_fn(project_fn, patches, weights, cfg.patch, row_counts)
+    out_v = _call_project_fn(project_fn or proj_mod.analog_project_patches,
+                             patches, weights, cfg.patch, row_counts)
     return adc_mod.encode(out_v, cfg.adc)
 
 
@@ -145,8 +158,17 @@ def select_compact(
     mask: torch.Tensor | None = None,
     indices: torch.Tensor | None = None,
     precomputed: tuple[torch.Tensor, torch.Tensor] | None = None,
+    k_cap: torch.Tensor | None = None,
 ) -> CompactSelection:
-    """Resolve the compact selection: ``indices`` > ``mask`` > energy top-k."""
+    """Resolve the compact selection: ``indices`` > ``mask`` > energy top-k,
+    then the governor's ``k_cap`` shed of the trailing slots (data only:
+    shed slots are marked invalid)."""
+    if k_cap is not None and mask is not None and indices is None:
+        raise ValueError(
+            "k_cap sheds trailing selection slots and therefore needs a selection "
+            "ranked most-salient-first; mask-derived indices come out in ascending "
+            "patch order, so the shed tokens would be arbitrary — pass ranked "
+            "indices instead (see topk_patch_indices)")
     k = cfg.n_active
     if precomputed is not None:
         patches, weights = precomputed
@@ -163,6 +185,8 @@ def select_compact(
     else:
         idx = sal_mod.topk_patch_indices(energy, k)
         valid = torch.ones(idx.shape, dtype=torch.bool, device=idx.device)
+    if k_cap is not None:
+        valid = valid & (torch.arange(k, device=idx.device) < k_cap[..., None])
     return CompactSelection(patches, weights, idx, valid, energy)
 
 
@@ -175,21 +199,60 @@ def apply_frontend(
     mode: str = "compact",
     indices: torch.Tensor | None = None,
     precomputed: tuple[torch.Tensor, torch.Tensor] | None = None,
-) -> CompactFeatures:
+    cache: temporal_mod.FeatureCache | None = None,
+    k_cap: torch.Tensor | None = None,
+    stale_cap: torch.Tensor | None = None,
+):
     """rgb (..., H, W, 3) in [0,1] -> :class:`CompactFeatures` on the
-    compact path: select -> gather -> project only the k active patches."""
+    compact path: select -> gather -> project only the k active patches.
+
+    ``cache`` turns on the temporal gate: of the k selected patches only
+    the stale ones (exactly j slots, ``n_stale`` of them real) are
+    projected, the rest are served from the held codes, and the return
+    value is ``(CompactFeatures, FeatureCache)``. ``k_cap`` (...,) sheds
+    selection slots at or past it; ``stale_cap`` (...,) truncates the
+    gate's recompute set (needs ``cache``). Both are data: no shape moves."""
     if mode != "compact":
         raise NotImplementedError(f"mode={mode!r} is not ported yet")
+    if stale_cap is not None and cache is None:
+        raise ValueError("stale_cap caps the temporal gate's recompute allocation; "
+                         "pass a FeatureCache (there is no gate to cap without one)")
     sel = select_compact(params, rgb, cfg, mask=mask, indices=indices,
-                         precomputed=precomputed)
-    active = sal_mod.gather_patches(sel.patches, sel.indices)
-    payload = project_wire(active, sel.weights, cfg, project_fn)
+                         precomputed=precomputed, k_cap=k_cap)
+    idx, valid, energy = sel.indices, sel.valid, sel.energy
     scale, zero = feature_scale_zero(params, cfg)
-    n_selected = torch.sum(sel.valid, dim=-1).to(torch.float32)
-    events = power_mod.frontend_frame_events(
-        float(cfg.image_h * cfg.image_w), cfg.patch.pixels_per_patch,
-        cfg.patch.n_vectors, n_selected_patches=n_selected,
-        n_converted_patches=n_selected,
-    )
-    return CompactFeatures(payload, sel.indices, sel.valid, sel.energy, scale,
-                           zero, sel.valid.to(torch.float32), events)
+    n_pixels = float(cfg.image_h * cfg.image_w)
+    n_selected = torch.sum(valid, dim=-1).to(torch.float32)
+    if cache is None:
+        # shed tokens (a prefix of valid) cost a ragged adapter nothing
+        row_counts = (torch.sum(valid, dim=-1).to(torch.int32)
+                      if k_cap is not None else None)
+        payload = project_wire(sal_mod.gather_patches(sel.patches, idx), sel.weights,
+                               cfg, project_fn, row_counts=row_counts)
+        events = power_mod.frontend_frame_events(
+            n_pixels, cfg.patch.pixels_per_patch, cfg.patch.n_vectors,
+            n_selected_patches=n_selected, n_converted_patches=n_selected)
+        return CompactFeatures(payload, idx, valid, energy, scale, zero,
+                               valid.to(torch.float32), events)
+
+    # temporal gate: project only the stale subset, write it into the
+    # held-charge cache and serve the whole selection from the cache
+    cdt = cache.features.dtype
+    if cdt.is_floating_point or cdt == torch.bool:
+        raise ValueError(f"cache dtype {cdt} does not match the code wire; build it "
+                         "with init_feature_cache(cfg, ...) (ADC code dtype)")
+    tspec = cfg.temporal
+    stale_idx, needed, n_stale = temporal_mod.select_stale(
+        energy, idx, cache, tspec, cfg.patch.summer, cfg.adc,
+        sel_valid=valid, cap=stale_cap)
+    # stale-first ranking: n_stale is a prefix count, so a ragged adapter
+    # skips the idle spare slots (refresh merges the needed rows only)
+    new_feats = project_wire(sal_mod.gather_patches(sel.patches, stale_idx),
+                             sel.weights, cfg, project_fn, row_counts=n_stale)
+    cache = temporal_mod.refresh(cache, stale_idx, needed, new_feats, energy, n_stale)
+    payload = temporal_mod.take_rows(cache.features, idx)
+    gain = temporal_mod.held_gain(cache, idx, cfg.patch.summer) * valid.to(torch.float32)
+    events = temporal_mod.gated_frame_events(
+        n_pixels, cfg.patch.pixels_per_patch, cfg.patch.n_vectors,
+        n_selected=n_selected, n_stale=n_stale.to(torch.float32))
+    return CompactFeatures(payload, idx, valid, energy, scale, zero, gain, events), cache

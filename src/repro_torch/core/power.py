@@ -4,6 +4,8 @@
 cap charges, CDS samples, dumps, comparator/OpAmp windows);
 :class:`EnergyMeter` prices any bag of counts. Pricing is plain arithmetic
 on the leaves, so it works on Python floats, numpy arrays and tensors.
+The delta-gated backend's executed MACs are counted in closed form by
+:func:`backend_frame_macs`.
 """
 
 from __future__ import annotations
@@ -77,6 +79,30 @@ def frontend_frame_events(
     )
 
 
+def backend_frame_macs(n_vectors: int, d_model: int, d_ff: int, n_classes: int,
+                       j_embed, j_qkv, q_attn, n_keys, computed=1.0):
+    """MACs of one delta-gated backend frame: ``j_embed`` re-embedded rows
+    (M·d each), per layer ``j_qkv[l]`` fresh Q/K/V rows (3·d²) and
+    ``q_attn[l]`` re-attended query rows (2·n_keys·d + d² + 2·d·d_ff), plus
+    the pool and head (C·d) when the frame ran (``computed``)."""
+    d = d_model
+    per_attn = 2.0 * n_keys * d + float(d * d) + 2.0 * d * d_ff
+    layers = 0.0
+    for j_l, q_l in zip(j_qkv, q_attn):
+        layers = layers + j_l * (3.0 * d * d) + q_l * per_attn
+    return (j_embed * (float(n_vectors) * d) + layers
+            + computed * float(n_classes * d))
+
+
+def dense_backend_macs(n_tokens, n_layers: int, n_vectors: int, d_model: int,
+                       d_ff: int, n_classes: int):
+    """MACs of the dense backend on ``n_tokens`` valid rows."""
+    return backend_frame_macs(
+        n_vectors, d_model, d_ff, n_classes, j_embed=n_tokens,
+        j_qkv=[n_tokens] * n_layers, q_attn=[n_tokens] * n_layers,
+        n_keys=n_tokens, computed=1.0)
+
+
 class PowerBreakdown(NamedTuple):
     components: dict            # name -> W
     total_w: object
@@ -117,3 +143,15 @@ class EnergyMeter:
     def power_mw(self, ev: EventCounts, frame_hz: float, n_frames: float = 1.0):
         """Total milliwatts only."""
         return self.power_w(ev, frame_hz, n_frames).total_w * 1e3
+
+    def slot_recompute_power_w(self, pixels_per_patch: int, n_vectors: int,
+                               frame_hz: float) -> float:
+        """Marginal power of re-projecting and converting one more patch
+        every frame: the governor's control gain."""
+        ev = EventCounts(
+            adc_conversions=float(n_vectors),
+            cap_charges=float(pixels_per_patch * n_vectors),
+            pwm_pixel_frames=float(pixels_per_patch),
+            opamp_patch_frames=1.0,
+        )
+        return self.power_w(ev, frame_hz).total_w

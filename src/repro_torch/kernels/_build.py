@@ -19,7 +19,8 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("ip2_project", "quant_matmul", "ip2_fused_embed")
+SOURCES = ("ip2_project", "quant_matmul", "ip2_fused_embed", "ip2_ragged",
+           "delta_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     # no FMA contraction: the epilogue's rounding is part of the contract

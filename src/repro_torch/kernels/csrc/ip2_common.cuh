@@ -68,6 +68,28 @@ __device__ __forceinline__ float readout(float acc, float colv, const Epilogue& 
   }
 }
 
+// Store one readout value: float32 for the dequant and no-ADC readouts; for
+// codes and sign an integer of out_bytes (1, 2 or 4) bytes, as wide as the
+// ADC's code dtype.
+__device__ __forceinline__ void store_readout(void* out, int out_bytes,
+                                              long long o, float v,
+                                              const Epilogue& e) {
+  if (e.mode != kCodes && e.mode != kSign)
+    static_cast<float*>(out)[o] = v;
+  else if (out_bytes == 1)
+    static_cast<int8_t*>(out)[o] = (int8_t)__float2int_rn(v);
+  else if (out_bytes == 2)
+    static_cast<int16_t*>(out)[o] = (int16_t)__float2int_rn(v);
+  else
+    static_cast<int32_t*>(out)[o] = __float2int_rn(v);
+}
+
+// The byte widths the integer readouts may be stored in.
+__host__ __forceinline__ bool out_bytes_ok(int out_bytes, const Epilogue& e) {
+  const bool int_out = e.mode == kCodes || e.mode == kSign;
+  return !int_out || out_bytes == 1 || out_bytes == 2 || out_bytes == 4;
+}
+
 // Block-cooperative fp32 projection tile on CUDA cores:
 //   acc[i][j] = sum_k PWM(x[rows[r_i] + k]) * w[k * M + c0 + c_j]
 // for BR rows x BM columns. ``rows`` (shared) holds each row's element

@@ -34,7 +34,6 @@ ip2_project_kernel(const float* __restrict__ x, const float* __restrict__ w,
   float acc[kTR][kTM];
   project_tile<kBR, kBM, kBK, kTR, kTM>(x, rows, w, K, M, c0, e, xs, ws, acc);
   const int tr = tid / (kBM / kTM), tc = tid % (kBM / kTM);
-  const bool int_out = e.mode == kCodes || e.mode == kSign;
 #pragma unroll
   for (int i = 0; i < kTR; ++i) {
     const int r = r0 + tr * kTR + i;
@@ -43,16 +42,8 @@ ip2_project_kernel(const float* __restrict__ x, const float* __restrict__ w,
     for (int j = 0; j < kTM; ++j) {
       const int c = c0 + tc * kTM + j;
       if (c >= M) continue;
-      const float v = readout(acc[i][j], colv ? colv[c] : 0.0f, e);
-      const long long o = (long long)r * M + c;
-      if (!int_out)
-        static_cast<float*>(out)[o] = v;
-      else if (out_bytes == 1)
-        static_cast<int8_t*>(out)[o] = (int8_t)__float2int_rn(v);
-      else if (out_bytes == 2)
-        static_cast<int16_t*>(out)[o] = (int16_t)__float2int_rn(v);
-      else
-        static_cast<int32_t*>(out)[o] = __float2int_rn(v);
+      store_readout(out, out_bytes, (long long)r * M + c,
+                    readout(acc[i][j], colv ? colv[c] : 0.0f, e), e);
     }
   }
 }
@@ -66,9 +57,7 @@ extern "C" int ip2_project_launch(const float* x, const float* w,
                                   const float* colv, void* out, int out_bytes,
                                   int R, int K, int M, const ip2::Epilogue* e,
                                   void* stream) {
-  const bool int_out = e->mode == ip2::kCodes || e->mode == ip2::kSign;
-  if (int_out && out_bytes != 1 && out_bytes != 2 && out_bytes != 4)
-    return (int)cudaErrorInvalidValue;
+  if (!ip2::out_bytes_ok(out_bytes, *e)) return (int)cudaErrorInvalidValue;
   if (R > 0 && M > 0) {
     dim3 grid((R + ip2::kBR - 1) / ip2::kBR, (M + ip2::kBM - 1) / ip2::kBM);
     ip2_project_kernel<<<grid, ip2::kThreads, 0, (cudaStream_t)stream>>>(

@@ -24,7 +24,8 @@ from repro_torch.core import projection as proj_mod
 from repro_torch.core import pwm as pwm_mod
 from repro_torch.kernels import _build, ref
 
-LAUNCHES = {"ip2_project": 0, "quant_matmul": 0, "ip2_fused_embed": 0}
+LAUNCHES = {"ip2_project": 0, "quant_matmul": 0, "ip2_fused_embed": 0,
+            "ip2_project_sparse": 0, "ip2_ragged": 0, "delta_attention": 0}
 
 
 def reset_launches() -> None:
@@ -156,11 +157,16 @@ _ARGTYPES = {
     "ip2_project": [_P, _P, _P, _P, _I, _I, _I, _I, _EP, _P],
     "quant_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "ip2_fused_embed": [_P, _P, _P, _I, _I, _I, _P, _I, _P, _P, _F, _I, _P, _EP, _P],
+    "ip2_project_sparse": [_P, _P, _I, _I, _P, _I, _P, _P, _I, _EP, _P],
+    "ip2_ragged": [_P, _P, _P, _I, _I, _I, _P, _I, _P, _P, _I, _EP, _P],
+    "delta_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
 }
+# entry point -> the csrc source that holds it (default: the same name)
+_SOURCE = {"ip2_project_sparse": "ip2_ragged"}
 
 
 def _entry(name: str):
-    fn = getattr(_build.load(name), f"{name}_launch")
+    fn = getattr(_build.load(_SOURCE.get(name, name)), f"{name}_launch")
     if fn.argtypes is None:
         fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
@@ -200,22 +206,71 @@ def _need(t: torch.Tensor, dtype: torch.dtype, shape: tuple, name: str) -> None:
                          f"(contiguous={t.is_contiguous()})")
 
 
-def _ip2_project_cuda(x, w_t, bias, p: IP2KernelParams) -> torch.Tensor:
-    r, k = x.shape
-    m = w_t.shape[1]
-    _need(x, torch.float32, (r, k), "patches")
-    _need(w_t, torch.float32, (k, m), "weights")
-    _need(bias, torch.float32, (m,), "bias")
+def _colv_ptr(bias, p: IP2KernelParams):
+    """The per-column epilogue operand: the dequant zero, the bias (no
+    ADC), or none (codes, sign). Returns (tensor kept alive, pointer)."""
     mode = _readout_mode(p)
     colv = None
     if mode == _DEQUANT:
         colv = adc_mod.readout_scale_zero(p.v_ref, bias, p.adc_spec())[1].contiguous()
     elif mode == _NOADC:
         colv = bias
+    return colv, (None if colv is None else colv.data_ptr())
+
+
+def _ip2_project_cuda(x, w_t, bias, p: IP2KernelParams) -> torch.Tensor:
+    r, k = x.shape
+    m = w_t.shape[1]
+    _need(x, torch.float32, (r, k), "patches")
+    _need(w_t, torch.float32, (k, m), "weights")
+    _need(bias, torch.float32, (m,), "bias")
+    colv, colv_ptr = _colv_ptr(bias, p)
     out = torch.empty((r, m), dtype=p.out_dtype, device=x.device)
-    _launch("ip2_project", x.data_ptr(), w_t.data_ptr(),
-            None if colv is None else colv.data_ptr(), out.data_ptr(),
+    _launch("ip2_project", x.data_ptr(), w_t.data_ptr(), colv_ptr, out.data_ptr(),
             out.element_size(), r, k, m, ctypes.byref(_epilogue(p)), _stream(x))
+    return out
+
+
+def _ip2_sparse_cuda(table, counts, patches, w_t, bias, p: IP2KernelParams,
+                     k: int) -> torch.Tensor:
+    """Kernel 1 (``counts`` None: every table row) or kernel 2 (per-slot
+    counts over slots of ``k`` rows). ``table`` rows must lie in the patch
+    grid (``ip2_project_sparse`` clamps them)."""
+    n_rows, kk = patches.shape
+    m = w_t.shape[1]
+    r = table.shape[0]
+    _need(patches, torch.float32, (n_rows, kk), "patches")
+    _need(w_t, torch.float32, (kk, m), "weights")
+    _need(bias, torch.float32, (m,), "bias")
+    _need(table, torch.int32, (r,), "table")
+    colv, colv_ptr = _colv_ptr(bias, p)
+    out = torch.empty((r, m), dtype=p.out_dtype, device=patches.device)
+    ep = ctypes.byref(_epilogue(p))
+    if counts is None:
+        _launch("ip2_project_sparse", patches.data_ptr(), table.data_ptr(), r, kk,
+                w_t.data_ptr(), m, colv_ptr, out.data_ptr(), out.element_size(), ep,
+                _stream(patches))
+    else:
+        s = counts.shape[0]
+        _need(counts, torch.int32, (s,), "counts")
+        if s * k != r:
+            raise ValueError(f"table of {r} rows is not {s} slots x {k}")
+        _launch("ip2_ragged", patches.data_ptr(), table.data_ptr(), counts.data_ptr(),
+                s, k, kk, w_t.data_ptr(), m, colv_ptr, out.data_ptr(),
+                out.element_size(), ep, _stream(patches))
+    return out
+
+
+def _delta_attention_cuda(q, k, v, key_mask, q_counts) -> torch.Tensor:
+    b, s, h, dh = q.shape
+    for t, name in ((q, "q"), (k, "k"), (v, "v")):
+        _need(t, torch.float32, (b, s, h, dh), name)
+    _need(key_mask, torch.bool, (b, s), "key_mask")
+    _need(q_counts, torch.int32, (b,), "q_counts")
+    out = torch.empty((b, s, h, dh), dtype=torch.float32, device=q.device)
+    _launch("delta_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            key_mask.data_ptr(), q_counts.data_ptr(), b, s, h, dh, out.data_ptr(),
+            _stream(q))
     return out
 
 
@@ -291,14 +346,90 @@ def ip2_project(
     return out.reshape(*lead, m)
 
 
-def ip2_codes_fn(spec: proj_mod.PatchSpec, adc):
-    """Frontend ``ProjectFn`` whose output is the wire format: int8 codes
-    straight from the kernel's fused ADC epilogue (``emits_codes``)."""
+def _identity_indices(patches: torch.Tensor) -> torch.Tensor:
+    """(..., j, N2) gathered patches -> (..., j) identity row indices."""
+    j = patches.shape[-2]
+    return torch.arange(j, dtype=torch.int32, device=patches.device).expand(
+        *patches.shape[:-2], j)
 
-    def fn(patches, weights, _spec):
-        return ip2_project(patches, weights, _spec, adc=adc, codes=True)
+
+def _ragged_tables(indices: torch.Tensor, n_patches: int, row_counts):
+    """Slot-major tables of the ragged kernels: ``table`` (S·k,) int32 dense
+    row indices (batch offset folded in, clamped into the grid) and
+    ``counts`` (S,) int32 real rows per slot, clipped to [0, k] (k for
+    every slot when ``row_counts`` is None)."""
+    lead = indices.shape[:-1]
+    k = indices.shape[-1]
+    idx2 = indices.reshape(-1, k).to(torch.int32)
+    batch = idx2.shape[0]
+    dev = idx2.device
+    offsets = torch.arange(batch, dtype=torch.int32, device=dev) * n_patches
+    table = torch.clamp(idx2 + offsets[:, None], 0, batch * n_patches - 1)
+    table = table.reshape(-1).to(torch.int32).contiguous()
+    if row_counts is None:
+        counts = torch.full((batch,), k, dtype=torch.int32, device=dev)
+    else:
+        counts = torch.broadcast_to(torch.as_tensor(row_counts, device=dev), lead)
+        counts = torch.clamp(counts.reshape(-1).to(torch.int32), 0, k)
+    return table, counts.to(torch.int32).contiguous()
+
+
+def ip2_project_sparse(
+    patches: torch.Tensor,          # (..., P, N2) dense patch grid in [0,1]
+    weights,                        # (M, N2) float (pre-DAC) or ProgrammedWeights
+    indices: torch.Tensor,          # (..., k) active patch indices
+    spec: proj_mod.PatchSpec,
+    adc=None,
+    bias: torch.Tensor | None = None,
+    codes: bool = False,
+    readout: str = "adc",
+    row_counts=None,                # (...,) int real rows per slot, or None
+) -> torch.Tensor:
+    """Projection of only the ``indices`` rows of the dense patch grid,
+    with the fused readout of :func:`ip2_project`: (..., k, M) in the order
+    of ``indices``. With ``row_counts`` only the leading ``row_counts``
+    rows of each slot are computed (the ragged kernel) and the rest are
+    zero; without, every row is (the sparse kernel), bitwise the ragged
+    result at full counts."""
+    w_q = _dac_weights(weights, spec)
+    m, n2 = w_q.shape
+    lead = patches.shape[:-2]
+    if indices.shape[:-1] != lead:
+        raise ValueError(f"indices lead {tuple(indices.shape[:-1])} != patches "
+                         f"lead {tuple(lead)}")
+    k = indices.shape[-1]
+    flat_p = patches.reshape(-1, n2).to(torch.float32)
+    table, counts = _ragged_tables(indices, patches.shape[-2], row_counts)
+    if row_counts is None:
+        counts = None
+    b = (torch.zeros((m,), dtype=torch.float32, device=w_q.device)
+         if bias is None else bias.to(torch.float32))
+    w_t = w_q.T.to(torch.float32)
+    params = kernel_params_from_spec(spec, adc, codes, readout)
+    if _on_cuda(flat_p, w_t, b, table):
+        out = _ip2_sparse_cuda(table, counts, flat_p.contiguous(), w_t.contiguous(),
+                               b.contiguous(), params, k)
+    else:
+        out = ref.ip2_project_sparse_ref(table, counts, flat_p, w_t, b, params, k)
+    if readout == "sign":
+        out = out.to(torch.bool)
+    return out.reshape(*lead, k, m)
+
+
+def ip2_codes_fn(spec: proj_mod.PatchSpec, adc):
+    """Frontend ``ProjectFn`` whose output is the wire format: int codes
+    straight from the kernel's fused ADC epilogue (``emits_codes``). With
+    ``row_counts`` (``supports_row_counts``) it runs the ragged kernel on
+    the gathered rows, and rows past a slot's count come back zero."""
+
+    def fn(patches, weights, _spec, row_counts=None):
+        if row_counts is None:
+            return ip2_project(patches, weights, _spec, adc=adc, codes=True)
+        return ip2_project_sparse(patches, weights, _identity_indices(patches), _spec,
+                                  adc=adc, codes=True, row_counts=row_counts)
 
     fn.emits_codes = True
+    fn.supports_row_counts = True
     return fn
 
 
@@ -362,16 +493,7 @@ def ip2_fused_embed(
                          f"lead {tuple(lead)}")
     k = indices.shape[-1]
     flat_p = patches.reshape(-1, n2).to(torch.float32)
-    batch = flat_p.shape[0] // n_patches
-    dev = flat_p.device
-    offsets = torch.arange(batch, dtype=torch.int32, device=dev) * n_patches
-    table = torch.clamp(indices.reshape(batch, k).to(torch.int32) + offsets[:, None],
-                        0, batch * n_patches - 1).reshape(-1).to(torch.int32)
-    if row_counts is None:
-        counts = torch.full((batch,), k, dtype=torch.int32, device=dev)
-    else:
-        counts = torch.broadcast_to(torch.as_tensor(row_counts, device=dev), lead)
-        counts = torch.clamp(counts.reshape(-1).to(torch.int32), 0, k).to(torch.int32)
+    table, counts = _ragged_tables(indices, n_patches, row_counts)
     w_t = w_q.T.to(torch.float32)
     s_w = s_w.to(torch.float32)
     params = kernel_params_from_spec(spec, adc, codes=True)
@@ -388,3 +510,30 @@ def fused_embed_zero_term(zero, w8: torch.Tensor, s_w: torch.Tensor) -> torch.Te
     """The selection-independent ``zero @ dequant(w8)`` term the fused kernel
     leaves to the caller (the same expression as the staged embed)."""
     return zero @ (w8.to(torch.float32) * s_w[None, :])
+
+
+def delta_attention(
+    attn_params: dict,
+    h: torch.Tensor,                # (B, S, d) normed layer input
+    token_valid: torch.Tensor,      # (B, S) bool key mask
+    q_counts: torch.Tensor,         # (B,) int stale prefix length
+    n_heads: int,
+) -> torch.Tensor:
+    """Ragged stale-prefix attention of the delta-gated backend: the Q/K/V
+    and output projections in plain einsums (as the reference leaves them
+    outside its kernel), the kernel scoring only the first ``q_counts``
+    query rows of each slot against every key. Rows past a slot's count
+    come back zero (their attention output is 0 before the output
+    projection)."""
+    del n_heads  # carried by the projection weights' shapes
+    a = attn_params
+    q = torch.einsum("bsd,dhk->bshk", h, a["wq"]) + a["bq"]
+    k = torch.einsum("bsd,dhk->bshk", h, a["wk"]) + a["bk"]
+    v = torch.einsum("bsd,dhk->bshk", h, a["wv"]) + a["bv"]
+    counts = q_counts.to(torch.int32)
+    if _on_cuda(q, k, v, token_valid, counts):
+        o = _delta_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
+                                  token_valid.contiguous(), counts.contiguous())
+    else:
+        o = ref.delta_attention_ref(q, k, v, token_valid, counts)
+    return torch.einsum("bshk,hkd->bsd", o, a["wo"])

@@ -34,6 +34,40 @@ def ip2_project_ref(patches: torch.Tensor, w_q: torch.Tensor,
     return adc_mod.digital_readout(out, params.v_ref, bias[None, :], spec)
 
 
+def _zero_past_counts(out: torch.Tensor, counts: torch.Tensor, k: int) -> torch.Tensor:
+    """(S·k, ...) rows at positions >= their slot's count set to 0."""
+    live = (torch.arange(k, device=out.device)[None, :] < counts[:, None]).reshape(-1)
+    live = live.reshape(live.shape + (1,) * (out.dim() - 1))
+    return torch.where(live, out, torch.zeros((), dtype=out.dtype, device=out.device))
+
+
+def ip2_project_sparse_ref(table: torch.Tensor, counts, patches: torch.Tensor,
+                           w_q: torch.Tensor, bias: torch.Tensor, params,
+                           k: int) -> torch.Tensor:
+    """ip2_project_sparse / ip2_ragged: ``ip2_project_ref`` of the ``table``
+    rows of the dense (rows, K) patch grid, (R, M); with ``counts`` (S,)
+    over slots of ``k`` rows, rows at or past their slot's count are 0."""
+    out = ip2_project_ref(patches[table.long()], w_q, bias, params)
+    return out if counts is None else _zero_past_counts(out, counts, k)
+
+
+def delta_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        key_mask: torch.Tensor, q_counts: torch.Tensor) -> torch.Tensor:
+    """delta_attention: (B, S, H, dh) q, k, v -> (B, S, H, dh) attention
+    output of the query rows below ``q_counts``, zeros past them; the dense
+    arithmetic of the encoder (scores / sqrt(dh), -1e30 on invalid keys,
+    softmax, · V)."""
+    dh = q.shape[-1]
+    sc = torch.einsum("bqhk,bshk->bhqs", q, k) / torch.sqrt(
+        torch.tensor(dh, dtype=q.dtype, device=q.device))
+    sc = torch.where(key_mask[:, None, None, :], sc,
+                     torch.tensor(-1e30, dtype=sc.dtype, device=sc.device))
+    o = torch.einsum("bhqs,bshk->bqhk", torch.softmax(sc, dim=-1), v)
+    rows = torch.arange(q.shape[1], device=q.device)[None, :, None, None]
+    return torch.where(rows < q_counts[:, None, None, None], o,
+                       torch.zeros((), dtype=o.dtype, device=o.device))
+
+
 def quant_matmul_ref(a8: torch.Tensor, s_a: torch.Tensor, w8: torch.Tensor,
                      s_w: torch.Tensor) -> torch.Tensor:
     """(R, K) int8 @ (K, N) int8 -> (float(acc) * s_a[r]) * s_w[c], float32.
@@ -57,7 +91,5 @@ def ip2_fused_embed_ref(table: torch.Tensor, counts: torch.Tensor,
     codes = ip2_project_ref(patches[table.long()], w_q, bias, params)
     lsb = torch.full((codes.shape[0],), params.adc_spec().lsb,
                      dtype=torch.float32, device=codes.device)
-    y = quant_matmul_ref(codes, lsb, w8, s_w.to(torch.float32))
-    pos = torch.arange(k, device=y.device)[None, :]
-    live = (pos < counts[:, None]).reshape(-1, 1)
-    return torch.where(live, y, torch.zeros((), dtype=y.dtype, device=y.device))
+    return _zero_past_counts(quant_matmul_ref(codes, lsb, w8, s_w.to(torch.float32)),
+                             counts, k)

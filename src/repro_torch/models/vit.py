@@ -5,7 +5,9 @@ the analog frontend, on the compact path.
 embeddings looked up by patch index) and returns the attention each token
 received, scattered back onto the patch grid: the next frame's saccade
 signal. With ``quant_embed`` the int8 ADC codes feed the w8a8 embed kernel;
-with ``fused_embed`` one kernel gathers, projects, converts and embeds.
+with ``fused_embed`` one kernel gathers, projects, converts and embeds. A
+temporal cache gates the frontend, and a backend cache gates the encoder
+(``models/backend_delta.py``).
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from repro_torch.core.frontend import (
     select_compact,
 )
 from repro_torch.kernels import ops
+from repro_torch.models import backend_delta as bdel
 from repro_torch.models.attention import init_attention
 from repro_torch.models.layers import apply_mlp, dense_init, init_mlp, rms_norm
 
@@ -46,7 +49,9 @@ class ViTConfig:
     quant_embed: bool = False  # consume ADC codes via the w8a8 kernel
     fused_embed: bool = False  # one kernel: project + ADC + embed
     saliency_layers: str = "all"  # "all" (mean over layers) or "last"
-    delta_kernel: bool = False    # delta-gated backend only (not ported yet)
+    delta_kernel: bool = False    # delta-gated backend: the ragged
+                                  # delta_attention kernel on layers whose
+                                  # attention probabilities are not read
     norm_eps: float = 1e-5
 
 
@@ -157,7 +162,7 @@ def _saliency(received, indices, valid, n_patches):
 
 
 def _forward_compact_fused(params, rgb, cfg: ViTConfig, indices, mask,
-                           project_fn, precomputed):
+                           project_fn, precomputed, cache, k_cap, stale_cap):
     """The fused compact path: one kernel gathers, projects, converts and
     embeds; the affine and gain algebra is exactly ``_embed_tokens``'."""
     fe_cfg = cfg.frontend
@@ -168,8 +173,12 @@ def _forward_compact_fused(params, rgb, cfg: ViTConfig, indices, mask,
     if project_fn is not None:
         raise ValueError("fused_embed IS the projector; a project_fn cannot "
                          "be substituted into it — use fused_embed=False")
+    if cache is not None or stale_cap is not None:
+        raise ValueError("fused_embed does not thread the temporal cache (held "
+                         "codes live outside the kernel); use fused_embed=False "
+                         "with a FeatureCache")
     sel = select_compact(params["ip2"], rgb, fe_cfg, mask=mask, indices=indices,
-                         precomputed=precomputed)
+                         precomputed=precomputed, k_cap=k_cap)
     counts = torch.sum(sel.valid, dim=-1).to(torch.int32)
     w8, s_w = _embed_q(params)
     y = ops.ip2_fused_embed(sel.patches, sel.weights, sel.indices, fe_cfg.patch,
@@ -196,22 +205,77 @@ def _forward_compact_fused(params, rgb, cfg: ViTConfig, indices, mask,
 def vit_forward_compact(params: dict, rgb: torch.Tensor, cfg: ViTConfig,
                         indices: torch.Tensor | None = None,
                         mask: torch.Tensor | None = None,
-                        project_fn=None, precomputed=None):
+                        project_fn=None, precomputed=None, cache=None,
+                        k_cap: torch.Tensor | None = None,
+                        stale_cap: torch.Tensor | None = None,
+                        sign_mode: torch.Tensor | None = None,
+                        backend_cache: bdel.BackendCache | None = None,
+                        backend_eps: torch.Tensor | None = None,
+                        backend_act: torch.Tensor | None = None):
     """Compact path: rgb (B, H, W, 3) -> (logits (B, n_classes), aux) with
     aux ``indices`` (B, k), ``valid`` (B, k), ``saliency`` (B, P),
-    ``energy`` (B, P) and ``events`` (EventCounts of (B,) tensors)."""
+    ``energy`` (B, P) and ``events`` (EventCounts of (B,) tensors).
+
+    ``cache`` (a FeatureCache) turns on the temporal gate and adds
+    ``aux["cache"]`` and ``aux["n_stale"]``; ``k_cap`` / ``stale_cap`` are
+    the governor's per-slot knobs. ``backend_cache`` turns on the
+    delta-gated backend (``backend_eps`` (B,) its snap budget, default
+    exact; ``backend_act`` (B,) the slots that advance): its executed MACs
+    land on ``events.backend_macs`` and the new cache on
+    ``aux["backend_cache"]``."""
+    if backend_cache is None and (backend_eps is not None or backend_act is not None):
+        raise ValueError("backend_eps/backend_act configure the delta-gated backend "
+                         "and need a BackendCache to gate against — pass "
+                         "backend_cache, or drop them for the dense encoder")
+    if sign_mode is not None:
+        raise NotImplementedError("the sign tier (sign_mode) needs the sign wire, "
+                                  "which is not ported yet")
     if cfg.fused_embed:
-        return _forward_compact_fused(params, rgb, cfg, indices, mask,
-                                      project_fn, precomputed)
-    cf = apply_frontend(params["ip2"], rgb, cfg.frontend, mask=mask,
-                        indices=indices, mode="compact", project_fn=project_fn,
-                        precomputed=precomputed)
-    x = _embed_tokens(params, cf, cfg) + params["pos"][cf.indices.long()]
-    logits, received = _encoder(params, x, cfg, cf.valid)
+        if backend_cache is not None:
+            raise ValueError("fused_embed does not thread the backend cache; use "
+                             "fused_embed=False for the delta-gated backend")
+        return _forward_compact_fused(params, rgb, cfg, indices, mask, project_fn,
+                                      precomputed, cache, k_cap, stale_cap)
+    out = apply_frontend(params["ip2"], rgb, cfg.frontend, mask=mask,
+                         indices=indices, mode="compact", project_fn=project_fn,
+                         precomputed=precomputed, cache=cache, k_cap=k_cap,
+                         stale_cap=stale_cap)
+    cf, new_cache = out if cache is not None else (out, None)
+    events = cf.events
+    new_bcache = None
+    if backend_cache is not None:
+        if backend_cache.feats.dtype != cf.features.dtype:
+            raise ValueError(f"backend cache dtype {backend_cache.feats.dtype} does not "
+                             f"match wire payload {cf.features.dtype}; build it with "
+                             f"init_backend_cache(..., dtype=<wire dtype>)")
+        if backend_cache.feats.shape[-2:] != cf.features.shape[-2:]:
+            raise ValueError(f"backend cache rows {tuple(backend_cache.feats.shape[-2:])} "
+                             f"do not match the served wire "
+                             f"{tuple(cf.features.shape[-2:])}")
+        b = cf.valid.shape[0]
+        eps = (torch.zeros((b,), dtype=torch.float32, device=cf.valid.device)
+               if backend_eps is None else torch.broadcast_to(
+                   torch.as_tensor(backend_eps, dtype=torch.float32,
+                                   device=cf.valid.device), (b,)))
+
+        def embed_fn():
+            return _embed_tokens(params, cf, cfg) + params["pos"][cf.indices.long()]
+
+        logits, received, new_bcache, macs = bdel.delta_forward(
+            params, cfg, cf, embed_fn, backend_cache, eps, act=backend_act)
+        events = events._replace(backend_macs=macs)
+    else:
+        x = _embed_tokens(params, cf, cfg) + params["pos"][cf.indices.long()]
+        logits, received = _encoder(params, x, cfg, cf.valid)
     aux = {
         "indices": cf.indices, "valid": cf.valid,
         "saliency": _saliency(received, cf.indices, cf.valid,
                               cfg.frontend.n_patches),
-        "energy": cf.energy, "events": cf.events,
+        "energy": cf.energy, "events": events,
     }
+    if new_cache is not None:
+        aux["cache"] = new_cache
+        aux["n_stale"] = new_cache.n_stale
+    if new_bcache is not None:
+        aux["backend_cache"] = new_bcache
     return logits, aux

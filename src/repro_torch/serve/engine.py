@@ -1,15 +1,16 @@
-"""Multi-stream saccadic serving engine, plain mode.
+"""Multi-stream saccadic serving engine.
 
 The engine owns ``capacity`` fixed slots; every device tensor is
 slot-major with a static leading axis, so one batched step serves any mix
 of streams:
 
 * ``admit`` / ``evict`` only record host bookkeeping; all pending row
-  writes coalesce, last op per slot wins, into ONE flush right before the
-  next step or state read.
+  writes (and a governed engine's budget re-split) coalesce, last op per
+  slot wins, into ONE flush right before the next step or state read.
 * ``step(frames)`` takes any subset of the admitted streams. Un-fed slots
-  hold: their gaze, frame age and meters pass through unchanged and their
-  logits are zero; fed slots are served exactly as in a full-cover step.
+  hold: their gaze, frame age, caches, controls and meters pass through
+  unchanged and their logits are zero; fed slots are served exactly as in
+  a full-cover step.
 * Frames live in a persistent device buffer (S, H, W, 3); each tick
   uploads only the fed rows and writes them into it in place.
 * Freshly admitted slots bootstrap their first gaze from the in-pixel
@@ -17,6 +18,13 @@ of streams:
   saccade scores (optionally EMA-smoothed).
 * Each slot meters the energy events its frontend executed (last frame
   and running mean since admit), priced at read time by an EnergyMeter.
+
+Modes: ``temporal=True`` threads a per-slot feature cache (only stale
+patches are re-projected); ``governor=GovernorSpec(...)`` (needs temporal)
+steers each slot's recompute cap, token tier and backend snap budget
+toward a mW budget; ``backend_delta=True`` threads a per-slot backend
+cache (unchanged rows reuse their encoder work, an unchanged frame serves
+cached logits).
 """
 
 from __future__ import annotations
@@ -30,20 +38,28 @@ from repro_torch._device import resolve_device
 from repro_torch.convert import tree_to
 from repro_torch.core import frontend as fe
 from repro_torch.core import saliency as sal
-from repro_torch.core.power import EnergyMeter, EventCounts
+from repro_torch.core.power import EnergyMeter, EventCounts, dense_backend_macs
+from repro_torch.core.temporal import FeatureCache, init_feature_cache
+from repro_torch.models import backend_delta as bdel
 from repro_torch.models.vit import vit_forward_compact
+from repro_torch.serve import governor as gov_mod
 from repro_torch.serve.serve_step import saccade_scores
 
 
 class StreamState(NamedTuple):
-    """Per-slot gaze state; every leaf is slot-major with static shape."""
+    """Per-slot gaze state; every leaf is slot-major with static shape.
+    ``cache`` (temporal), ``controls`` (governed) and ``bcache`` (backend
+    delta) are None unless the engine runs in that mode."""
 
     indices: torch.Tensor    # (S, k) int32 — next frame's patch selection
     ema: torch.Tensor        # (S, P) float32 — attention-score EMA
     frame_age: torch.Tensor  # (S,) int32 — frames served since admit (0 = bootstrap)
     active: torch.Tensor     # (S,) bool — slot occupied
+    cache: FeatureCache | None = None          # per-slot temporal cache
     events_last: EventCounts = EventCounts()   # (S,) leaves — last frame
     events_mean: EventCounts = EventCounts()   # (S,) leaves — mean/frame
+    controls: gov_mod.GovernorControls | None = None  # governed mode only
+    bcache: bdel.BackendCache | None = None   # backend-delta mode only
 
 
 def _zero_events(capacity: int, device) -> EventCounts:
@@ -51,28 +67,56 @@ def _zero_events(capacity: int, device) -> EventCounts:
                          for _ in EventCounts._fields))
 
 
-def init_stream_state(cfg, capacity: int, device) -> StreamState:
+def init_stream_state(cfg, capacity: int, device, temporal: bool = False,
+                      governed: bool = False, backend: bool = False) -> StreamState:
     """All slots free; indices are a placeholder (age 0 bootstraps in-step)."""
     k = cfg.frontend.n_active
     p = cfg.frontend.n_patches
+    j_max = cfg.frontend.temporal.budget(k)
     return StreamState(
         indices=torch.arange(k, dtype=torch.int32, device=device).repeat(capacity, 1),
         ema=torch.zeros((capacity, p), dtype=torch.float32, device=device),
         frame_age=torch.zeros((capacity,), dtype=torch.int32, device=device),
         active=torch.zeros((capacity,), dtype=torch.bool, device=device),
+        cache=(init_feature_cache(cfg.frontend, (capacity,), device=device)
+               if temporal else None),
         events_last=_zero_events(capacity, device),
         events_mean=_zero_events(capacity, device),
+        controls=gov_mod.init_controls(capacity, j_max, device) if governed else None,
+        # the payload dtype of the code wire, as the feature cache holds it
+        bcache=(bdel.init_backend_cache(cfg, k, (capacity,),
+                                        dtype=cfg.frontend.adc.code_dtype,
+                                        device=device) if backend else None),
     )
 
 
+def _freeze_rows(act: torch.Tensor, new: NamedTuple, old: NamedTuple) -> NamedTuple:
+    """Per-leaf ``where(act, new, old)`` with act (S,) broadcast up to each
+    slot-major leaf."""
+    return type(new)(*(torch.where(act.reshape(act.shape + (1,) * (n.dim() - 1)), n, o)
+                       for n, o in zip(new, old)))
+
+
 def make_engine_step(cfg, explore: float = 0.1, ema_decay: float = 0.0,
-                     project_fn=None):
+                     project_fn=None, temporal: bool = False,
+                     governor: gov_mod.GovernorSpec | None = None,
+                     meter: EnergyMeter = EnergyMeter(), frame_hz: float = 30.0,
+                     backend: bool = False):
     """Batched slot step (params, frames (S,H,W,3), fed (S,) bool, state)
     -> (logits (S, n_classes), state): per slot one saccade frame, plus the
     in-step bootstrap at age 0, EMA blending of the scores, and holds for
-    inactive or un-fed slots."""
+    inactive or un-fed slots. A governed step applies the controls to this
+    frame's gate and updates them from this frame's events for the next."""
     fcfg = cfg.frontend
     k = fcfg.n_active
+    j_max = fcfg.temporal.budget(k)
+    n_pixels = float(fcfg.image_h * fcfg.image_w)
+    backend_mw = 0.0
+    if backend:
+        # the governor's plant model of the backend: a dense frame's power
+        backend_mw = (dense_backend_macs(k, cfg.n_layers, fcfg.patch.n_vectors,
+                                         cfg.d_model, cfg.d_ff, cfg.n_classes)
+                      * meter.k.e_backend_mac_j * frame_hz * 1e3)
 
     def step(params, frames, fed, state: StreamState):
         act = state.active & fed
@@ -80,9 +124,23 @@ def make_engine_step(cfg, explore: float = 0.1, ema_decay: float = 0.0,
         boot = sal.topk_patch_indices(sal.patch_energy(patches), k)
         fresh = state.frame_age == 0
         indices = torch.where(fresh[:, None], boot, state.indices)
+        cache = bcache = eps = None
+        if temporal:
+            # belt to the admit wipe: a fresh slot never serves held charge
+            cache = state.cache._replace(valid=state.cache.valid & ~fresh[:, None])
+        if backend:
+            bcache = state.bcache._replace(valid=state.bcache.valid & ~fresh)
+            if governor is not None:
+                eps = state.controls.eps
+        k_cap = stale_cap = None
+        if governor is not None:
+            k_cap = gov_mod.tier_k_eff(governor, state.controls.tier, k)
+            stale_cap = state.controls.j_cap
         logits, aux = vit_forward_compact(
             params, frames, cfg, indices=indices, project_fn=project_fn,
-            precomputed=(patches, weights))
+            precomputed=(patches, weights), cache=cache, k_cap=k_cap,
+            stale_cap=stale_cap, backend_cache=bcache, backend_eps=eps,
+            backend_act=act if backend else None)
         scores = saccade_scores(aux, explore)
         ema = torch.where(fresh[:, None], scores,
                           ema_decay * state.ema + (1.0 - ema_decay) * scores)
@@ -94,13 +152,24 @@ def make_engine_step(cfg, explore: float = 0.1, ema_decay: float = 0.0,
         n_served = (state.frame_age + 1).to(torch.float32)
         ev_mean = EventCounts(*(torch.where(act, m + (e - m) / n_served, m)
                                 for m, e in zip(state.events_mean, ev_last)))
+        controls = None
+        if governor is not None:
+            actf = act.to(torch.float32)
+            controls = gov_mod.control_update(
+                governor, state.controls, EventCounts(*(e * actf for e in aux["events"])),
+                act, meter, frame_hz, n_pixels, fcfg.patch.pixels_per_patch,
+                fcfg.patch.n_vectors, j_max, k, backend_mw=backend_mw)
         new_state = StreamState(
             indices=torch.where(act[:, None], next_idx, state.indices),
             ema=torch.where(act[:, None], ema, state.ema),
             frame_age=torch.where(act, state.frame_age + 1, state.frame_age),
             active=state.active,
+            cache=_freeze_rows(act, aux["cache"], state.cache) if temporal else None,
             events_last=ev_last,
             events_mean=ev_mean,
+            controls=controls,
+            bcache=(_freeze_rows(act, aux["backend_cache"], state.bcache)
+                    if backend else None),
         )
         logits = torch.where(act[:, None], logits, torch.zeros_like(logits))
         return logits, new_state
@@ -108,22 +177,45 @@ def make_engine_step(cfg, explore: float = 0.1, ema_decay: float = 0.0,
     return step
 
 
-def _make_churn(k: int):
-    """ONE coalesced churn flush: ``admit_hit`` rows are fully reset,
-    ``evict_hit`` rows only drop the active flag."""
+def _make_churn(k: int, j_max: int):
+    """ONE coalesced churn flush: ``admit_hit`` rows are fully reset (a
+    recycled slot never serves its predecessor's state), ``evict_hit`` rows
+    only drop the active flag; ``budgets`` (S,) rewrites a governed
+    engine's per-slot shares."""
 
-    def churn(state: StreamState, admit_hit, evict_hit) -> StreamState:
+    def churn(state: StreamState, admit_hit, evict_hit, budgets=None) -> StreamState:
         hit = admit_hit
-        zero = torch.zeros((), dtype=torch.float32, device=hit.device)
+        dev = hit.device
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
+        cache = state.cache
+        if cache is not None:
+            cache = FeatureCache(
+                features=torch.where(hit[:, None, None],
+                                     torch.zeros((), dtype=cache.features.dtype, device=dev),
+                                     cache.features),
+                energy=torch.where(hit[:, None], zero, cache.energy),
+                age=torch.where(hit[:, None], torch.zeros_like(cache.age), cache.age),
+                valid=cache.valid & ~hit[:, None],
+                n_stale=torch.where(hit, torch.zeros_like(cache.n_stale), cache.n_stale),
+            )
+        bcache = None if state.bcache is None else bdel.wipe_rows(state.bcache, hit)
+        controls = state.controls
+        if controls is not None:
+            controls = gov_mod.reset_rows(controls, hit, j_max)
+            if budgets is not None:
+                controls = controls._replace(budget_mw=budgets)
         return StreamState(
             indices=torch.where(hit[:, None],
-                                torch.arange(k, dtype=torch.int32, device=hit.device)[None],
+                                torch.arange(k, dtype=torch.int32, device=dev)[None],
                                 state.indices),
             ema=torch.where(hit[:, None], zero, state.ema),
             frame_age=torch.where(hit, torch.zeros_like(state.frame_age), state.frame_age),
             active=(state.active & ~evict_hit) | hit,
+            cache=cache,
             events_last=EventCounts(*(torch.where(hit, zero, e) for e in state.events_last)),
             events_mean=EventCounts(*(torch.where(hit, zero, e) for e in state.events_mean)),
+            controls=controls,
+            bcache=bcache,
         )
 
     return churn
@@ -134,41 +226,69 @@ class SaccadeEngine:
 
     Args:
       cfg: ViTConfig of the backend (``quant_embed`` / ``fused_embed``
-        select the kernel routes).
+        select the kernel routes; ``delta_kernel`` the ragged attention
+        kernel of the delta-gated backend).
       params: model parameters (moved to ``device``).
       capacity: number of slots.
       explore / project_fn: as in ``serve_step.make_saccade_step``; pass
         ``ops.ip2_codes_fn(spec, adc)`` for the staged kernel route.
       ema_decay: attention-EMA smoothing; 0.0 = per-frame scores.
+      temporal: the per-slot temporal gate (``cfg.frontend.temporal``).
       meter / frame_hz: the EnergyMeter pricing the per-slot meters.
+      governor: a ``GovernorSpec`` closing the loop on a mW budget (needs
+        ``temporal``); shares are priority-weighted over admitted streams.
+      backend_delta: the per-slot delta-gated backend cache
+        (``governor.backend_eps > 0`` needs it).
       device: where the engine runs; None means the GPU (raises without one).
     """
 
     def __init__(self, cfg, params, capacity: int = 8, *, explore: float = 0.1,
-                 ema_decay: float = 0.0, project_fn=None,
+                 ema_decay: float = 0.0, project_fn=None, temporal: bool = False,
                  meter: EnergyMeter = EnergyMeter(), frame_hz: float = 30.0,
-                 device=None):
+                 governor: gov_mod.GovernorSpec | None = None,
+                 backend_delta: bool = False, device=None):
         if capacity < 1:
             raise ValueError(f"capacity must be >= 1, got {capacity}")
+        if governor is not None and not temporal:
+            raise ValueError("governor requires temporal=True: the recompute cap "
+                             "governs the temporal gate's per-frame allocation")
+        if governor is not None and governor.backend_eps > 0.0 and not backend_delta:
+            raise ValueError("governor.backend_eps budgets the delta-gated backend; "
+                             "build the engine with backend_delta=True or drop "
+                             "backend_eps")
+        if governor is not None and governor.sign_tier:
+            raise NotImplementedError("the governor's sign tier needs the sign wire, "
+                                      "which is not ported yet")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = tree_to(params, self.device)
         self.capacity = capacity
+        self.temporal = temporal
+        self.backend = backend_delta
         self.meter = meter
         self.frame_hz = frame_hz
+        self.governor = governor
+        self._priority: dict[Hashable, float] = {}
         self._slots: list[Hashable | None] = [None] * capacity
         self._slot_index: dict[Hashable, int] = {}
-        # slot -> "admit" | "evict", last op wins; flushed before the next
-        # step or state read
+        # slot -> "admit" | "evict", last op wins; flushed (with a governed
+        # engine's budget re-split) before the next step or state read
         self._pending: dict[int, str] = {}
+        self._budgets_dirty = False
+        self._budget_mw = None if governor is None else governor.budget_mw
         fcfg = cfg.frontend
         self._stage = np.zeros((capacity, fcfg.image_h, fcfg.image_w, 3), np.float32)
         self._stage_slots = np.zeros((capacity,), np.int64)
         self._fed = np.zeros((capacity,), bool)
-        self._step_fn = make_engine_step(cfg, explore=explore, ema_decay=ema_decay,
-                                         project_fn=project_fn)
-        self._churn_fn = _make_churn(fcfg.n_active)
-        self._state = init_stream_state(cfg, capacity, self.device)
+        self._step_fn = make_engine_step(
+            cfg, explore=explore, ema_decay=ema_decay, project_fn=project_fn,
+            temporal=temporal, governor=governor, meter=meter, frame_hz=frame_hz,
+            backend=backend_delta)
+        k = fcfg.n_active
+        self._churn_fn = _make_churn(k, fcfg.temporal.budget(k))
+        self._state = init_stream_state(cfg, capacity, self.device, temporal=temporal,
+                                        governed=governor is not None,
+                                        backend=backend_delta)
         self._frames_dev = torch.zeros((capacity, fcfg.image_h, fcfg.image_w, 3),
                                        dtype=torch.float32, device=self.device)
 
@@ -193,11 +313,14 @@ class SaccadeEngine:
         except KeyError:
             raise KeyError(f"stream {stream_id!r} not admitted") from None
 
-    def admit(self, stream_id: Hashable) -> int:
+    def admit(self, stream_id: Hashable, priority: float = 1.0) -> int:
         """Claim a free slot; its first frame bootstraps from the patch
-        energy inside the next step()."""
+        energy inside the next step(). ``priority`` weights the stream's
+        share of a governed engine's budget."""
         if stream_id in self._slot_index:
             raise ValueError(f"stream {stream_id!r} already admitted")
+        if priority <= 0:
+            raise ValueError(f"priority must be > 0, got {priority}")
         try:
             slot = self._slots.index(None)
         except ValueError:
@@ -206,25 +329,54 @@ class SaccadeEngine:
             ) from None
         self._slots[slot] = stream_id
         self._slot_index[stream_id] = slot
+        self._priority[stream_id] = float(priority)
         self._pending[slot] = "admit"
+        self._budgets_dirty = True
         return slot
 
     def evict(self, stream_id: Hashable) -> None:
         slot = self.slot_of(stream_id)
         self._slots[slot] = None
         del self._slot_index[stream_id]
+        self._priority.pop(stream_id, None)
         self._pending[slot] = "evict"        # last-op-wins per slot
+        self._budgets_dirty = True
+
+    def set_budget_mw(self, budget_mw: float) -> None:
+        """Rewrite the engine's total power budget; the per-slot shares are
+        re-split at the next flush."""
+        if self.governor is None:
+            raise RuntimeError("engine was built without a governor")
+        if budget_mw <= 0:
+            raise ValueError(f"budget_mw must be > 0, got {budget_mw}")
+        self._budget_mw = float(budget_mw)
+        self._budgets_dirty = True
+
+    @property
+    def budget_mw(self) -> float | None:
+        """The engine-total budget being split over slots (None ungoverned)."""
+        return self._budget_mw
 
     def _flush_churn(self) -> None:
-        if not self._pending:
+        dirty_budget = self.governor is not None and self._budgets_dirty
+        if not self._pending and not dirty_budget:
             return
         admit_hit = np.zeros((self.capacity,), bool)
         evict_hit = np.zeros((self.capacity,), bool)
         for slot, op in self._pending.items():
             (admit_hit if op == "admit" else evict_hit)[slot] = True
         hits = torch.from_numpy(np.stack([admit_hit, evict_hit])).to(self.device)
-        self._state = self._churn_fn(self._state, hits[0], hits[1])
+        budgets = None
+        if self.governor is not None:
+            w = np.zeros((self.capacity,), np.float64)
+            for slot, sid in enumerate(self._slots):
+                if sid is not None:
+                    w[slot] = self._priority[sid]
+            budgets = torch.from_numpy(gov_mod.allocate_budgets(
+                self.governor, w, total_mw=self._budget_mw)).to(self.device)
+        self._state = self._churn_fn(self._state, hits[0], hits[1], budgets)
         self._pending.clear()
+        self._budgets_dirty = False
 
     # ---- serving -------------------------------------------------------
     def step(self, frames: Mapping[Hashable, Any]) -> dict[Hashable, np.ndarray]:
@@ -257,6 +409,53 @@ class SaccadeEngine:
                                                 fed_dev, self._state)
             host = logits.cpu().numpy()
         return {sid: host[s] for sid, s in slots_by_sid.items()}
+
+    def _served_slot(self, stream_id: Hashable) -> int:
+        slot = self.slot_of(stream_id)
+        if int(self.state.frame_age[slot]) == 0:
+            raise RuntimeError(f"stream {stream_id!r} has not served a frame yet")
+        return slot
+
+    def recompute_fraction(self, stream_id: Hashable) -> float:
+        """Fraction of the stream's served tokens (its tier's k_eff when
+        governed) re-projected and converted on its last frame."""
+        if not self.temporal:
+            raise RuntimeError("engine was built without temporal=True")
+        slot = self._served_slot(stream_id)
+        denom = (self.k_tier(stream_id) if self.governor is not None
+                 else self.cfg.frontend.n_active)
+        return float(self.state.cache.n_stale[slot]) / denom
+
+    def _controls(self, stream_id: Hashable) -> tuple[gov_mod.GovernorControls, int]:
+        if self.governor is None:
+            raise RuntimeError("engine was built without a governor")
+        return self.state.controls, self.slot_of(stream_id)
+
+    def recompute_cap(self, stream_id: Hashable) -> int:
+        """The governor's current per-frame recompute allocation."""
+        c, slot = self._controls(stream_id)
+        return int(c.j_cap[slot])
+
+    def k_tier(self, stream_id: Hashable) -> int:
+        """The governor's current token count (k_eff of the stream's tier)."""
+        c, slot = self._controls(stream_id)
+        tokens = self.governor.tier_tokens(self.cfg.frontend.n_active)
+        return tokens[min(int(c.tier[slot]), len(tokens) - 1)]
+
+    def backend_eps(self, stream_id: Hashable) -> float:
+        """The governor's current backend snap budget (0.0 = exact reuse)."""
+        c, slot = self._controls(stream_id)
+        if not self.backend:
+            raise RuntimeError("engine was built without backend_delta=True")
+        return float(c.eps[slot])
+
+    def backend_cached(self, stream_id: Hashable) -> bool:
+        """True when the stream's last frame was served wholly from its
+        backend cache (zero backend MACs)."""
+        if not self.backend:
+            raise RuntimeError("engine was built without backend_delta=True")
+        slot = self._served_slot(stream_id)
+        return float(self.state.events_last.backend_macs[slot]) == 0.0
 
     # ---- energy metering -----------------------------------------------
     def _fetch_meters(self, window: str) -> tuple[EventCounts, np.ndarray]:

@@ -19,7 +19,10 @@ import repro.core.projection
 import repro.core.pwm
 import repro.core.switched_cap
 import repro.core.temporal
+import repro.models.backend_delta
 import repro.models.vit
+import repro.serve.engine
+import repro.serve.governor
 from repro.kernels.ip2_project import IP2KernelParams as RefKernelParams
 import repro_torch.convert
 import repro_torch.core.adc
@@ -31,8 +34,10 @@ import repro_torch.core.pwm
 import repro_torch.core.switched_cap
 import repro_torch.core.temporal
 import repro_torch.kernels.ops
+import repro_torch.models.backend_delta
 import repro_torch.models.vit
 import repro_torch.serve.engine
+import repro_torch.serve.governor
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -69,6 +74,8 @@ PAIRS = [
     (RefKernelParams, repro_torch.kernels.ops.IP2KernelParams),
     (repro.core.power.EnergyConstants, repro_torch.core.power.EnergyConstants),
 ]
+# GovernorSpec has a required field (budget_mw): compared on its fields
+# in tests/test_torch_governor.py
 
 
 def _plain(v):
@@ -90,6 +97,10 @@ def test_config_fields_match_reference(ref_cls, port_cls):
     (repro.core.power.EventCounts, repro_torch.core.power.EventCounts),
     (repro.core.frontend.CompactFeatures, repro_torch.core.frontend.CompactFeatures),
     (repro.core.frontend.CompactSelection, repro_torch.core.frontend.CompactSelection),
+    (repro.core.temporal.FeatureCache, repro_torch.core.temporal.FeatureCache),
+    (repro.serve.governor.GovernorControls, repro_torch.serve.governor.GovernorControls),
+    (repro.models.backend_delta.BackendCache, repro_torch.models.backend_delta.BackendCache),
+    (repro.serve.engine.StreamState, repro_torch.serve.engine.StreamState),
 ], ids=lambda c: c.__name__)
 def test_named_tuple_fields_match_reference(ref_t, port_t):
     assert port_t._fields == ref_t._fields
@@ -121,7 +132,14 @@ def test_cpu_tensors_never_reach_the_cuda_build(monkeypatch):
     codes = ops.ip2_project(x, w, spec, adc=adc, codes=True)
     w8, s_w = ops.quantize_weights_int8(torch.randn(8, 16))
     ops.quant_matmul_pre(codes, adc.lsb, w8, s_w)
-    ops.ip2_fused_embed(x, w, torch.zeros((2, 3), dtype=torch.int32), spec, adc, w8, s_w)
+    idx = torch.zeros((2, 3), dtype=torch.int32)
+    ops.ip2_fused_embed(x, w, idx, spec, adc, w8, s_w)
+    ops.ip2_project_sparse(x, w, idx, spec, adc=adc, codes=True)
+    ops.ip2_project_sparse(x, w, idx, spec, adc=adc, codes=True, row_counts=torch.tensor([1, 3]))
+    attn = {n: torch.zeros((8, 2, 4)) for n in ("wq", "wk", "wv")}
+    attn.update({n: torch.zeros((2, 4)) for n in ("bq", "bk", "bv")}, wo=torch.zeros((2, 4, 8)))
+    ops.delta_attention(attn, torch.rand((2, 3, 8)), torch.ones((2, 3), dtype=torch.bool),
+                        torch.tensor([3, 0]), 2)
     assert all(n == 0 for n in ops.LAUNCHES.values())
     with pytest.raises(RuntimeError, match="device"):
         ops.ip2_project(x.to("meta"), w.to("meta"), spec, adc=adc, codes=True)

@@ -5,7 +5,10 @@ use); everywhere else they skip. Run them on the card with
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py``.
 Tolerances: quant_matmul bitwise; ip2_project codes within 1 LSB on a
 bounded number of rows (cuBLAS and the kernel sum fp32 in different
-orders); ip2_fused_embed bitwise equal to ip2_project -> quant_matmul.
+orders); ip2_fused_embed bitwise equal to ip2_project -> quant_matmul;
+the sparse and ragged projections bitwise ip2_project on the gathered rows
+(the same tile and epilogue), zero past the counts; delta_attention within
+1e-5 of its plain version, exact zeros past the counts.
 """
 
 import numpy as np
@@ -110,6 +113,73 @@ def test_fused_embed_equals_staged_kernels(dev):
     live = torch.arange(4, device=dev)[None, :] < cnt[:, None]
     assert torch.equal(ragged[live], fused[live])
     assert not ragged[~live].any()
+
+
+@pytest.mark.parametrize("bits", [8, 10])
+def test_ip2_sparse_and_ragged_kernels(dev, bits):
+    """Kernel 1 (the sparse gather) is bitwise ip2_project's kernel on the
+    gathered rows and within 1 LSB of the plain version; kernel 2 with
+    counts 0, partial and full per slot is bitwise kernel 1 below the
+    count and exactly zero past it."""
+    spec, x, w, _, _, _ = _operands(dev)
+    g = torch.Generator().manual_seed(3)
+    k = 10
+    idx = torch.stack([torch.randperm(16, generator=g)[:k] for _ in range(5)])
+    idx = idx.to(torch.int32).to(dev)
+    adc = adc_mod.ADCSpec(bits=bits)
+    n0 = dict(ops.LAUNCHES)
+    sparse = ops.ip2_project_sparse(x, w, idx, spec, adc=adc, codes=True)
+    assert ops.LAUNCHES["ip2_project_sparse"] == n0["ip2_project_sparse"] + 1
+    gathered = torch.gather(x, 1, idx.long()[..., None].expand(*idx.shape, x.shape[-1]))
+    assert sparse.dtype == adc.code_dtype
+    assert torch.equal(sparse, ops.ip2_project(gathered, w, spec, adc=adc, codes=True))
+    w_t = ops._dac_weights(w, spec).T.contiguous()
+    params = ops.kernel_params_from_spec(spec, adc, codes=True)
+    table, _ = ops._ragged_tables(idx, x.shape[1], None)
+    plain = ref.ip2_project_sparse_ref(table, None, x.reshape(-1, x.shape[-1]), w_t,
+                                       torch.zeros(w_t.shape[1], device=dev), params, k)
+    d = (sparse.reshape(plain.shape).int() - plain.int()).abs()
+    assert d.max().item() <= 1 and (d.amax(-1) > 0).sum().item() <= 2
+    cnt = torch.tensor([0, 3, 10, 9, 1], dtype=torch.int32, device=dev)
+    ragged = ops.ip2_project_sparse(x, w, idx, spec, adc=adc, codes=True, row_counts=cnt)
+    assert ops.LAUNCHES["ip2_ragged"] == n0["ip2_ragged"] + 1
+    torch.cuda.synchronize()
+    live = torch.arange(k, device=dev)[None, :] < cnt[:, None]
+    assert torch.equal(ragged[live], sparse[live])
+    assert not ragged[~live].any()
+
+
+@pytest.mark.parametrize("readout", ["dequant", "noadc", "sign"])
+def test_ip2_ragged_float_and_sign_readouts(dev, readout):
+    spec, x, w, idx, _, _ = _operands(dev)
+    kw = {"adc": adc_mod.ADCSpec()} if readout == "dequant" else (
+        {"readout": "sign"} if readout == "sign" else {})
+    bias = torch.linspace(-0.1, 0.1, 32, device=dev)
+    cnt = torch.tensor([4, 2, 0, 1, 3], dtype=torch.int32, device=dev)
+    ragged = ops.ip2_project_sparse(x, w, idx, spec, bias=bias, row_counts=cnt, **kw)
+    sparse = ops.ip2_project_sparse(x, w, idx, spec, bias=bias, **kw)
+    torch.cuda.synchronize()
+    live = torch.arange(4, device=dev)[None, :] < cnt[:, None]
+    assert torch.equal(ragged[live], sparse[live]) and not ragged[~live].any()
+
+
+@pytest.mark.parametrize("s,dh", [(16, 64), (13, 16)])
+def test_delta_attention_kernel_vs_plain(dev, s, dh):
+    g = torch.Generator().manual_seed(s)
+    b, h = 5, 4
+    q, k, v = (torch.randn((b, s, h, dh), generator=g).to(dev) for _ in range(3))
+    mask = torch.rand((b, s), generator=g) < 0.8
+    mask[:, 0] = True
+    mask = mask.to(dev)
+    counts = torch.tensor([0, 3, s, 9, 1], dtype=torch.int32, device=dev)
+    n0 = ops.LAUNCHES["delta_attention"]
+    got = ops._delta_attention_cuda(q, k, v, mask, counts)
+    assert ops.LAUNCHES["delta_attention"] == n0 + 1
+    want = ref.delta_attention_ref(q, k, v, mask, counts)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    live = torch.arange(s, device=dev)[None, :] < counts[:, None]
+    assert not got[~live].any()
 
 
 def test_embed_kernels_reject_wide_codes(dev):

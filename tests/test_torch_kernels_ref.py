@@ -9,6 +9,8 @@ in interpret mode here.
   readouts carry that LSB, and otherwise agree to atol 1e-6.
 * ``ip2_fused_embed``: equal to the port's own staged pair bitwise, and to
   the JAX fused kernel on every row whose codes agree.
+* ``ip2_project_sparse`` (the sparse and the ragged kernel): codes within
+  1 LSB on counted rows; rows past a slot's count exactly zero.
 """
 
 import jax.numpy as jnp
@@ -77,6 +79,65 @@ def test_ip2_project_wide_codes(bits):
         _flip_rows(tc.numpy(), jc)
     v_out = t_ops.ip2_project(_t(x), _t(w), ts)
     np.testing.assert_array_equal(tc.numpy(), t_adc.encode(v_out, tadc).numpy())
+
+
+@pytest.mark.parametrize("bits", [8, 10])
+def test_ip2_project_sparse_and_ragged(bits):
+    """Kernels 1 and 2: the sparse gather (``row_counts=None``) and the
+    ragged one with counts 0, a partial 8-row bank, a partial slot and a
+    full slot, against the reference wrapper (codes within 1 LSB on
+    counted rows; rows past a count exactly zero in both); in the port the
+    ragged result at full counts is bitwise the sparse one."""
+    js, ts, _, w, _ = _operands()
+    x = RNG.uniform(size=(4, 16, 256)).astype(np.float32)
+    idx = np.stack([RNG.permutation(16)[:10] for _ in range(4)]).astype(np.int32)
+    jadc, tadc = j_adc.ADCSpec(bits=bits), t_adc.ADCSpec(bits=bits)
+    args_j = (jnp.asarray(x), jnp.asarray(w), jnp.asarray(idx), js)
+    args_t = (_t(x), _t(w), _t(idx), ts)
+    jsp = np.asarray(j_ops.ip2_project_sparse(*args_j, adc=jadc, codes=True))
+    tsp = t_ops.ip2_project_sparse(*args_t, adc=tadc, codes=True)
+    assert tsp.dtype == tadc.code_dtype and tuple(tsp.shape) == jsp.shape
+    _flip_rows(tsp.numpy(), jsp)
+    gathered = np.take_along_axis(x, idx[..., None].astype(np.int64), axis=1)
+    np.testing.assert_array_equal(
+        tsp.numpy(), t_ops.ip2_project(_t(gathered), _t(w), ts, adc=tadc, codes=True).numpy())
+    counts = np.array([0, 9, 3, 10], np.int32)
+    jrg = np.asarray(j_ops.ip2_project_sparse(*args_j, adc=jadc, codes=True,
+                                              row_counts=jnp.asarray(counts)))
+    trg = t_ops.ip2_project_sparse(*args_t, adc=tadc, codes=True, row_counts=_t(counts))
+    _flip_rows(trg.numpy(), jrg)
+    live = np.arange(10)[None, :] < counts[:, None]
+    assert not trg.numpy()[~live].any() and not jrg[~live].any()
+    np.testing.assert_array_equal(trg.numpy()[live], tsp.numpy()[live])
+    full = t_ops.ip2_project_sparse(*args_t, adc=tadc, codes=True,
+                                    row_counts=_t(np.full(4, 10, np.int32)))
+    assert torch.equal(full, tsp)
+
+
+@pytest.mark.parametrize("readout", ["dequant", "sign"])
+def test_ip2_project_sparse_readouts(readout):
+    js, ts, _, w, bias = _operands()
+    x = RNG.uniform(size=(2, 16, 256)).astype(np.float32)
+    idx = np.stack([RNG.permutation(16)[:5] for _ in range(2)]).astype(np.int32)
+    kw_j, kw_t = {"bias": jnp.asarray(bias)}, {"bias": _t(bias)}
+    if readout == "dequant":
+        kw_j["adc"], kw_t["adc"] = j_adc.ADCSpec(), t_adc.ADCSpec()
+    else:
+        kw_j["readout"] = kw_t["readout"] = "sign"
+    cnt = np.array([5, 2], np.int32)
+    jo = np.asarray(j_ops.ip2_project_sparse(jnp.asarray(x), jnp.asarray(w), jnp.asarray(idx),
+                                             js, row_counts=jnp.asarray(cnt), **kw_j))
+    to = t_ops.ip2_project_sparse(_t(x), _t(w), _t(idx), ts, row_counts=_t(cnt),
+                                  **kw_t).numpy()
+    assert to.dtype == jo.dtype and to.shape == jo.shape
+    if readout == "sign":
+        _flip_rows(to, jo)
+    else:
+        lsb = t_adc.ADCSpec().lsb
+        codes = np.rint((to - jo) / lsb)
+        np.testing.assert_allclose(to - codes * lsb, jo, atol=1e-6, rtol=0)
+        _flip_rows(codes.astype(np.int64), np.zeros_like(codes, np.int64))
+    assert not to[1, 2:].any()
 
 
 def test_program_weights_as_weights():
