@@ -35,12 +35,24 @@ one CUDA device. Phases, any failure exits non-zero:
            the exact backend regime (eps 0) the engine with the kernel and
            the same engine with dense attention (delta_kernel=False) agree:
            logits within 1e-5 every tick, integer state equal.
+  (a')   after (b), the projection tiles at awkward shapes (R off the row
+         tiles, M = 100 off the column tile, K = 1000 off the K step; and
+         K = 250, M = 30, which take the 4-byte copies): ip2_project's
+         codes through quant_matmul and the sparse kernel's codes equal
+         ip2_fused_embed, which keeps the older tile, bit for bit; the
+         ragged kernel's codes through the same embed equal
+         ip2_fused_embed with the same counts (all zero, all full, one
+         slot full, the gated path's counts, and counts below 0 and
+         above k handed to the kernel unclipped), zeros past the counts.
   (ref)  small inputs through the kernel route on the card and the plain
          route on the CPU: same indices, logits and saliency within 1e-4
          on every slot whose codes agree; the same for the gated engine.
-  (c)    times with CUDA events after warm-up: per-tick engine ms and
-         stream-frames/s (plain routes and the gated engine), each kernel's
-         ms beside its plain version's, a PyTorch yardstick call's (never
+  (c)    times after warm-up: per-tick engine ms and stream-frames/s (plain
+         routes and the gated engine); for each kernel, ms by CUDA events
+         around 30 back-to-back wrapper calls (host-paced when the kernel
+         is shorter than the wrapper's host work) and device_ms from the
+         profiler's kernel events over 30 calls, beside its plain
+         version's ms, a PyTorch yardstick call's ms and device_ms (never
          used by the port) and its bound.
 
 Prints the kernel table as one JSON line, the card's name and power limit
@@ -88,6 +100,38 @@ def _time_ms(fn, n=30, warm=5):
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / n
+
+
+def _device_ms(fn, kernel=None, n=30, warm=5, tries=3):
+    """Device time per call from the profiler's CUDA events over ``n``
+    calls: for a ``kernel`` (one launch per call), the mean duration of the
+    events whose name holds it; else every device event's duration, summed
+    and divided by ``n``. Host work between the calls does not count, as it
+    does in ``_time_ms``. The profiler now and then drops an event or a
+    whole window on that machine, so a window with more than two of a
+    kernel's events missing, or with none at all, is profiled again, up to
+    ``tries`` times."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    seen = []
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and (kernel is None or kernel in e.name)]
+        seen.append(len(evs))
+        us = sum(e.time_range.elapsed_us() for e in evs)
+        if kernel is None and evs:
+            return us / 1e3 / n
+        if kernel is not None and n - 2 <= len(evs) <= n:
+            return us / 1e3 / len(evs)
+    raise AssertionError(f"{kernel or 'device'} events per window of {n} calls: {seen}")
 
 
 def _bound(n_bytes, t_ops):
@@ -544,6 +588,60 @@ def main():
             "delta_attention_launches": n_attn[0], "kernel_vs_dense_max_logit_err": worst[0]}
         assert n_attn[0] > 0, "the exact-regime engine never launched delta_attention"
 
+    # ---- (a') the projection tiles at awkward shapes, after (b) so that the
+    # gated path's counts are known
+    @phase("a_odd_shapes")
+    def _a3():
+        s_n, p_n = CAPACITY + 1, 16          # 65 slots x 8 rows: 520 rows
+        last = gated.get("counts", (None, None))[0]
+        if last is None:                     # (b) failed: a pattern of its kind
+            last = torch.tensor([2] * 5 + [3] * 3 + [1] * 12 + [0] + [1] * 19 + [0]
+                                + [1] * 23, dtype=torch.int32)
+        raw = torch.tensor([(-3, j_rows + 4, 5, 0, j_rows, -1, 1)[i % 7]
+                            for i in range(s_n)], dtype=torch.int32)
+        one_full = torch.zeros(s_n, dtype=torch.int32)
+        one_full[s_n // 2] = j_rows
+        patterns = {"zero": torch.zeros(s_n, dtype=torch.int32),
+                    "full": torch.full((s_n,), j_rows, dtype=torch.int32),
+                    "one_full": one_full,
+                    "gated": torch.cat([last.int(), torch.ones(1, dtype=torch.int32)]),
+                    "clipped": raw}
+        out = {}
+        for kk, mm in ((1000, 100), (250, 30)):
+            g = torch.Generator().manual_seed(kk)
+            spec = PatchSpec(32, 32, n_vectors=mm)
+            x = torch.rand((s_n, p_n, kk), generator=g).to(dev)
+            wts = (torch.randn((mm, kk), generator=g) * 6.4).to(dev)
+            idx = torch.stack([torch.randperm(p_n, generator=g)[:j_rows]
+                               for _ in range(s_n)]).int().to(dev)
+            w8_o, s_w_o = ops.quantize_weights_int8(
+                (torch.randn((mm, 40), generator=g) * 0.1).to(dev))
+            codes_o = ops.ip2_project(sal.gather_patches(x, idx), wts, spec, adc=adc,
+                                      codes=True)
+            fused_o = ops.ip2_fused_embed(x, wts, idx, spec, adc, w8_o, s_w_o)
+            assert torch.equal(ops.quant_matmul_pre(codes_o, adc.lsb, w8_o, s_w_o), fused_o), \
+                f"K {kk} M {mm}: ip2_project -> quant_matmul differs from ip2_fused_embed"
+            sp = ops.ip2_project_sparse(x, wts, idx, spec, adc=adc, codes=True)
+            assert torch.equal(sp, codes_o), f"K {kk} M {mm}: sparse differs from ip2_project"
+            # the ragged kernel gets the counts unclipped: it clips them itself
+            table_o, _ = ops._ragged_tables(idx, p_n, None)
+            w_t_o = ops._dac_weights(wts, spec).T.contiguous()
+            p_o = ops.kernel_params_from_spec(spec, adc, codes=True)
+            zero_o = torch.zeros(mm, device=dev)
+            for name, cnt in patterns.items():
+                cnt = cnt.to(dev)
+                rg = ops._ip2_sparse_cuda(table_o, cnt, x.reshape(-1, kk), w_t_o, zero_o,
+                                          p_o, j_rows).reshape(s_n, j_rows, mm)
+                fz = ops.ip2_fused_embed(x, wts, idx, spec, adc, w8_o, s_w_o, row_counts=cnt)
+                live = torch.arange(j_rows, device=dev)[None, :] < cnt.clamp(0, j_rows)[:, None]
+                assert torch.equal(ops.quant_matmul_pre(rg, adc.lsb, w8_o, s_w_o), fz), \
+                    f"K {kk} M {mm} {name}: ip2_ragged -> quant_matmul differs from fused"
+                assert torch.equal(rg[live], codes_o[live]), \
+                    f"K {kk} M {mm} {name}: ip2_ragged differs from ip2_project"
+                assert not rg[~live].any(), f"K {kk} M {mm} {name}: rows past the counts"
+                out[f"K{kk}_M{mm}_{name}"] = int(live.sum())
+        report["odd_shapes"] = {"rows": s_n * j_rows, "live_rows": out}
+
     # ---- (ref) small input: kernel route on the card vs plain on the CPU --
     small_fe = FrontendConfig(image_h=64, image_w=64,
                               patch=PatchSpec(16, 16, n_vectors=32), active_fraction=0.25)
@@ -681,6 +779,7 @@ def main():
             "ip2_project_sparse": dict(
                 replaces="src/repro/kernels/ip2_project_sparse.py:79",
                 source="src/repro_torch/kernels/csrc/ip2_ragged.cu",
+                symbol="ip2_ragged_kernel",
                 kernel=lambda: ops._ip2_sparse_cuda(table, None, flat_p, w_t, zero_bias,
                                                     p_codes, k_tok),
                 plain=lambda: ref.ip2_project_sparse_ref(table, None, flat_p, w_t, zero_bias,
@@ -691,6 +790,7 @@ def main():
             "ip2_ragged": dict(
                 replaces="src/repro/kernels/ip2_megakernel.py:122",
                 source="src/repro_torch/kernels/csrc/ip2_ragged.cu",
+                symbol="ip2_ragged_kernel",
                 kernel=lambda: ops._ip2_sparse_cuda(table2, cnt2, stale_flat, w_t, zero_bias,
                                                     p_codes, j_rows),
                 plain=lambda: ref.ip2_project_sparse_ref(table2, cnt2, stale_flat, w_t,
@@ -703,6 +803,7 @@ def main():
             "delta_attention": dict(
                 replaces="src/repro/kernels/vit_delta_attention.py:130",
                 source="src/repro_torch/kernels/csrc/delta_attention.cu",
+                symbol="delta_attention_kernel",
                 kernel=lambda: ops._delta_attention_cuda(q3, k3, v3, valid3, cnt3),
                 plain=lambda: ref.delta_attention_ref(q3, k3, v3, valid3, cnt3),
                 library=lambda: torch.nn.functional.scaled_dot_product_attention(
@@ -715,6 +816,7 @@ def main():
             "ip2_fused_embed": dict(
                 replaces="src/repro/kernels/ip2_megakernel.py:251",
                 source="src/repro_torch/kernels/csrc/ip2_fused_embed.cu",
+                symbol="ip2_fused_embed_kernel",
                 kernel=lambda: ops._fused_embed_cuda(
                     table, counts, flat_p, w_t, w8, s_w, adc.lsb, p_codes, k_tok),
                 plain=fused_plain,
@@ -726,6 +828,7 @@ def main():
             "quant_matmul": dict(
                 replaces="src/repro/kernels/quant_matmul.py:55",
                 source="src/repro_torch/kernels/csrc/quant_matmul.cu",
+                symbol="quant_matmul_kernel",
                 kernel=lambda: ops._quant_matmul_cuda(codes, s_a, w8, s_w),
                 plain=lambda: ref.quant_matmul_ref(codes, s_a, w8, s_w),
                 library=lambda: torch._int_mm(codes, w8),
@@ -734,6 +837,7 @@ def main():
             "ip2_project": dict(
                 replaces="src/repro/kernels/ip2_project.py:138",
                 source="src/repro_torch/kernels/csrc/ip2_project.cu",
+                symbol="ip2_project_kernel",
                 kernel=lambda: ops._ip2_project_cuda(gathered, w_t, zero_bias, p_codes),
                 plain=lambda: ref.ip2_project_ref(gathered, w_t, zero_bias, p_codes),
                 library=lambda: torch.matmul(gathered, w_t),
@@ -743,13 +847,16 @@ def main():
         report["timed_counts"] = {"ip2_ragged": cnt2.tolist(), "delta_attention": cnt3.tolist()}
         for name, row in rows.items():
             ms = _time_ms(row["kernel"])
+            device_ms = _device_ms(row["kernel"], kernel=row["symbol"])
             plain_ms = _time_ms(row["plain"])
             lib_ms = _time_ms(row["library"]) if row["library"] else None
+            lib_device_ms = _device_ms(row["library"]) if row["library"] else None
             bound_ms, bound_by = _bound(row["bytes"], row["t_ops"])
             kernels.setdefault(name, {}).update(
                 name=name, route="cuda", source=row["source"], replaces=row["replaces"],
-                launches=kernels.get(name, {}).get("launches", 0), ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
+                launches=kernels.get(name, {}).get("launches", 0), ms=ms,
+                device_ms=device_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=lib_ms, library_device_ms=lib_device_ms)
 
     # ---- where the device time goes in the engines' ticks -----------------
     @phase("profile")
@@ -792,7 +899,8 @@ def main():
 
     report["kernels"] = [kernels.get(n, {"name": n}) for n in KERNELS]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "library_device_ms")
     print(json.dumps({"kernels": [{k: row.get(k) for k in keys} for row in report["kernels"]]}))
     try:
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -7,8 +7,10 @@ Tolerances: quant_matmul bitwise; ip2_project codes within 1 LSB on a
 bounded number of rows (cuBLAS and the kernel sum fp32 in different
 orders); ip2_fused_embed bitwise equal to ip2_project -> quant_matmul;
 the sparse and ragged projections bitwise ip2_project on the gathered rows
-(the same tile and epilogue), zero past the counts; delta_attention within
-1e-5 of its plain version, exact zeros past the counts.
+(the same fmaf chain and epilogue), zero past the counts, and at awkward
+shapes and count patterns bitwise ip2_fused_embed (the older tile) through
+the embed; delta_attention within 1e-5 of its plain version, exact zeros
+past the counts.
 """
 
 import numpy as np
@@ -146,6 +148,76 @@ def test_ip2_sparse_and_ragged_kernels(dev, bits):
     torch.cuda.synchronize()
     live = torch.arange(k, device=dev)[None, :] < cnt[:, None]
     assert torch.equal(ragged[live], sparse[live])
+    assert not ragged[~live].any()
+
+
+# Awkward shapes for the pipelined tiles: 65 slots x 8 rows = 520 rows (off
+# the 48- and 16-row tiles), M = 100 (off the 32-column tile), K = 1000 (off
+# the 32-k step); K = 250, M = 30 take the 4-byte copies.
+ODD_SHAPES = [(1000, 100), (250, 30)]
+ODD_SLOTS, ODD_ROWS, ODD_PATCHES = 65, 8, 16
+COUNT_PATTERNS = {
+    "zero": [0] * ODD_SLOTS,
+    "full": [ODD_ROWS] * ODD_SLOTS,
+    "one_full": [0] * 32 + [ODD_ROWS] + [0] * 32,
+    # the gated path's kind: most slots at 1 stale row (the governor's cap)
+    "mostly_one": [2] * 5 + [3] * 3 + [1] * 12 + [0] + [1] * 19 + [0] + [1] * 24,
+    # handed to the kernel unclipped: it clips to [0, k] itself
+    "clipped": [(-3, ODD_ROWS + 4, 5, 0, ODD_ROWS, -1, 1)[i % 7] for i in range(ODD_SLOTS)],
+}
+
+
+def _odd_operands(dev, kk, mm):
+    g = torch.Generator().manual_seed(kk)
+    spec = proj.PatchSpec(32, 32, n_vectors=mm)
+    x = torch.rand((ODD_SLOTS, ODD_PATCHES, kk), generator=g).to(dev)
+    w = (torch.randn((mm, kk), generator=g) * 6.4).to(dev)
+    idx = torch.stack([torch.randperm(ODD_PATCHES, generator=g)[:ODD_ROWS]
+                       for _ in range(ODD_SLOTS)]).to(torch.int32).to(dev)
+    w8, s_w = ops.quantize_weights_int8((torch.randn((mm, 40), generator=g) * 0.1).to(dev))
+    return spec, x, w, idx, w8, s_w
+
+
+@pytest.mark.parametrize("kk,mm", ODD_SHAPES)
+def test_odd_shapes_project_equals_fused(dev, kk, mm):
+    """ip2_project's codes through quant_matmul equal ip2_fused_embed, which
+    keeps the older tile, bit for bit; the sparse kernel equals
+    ip2_project."""
+    spec, x, w, idx, w8, s_w = _odd_operands(dev, kk, mm)
+    adc = adc_mod.ADCSpec()
+    gathered = torch.gather(x, 1, idx.long()[..., None].expand(*idx.shape, kk))
+    codes = ops.ip2_project(gathered, w, spec, adc=adc, codes=True)
+    fused = ops.ip2_fused_embed(x, w, idx, spec, adc, w8, s_w)
+    sparse = ops.ip2_project_sparse(x, w, idx, spec, adc=adc, codes=True)
+    torch.cuda.synchronize()
+    assert torch.equal(ops.quant_matmul_pre(codes, adc.lsb, w8, s_w), fused)
+    assert torch.equal(sparse, codes)
+
+
+@pytest.mark.parametrize("pattern", sorted(COUNT_PATTERNS))
+@pytest.mark.parametrize("kk,mm", ODD_SHAPES)
+def test_odd_shapes_ragged_equals_fused(dev, kk, mm, pattern):
+    """The ragged kernel's codes through quant_matmul equal ip2_fused_embed
+    with the same counts bit for bit, its live rows equal ip2_project's
+    codes, and its rows past the counts are zero."""
+    spec, x, w, idx, w8, s_w = _odd_operands(dev, kk, mm)
+    adc = adc_mod.ADCSpec()
+    cnt = torch.tensor(COUNT_PATTERNS[pattern], dtype=torch.int32, device=dev)
+    table, _ = ops._ragged_tables(idx, ODD_PATCHES, None)
+    w_t = ops._dac_weights(w, spec).T.contiguous()
+    params = ops.kernel_params_from_spec(spec, adc, codes=True)
+    n0 = ops.LAUNCHES["ip2_ragged"]
+    ragged = ops._ip2_sparse_cuda(table, cnt, x.reshape(-1, kk), w_t,
+                                  torch.zeros(mm, device=dev), params, ODD_ROWS)
+    assert ops.LAUNCHES["ip2_ragged"] == n0 + 1
+    ragged = ragged.reshape(ODD_SLOTS, ODD_ROWS, mm)
+    fused = ops.ip2_fused_embed(x, w, idx, spec, adc, w8, s_w, row_counts=cnt)
+    gathered = torch.gather(x, 1, idx.long()[..., None].expand(*idx.shape, kk))
+    codes = ops.ip2_project(gathered, w, spec, adc=adc, codes=True)
+    torch.cuda.synchronize()
+    live = torch.arange(ODD_ROWS, device=dev)[None, :] < cnt.clamp(0, ODD_ROWS)[:, None]
+    assert torch.equal(ops.quant_matmul_pre(ragged, adc.lsb, w8, s_w), fused)
+    assert torch.equal(ragged[live], codes[live])
     assert not ragged[~live].any()
 
 

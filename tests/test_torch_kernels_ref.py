@@ -81,13 +81,24 @@ def test_ip2_project_wide_codes(bits):
     np.testing.assert_array_equal(tc.numpy(), t_adc.encode(v_out, tadc).numpy())
 
 
+# per-slot row counts of 4 slots of 10 rows: the packing of the ragged kernel
+# must get each right (the plain version is what the card holds it against)
+RAGGED_COUNTS = {
+    "mixed": [0, 9, 3, 10],        # 0, a partial 8-row bank, a partial slot, full
+    "mostly_one": [1, 1, 2, 1],    # the gated path's kind (governor cap at 1)
+    "one_full": [0, 0, 10, 0],
+    "clipped": [-2, 12, 3, 10],    # outside [0, k]: clipped by both wrappers
+}
+
+
+@pytest.mark.parametrize("pattern", sorted(RAGGED_COUNTS))
 @pytest.mark.parametrize("bits", [8, 10])
-def test_ip2_project_sparse_and_ragged(bits):
+def test_ip2_project_sparse_and_ragged(bits, pattern):
     """Kernels 1 and 2: the sparse gather (``row_counts=None``) and the
-    ragged one with counts 0, a partial 8-row bank, a partial slot and a
-    full slot, against the reference wrapper (codes within 1 LSB on
-    counted rows; rows past a count exactly zero in both); in the port the
-    ragged result at full counts is bitwise the sparse one."""
+    ragged one with the counts of ``pattern``, against the reference
+    wrapper (codes within 1 LSB on counted rows; rows past a count exactly
+    zero in both); in the port the ragged result at full counts is bitwise
+    the sparse one."""
     js, ts, _, w, _ = _operands()
     x = RNG.uniform(size=(4, 16, 256)).astype(np.float32)
     idx = np.stack([RNG.permutation(16)[:10] for _ in range(4)]).astype(np.int32)
@@ -101,12 +112,12 @@ def test_ip2_project_sparse_and_ragged(bits):
     gathered = np.take_along_axis(x, idx[..., None].astype(np.int64), axis=1)
     np.testing.assert_array_equal(
         tsp.numpy(), t_ops.ip2_project(_t(gathered), _t(w), ts, adc=tadc, codes=True).numpy())
-    counts = np.array([0, 9, 3, 10], np.int32)
+    counts = np.array(RAGGED_COUNTS[pattern], np.int32)
     jrg = np.asarray(j_ops.ip2_project_sparse(*args_j, adc=jadc, codes=True,
                                               row_counts=jnp.asarray(counts)))
     trg = t_ops.ip2_project_sparse(*args_t, adc=tadc, codes=True, row_counts=_t(counts))
     _flip_rows(trg.numpy(), jrg)
-    live = np.arange(10)[None, :] < counts[:, None]
+    live = np.arange(10)[None, :] < np.clip(counts, 0, 10)[:, None]
     assert not trg.numpy()[~live].any() and not jrg[~live].any()
     np.testing.assert_array_equal(trg.numpy()[live], tsp.numpy()[live])
     full = t_ops.ip2_project_sparse(*args_t, adc=tadc, codes=True,
