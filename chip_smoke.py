@@ -18,7 +18,8 @@ one CUDA device. Phases, any failure exits non-zero:
          ragged one with counts 0, partial and full per slot bitwise the
          same below the count and 0 past it, and within 1 LSB on at most
          1% of rows of its plain version; delta_attention within 1e-5 of
-         its plain version, 0 past the counts.
+         its plain version, 0 past the counts, also with counts below 0
+         and above S, a slot with no valid key, and S 40.
   (b)    the main paths, each with the launch counts reset just before and
          read just after, on 12 ticks of admit / evict / partial-fed churn
          at ip2-vit width (256x256 frames, 32x32 patches, M=192, 6 layers,
@@ -264,6 +265,7 @@ def main():
     q3, k3, v3 = (torch.einsum("bsd,dhk->bshk", h3, a0[w]) + a0[b]
                   for w, b in (("wq", "bq"), ("wk", "bk"), ("wv", "bv")))
     q3, k3, v3 = q3.contiguous(), k3.contiguous(), v3.contiguous()
+    h3, dh3 = q3.shape[2], q3.shape[3]
     n_valid = torch.tensor([(16, 12, 8)[i % 3] for i in range(CAPACITY)], device=dev)
     valid3 = torch.arange(k_tok, device=dev)[None, :] < n_valid[:, None]
     cnt3_mix = torch.tensor([(0, 5, k_tok, 11)[i % 4] for i in range(CAPACITY)],
@@ -362,6 +364,27 @@ def main():
         assert err3 <= 1e-5, f"delta_attention off its plain version by {err3}"
         live3 = torch.arange(k_tok, device=dev)[None, :] < cnt3_mix[:, None]
         assert not o3[~live3].any(), "delta_attention rows past the counts are not zero"
+        # kernel 3's edges: counts below 0 and above S, a slot with no valid
+        # key (uniform softmax over its -1e30 scores), S 40 (two key chunks)
+        g4 = torch.Generator().manual_seed(6)
+        edge = {}
+        for s_e in (k_tok, 40):
+            qe, ke, ve = (torch.randn((CAPACITY, s_e, h3, dh3), generator=g4).to(dev)
+                          for _ in range(3))
+            me = torch.rand((CAPACITY, s_e), generator=g4) < 0.8
+            me[:, 0] = True
+            me[-1] = False
+            me = me.to(dev)
+            ce = torch.tensor([(0, 1, s_e // 2, s_e, -2, s_e + 5)[i % 6] for i in
+                               range(CAPACITY - 1)] + [s_e], dtype=torch.int32, device=dev)
+            oe = ops._delta_attention_cuda(qe, ke, ve, me, ce)
+            pe = ref.delta_attention_ref(qe, ke, ve, me, ce)
+            torch.cuda.synchronize()
+            edge[s_e] = float((oe - pe).abs().max())
+            assert edge[s_e] <= 1e-5, f"delta_attention at S {s_e} off by {edge[s_e]}"
+            le = torch.arange(s_e, device=dev)[None, :] < ce.clamp(0, s_e)[:, None]
+            assert not oe[~le].any(), f"delta_attention at S {s_e}: rows past the counts"
+        kernels["delta_attention"]["edge_max_abs_err"] = edge
 
     # ---- (b) the main paths ------------------------------------------------
     engines = {
@@ -772,11 +795,12 @@ def main():
         live_rows2 = stale_flat[live2].contiguous()
         rows3 = int(cnt3.sum())
         slots3 = int((cnt3 > 0).sum())
-        h, dh = q3.shape[2], q3.shape[3]
+        h, dh = h3, dh3
         qt, kt, vt = (x.transpose(1, 2) for x in (q3, k3, v3))
         sdpa_mask = valid3[:, None, None, :]
         rows = {
             "ip2_project_sparse": dict(
+                redesigned="PR 13",
                 replaces="src/repro/kernels/ip2_project_sparse.py:79",
                 source="src/repro_torch/kernels/csrc/ip2_ragged.cu",
                 symbol="ip2_ragged_kernel",
@@ -788,6 +812,7 @@ def main():
                 bytes=r_rows * k_in * 4 + r_rows * 4 + k_in * m * 4 + r_rows * m,
                 t_ops=fp32_ops / FP32_FLOPS),
             "ip2_ragged": dict(
+                redesigned="PR 13",
                 replaces="src/repro/kernels/ip2_megakernel.py:122",
                 source="src/repro_torch/kernels/csrc/ip2_ragged.cu",
                 symbol="ip2_ragged_kernel",
@@ -801,6 +826,7 @@ def main():
                        + k_in * m * 4 + table2.numel() * m),
                 t_ops=2.0 * rows2 * k_in * m / FP32_FLOPS),
             "delta_attention": dict(
+                redesigned="PR 14",
                 replaces="src/repro/kernels/vit_delta_attention.py:130",
                 source="src/repro_torch/kernels/csrc/delta_attention.cu",
                 symbol="delta_attention_kernel",
@@ -814,6 +840,7 @@ def main():
                        + CAPACITY * k_tok + CAPACITY * 4 + q3.numel() * 4),
                 t_ops=4.0 * rows3 * h * k_tok * dh / FP32_FLOPS),
             "ip2_fused_embed": dict(
+                redesigned=None,
                 replaces="src/repro/kernels/ip2_megakernel.py:251",
                 source="src/repro_torch/kernels/csrc/ip2_fused_embed.cu",
                 symbol="ip2_fused_embed_kernel",
@@ -826,6 +853,7 @@ def main():
                        + m * d + d * 4 + r_rows * d * 4),
                 t_ops=fp32_ops / FP32_FLOPS + int8_ops / INT8_OPS),
             "quant_matmul": dict(
+                redesigned="PR 14",
                 replaces="src/repro/kernels/quant_matmul.py:55",
                 source="src/repro_torch/kernels/csrc/quant_matmul.cu",
                 symbol="quant_matmul_kernel",
@@ -835,6 +863,7 @@ def main():
                 bytes=r_rows * m + r_rows * 4 + m * d + d * 4 + r_rows * d * 4,
                 t_ops=int8_ops / INT8_OPS),
             "ip2_project": dict(
+                redesigned="PR 13",
                 replaces="src/repro/kernels/ip2_project.py:138",
                 source="src/repro_torch/kernels/csrc/ip2_project.cu",
                 symbol="ip2_project_kernel",
@@ -854,6 +883,7 @@ def main():
             bound_ms, bound_by = _bound(row["bytes"], row["t_ops"])
             kernels.setdefault(name, {}).update(
                 name=name, route="cuda", source=row["source"], replaces=row["replaces"],
+                symbol=row["symbol"], redesigned=row["redesigned"],
                 launches=kernels.get(name, {}).get("launches", 0), ms=ms,
                 device_ms=device_ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=lib_ms, library_device_ms=lib_device_ms)
@@ -898,9 +928,9 @@ def main():
         report["profile"] = out
 
     report["kernels"] = [kernels.get(n, {"name": n}) for n in KERNELS]
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "library_device_ms")
+    keys = ("name", "route", "source", "symbol", "replaces", "redesigned", "launches",
+            "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "library_device_ms")
     print(json.dumps({"kernels": [{k: row.get(k) for k in keys} for row in report["kernels"]]}))
     try:
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -187,10 +187,13 @@ def _on_cuda(*tensors: torch.Tensor) -> bool:
     raise RuntimeError(f"no kernel or plain version for device {dev}")
 
 
-def _launch(name: str, *args) -> None:
+def _launch(name: str, *args, shape: tuple = ()) -> None:
+    """Launch one kernel; a refused launch (a shape the kernel does not
+    take, or a CUDA error) raises, naming ``shape`` where given."""
     rc = _entry(name)(*args)
     if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
+        at = f" at shape {shape}" if shape else ""
+        raise RuntimeError(f"{name} kernel launch failed{at}: cudaError {rc}")
     LAUNCHES[name] += 1
 
 
@@ -270,7 +273,7 @@ def _delta_attention_cuda(q, k, v, key_mask, q_counts) -> torch.Tensor:
     out = torch.empty((b, s, h, dh), dtype=torch.float32, device=q.device)
     _launch("delta_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
             key_mask.data_ptr(), q_counts.data_ptr(), b, s, h, dh, out.data_ptr(),
-            _stream(q))
+            _stream(q), shape=(b, s, h, dh))
     return out
 
 
@@ -283,7 +286,7 @@ def _quant_matmul_cuda(a8, s_a, w8, s_w) -> torch.Tensor:
     _need(s_w, torch.float32, (n,), "s_w")
     out = torch.empty((r, n), dtype=torch.float32, device=a8.device)
     _launch("quant_matmul", a8.data_ptr(), s_a.data_ptr(), w8.data_ptr(),
-            s_w.data_ptr(), out.data_ptr(), r, k, n, _stream(a8))
+            s_w.data_ptr(), out.data_ptr(), r, k, n, _stream(a8), shape=(r, k, n))
     return out
 
 

@@ -79,21 +79,42 @@ def served():
 
 # ---- kernel 3's plain version --------------------------------------------
 
+@pytest.mark.parametrize("s,dh", [(8, 16), (13, 24)])
 @pytest.mark.parametrize("seed", [0, 1])
-def test_delta_attention_plain_matches_pallas(seed):
+def test_delta_attention_plain_matches_pallas(seed, s, dh):
+    """Counts empty, ragged and full, below 0 (act as 0) and above S (act
+    as S); the last slot has no valid key and softmaxes uniformly over
+    its S scores of -1e30, as the reference's dense encoder attention
+    does. The Pallas kernel pads S up to a multiple of ``block_q`` with
+    invalid zero keys, which join that uniform softmax: at S 13 its
+    all-invalid slot is sum(v) / 16, where the dense arithmetic (and the
+    port) give the mean over the 13 keys. Every other slot agrees with
+    the Pallas kernel at atol 1e-6."""
     rng = np.random.default_rng(seed)
-    b, s, h, dh = 3, 8, 2, 16
+    b, h, block_q = 6, 2, 4
     q, k, v = (rng.normal(size=(b, s, h, dh)).astype(np.float32) for _ in range(3))
     mask = rng.random((b, s)) < 0.8
     mask[:, 0] = True
-    counts = np.array([0, 3, s], np.int32)            # empty / ragged / full
+    mask[-1] = False
+    counts = np.array([0, 3, s, -2, s + 5, s // 2], np.int32)
     want = np.asarray(delta_attention_pallas(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(mask),
-        jnp.asarray(counts), block_q=4, interpret=True))
+        jnp.asarray(counts), block_q=block_q, interpret=True))
     got = t_ref.delta_attention_ref(_t(q), _t(k), _t(v), _t(mask), _t(counts)).numpy()
-    np.testing.assert_allclose(got, want, atol=1e-6, rtol=1e-6)
-    live = np.arange(s)[None, :] < counts[:, None]
+    np.testing.assert_allclose(got[:-1], want[:-1], atol=1e-6, rtol=1e-6)
+    live = np.arange(s)[None, :] < np.clip(counts, 0, s)[:, None]
     assert (got[~live] == 0).all() and (want[~live] == 0).all()
+    # the dense arithmetic of the reference's encoder attention, every slot
+    sc = jnp.einsum("bqhk,bshk->bhqs", q, k) / jnp.sqrt(jnp.asarray(dh, jnp.float32))
+    sc = jnp.where(jnp.asarray(mask)[:, None, None, :], sc, j_vit.NEG_INF)
+    dense = np.asarray(jnp.einsum("bhqs,bshk->bqhk", jax.nn.softmax(sc, axis=-1), v))
+    np.testing.assert_allclose(got[live], dense[live], atol=1e-6, rtol=1e-6)
+    n, s_p = s // 2, -(-s // block_q) * block_q
+    np.testing.assert_allclose(got[-1, :n], np.broadcast_to(v[-1].mean(0), (n, h, dh)),
+                               atol=1e-6, rtol=1e-6)
+    np.testing.assert_allclose(want[-1, :n],
+                               np.broadcast_to(v[-1].sum(0) / s_p, (n, h, dh)),
+                               atol=1e-6, rtol=1e-6)
 
 
 def test_ops_delta_attention_matches_encoder_attention(served):

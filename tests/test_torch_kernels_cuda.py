@@ -3,14 +3,16 @@
 These need an NVIDIA GPU with ``nvcc`` (the kernels are built at first
 use); everywhere else they skip. Run them on the card with
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py``.
-Tolerances: quant_matmul bitwise; ip2_project codes within 1 LSB on a
-bounded number of rows (cuBLAS and the kernel sum fp32 in different
-orders); ip2_fused_embed bitwise equal to ip2_project -> quant_matmul;
-the sparse and ragged projections bitwise ip2_project on the gathered rows
-(the same fmaf chain and epilogue), zero past the counts, and at awkward
-shapes and count patterns bitwise ip2_fused_embed (the older tile) through
-the embed; delta_attention within 1e-5 of its plain version, exact zeros
-past the counts.
+Tolerances: quant_matmul bitwise (exact int32 sums), at shapes that take
+each of its copy paths and at the largest sums; ip2_project codes within
+1 LSB on a bounded number of rows (cuBLAS and the kernel sum fp32 in
+different orders); ip2_fused_embed bitwise equal to ip2_project ->
+quant_matmul; the sparse and ragged projections bitwise ip2_project on the
+gathered rows (the same fmaf chain and epilogue), zero past the counts,
+and at awkward shapes and count patterns bitwise ip2_fused_embed (the
+older tile) through the embed; delta_attention within 1e-5 of its plain
+version (its sums run in another order), exact zeros past the counts, at
+counts outside [0, S] and with a slot that has no valid key.
 """
 
 import numpy as np
@@ -89,16 +91,52 @@ def test_ip2_project_wide_codes_kernel(dev, bits):
         assert (d.reshape(-1, d.shape[-1]).amax(-1) > 0).sum().item() <= 2
 
 
-def test_quant_matmul_kernel_bitwise(dev):
-    g = torch.Generator().manual_seed(1)
-    a8 = torch.randint(-128, 128, (37, 192), generator=g, dtype=torch.int8).to(dev)
-    w8 = torch.randint(-127, 128, (192, 100), generator=g, dtype=torch.int8).to(dev)
-    s_a = (torch.rand(37, generator=g) * 0.01).to(dev)
-    s_w = (torch.rand(100, generator=g) * 0.01).to(dev)
+def _qmm_cuda_once(a8, s_a, w8, s_w):
+    n0 = ops.LAUNCHES["quant_matmul"]
     got = ops._quant_matmul_cuda(a8, s_a, w8, s_w)
-    want = ref.quant_matmul_ref(a8, s_a, w8, s_w)
+    assert ops.LAUNCHES["quant_matmul"] == n0 + 1
     torch.cuda.synchronize()
-    assert torch.equal(got, want)
+    return got
+
+
+# R off the 32-row tile and at the serving count; K off the 64-k stage and
+# K = 30, 100, 250 on the byte and 4-byte copies; N = 1 and 100, 300 on the
+# byte and 4-byte copies, off the 64-column tile
+@pytest.mark.parametrize("n", [1, 100, 256, 300])
+@pytest.mark.parametrize("k", [30, 100, 192, 250, 1000])
+@pytest.mark.parametrize("r", [1, 37, 520, 1024])
+def test_quant_matmul_kernel_bitwise(dev, r, k, n):
+    g = torch.Generator().manual_seed(r * 7 + k * 3 + n)
+    a8 = torch.randint(-128, 128, (r, k), generator=g, dtype=torch.int8).to(dev)
+    w8 = torch.randint(-127, 128, (k, n), generator=g, dtype=torch.int8).to(dev)
+    s_a = (torch.rand(r, generator=g) * 0.01).to(dev)
+    s_w = (torch.rand(n, generator=g) * 0.01).to(dev)
+    got = _qmm_cuda_once(a8, s_a, w8, s_w)
+    assert torch.equal(got, ref.quant_matmul_ref(a8, s_a, w8, s_w))
+
+
+@pytest.mark.parametrize("a,w", [(-128, -127), (-128, 127), (127, 127)])
+def test_quant_matmul_kernel_extreme_sums(dev, a, w):
+    """The largest sums at K 1000 (|acc| = 1000 * 128 * 127), exact."""
+    a8 = torch.full((40, 1000), a, dtype=torch.int8, device=dev)
+    w8 = torch.full((1000, 72), w, dtype=torch.int8, device=dev)
+    s_a, s_w = torch.ones(40, device=dev), torch.ones(72, device=dev)
+    got = _qmm_cuda_once(a8, s_a, w8, s_w)
+    assert torch.equal(got, ref.quant_matmul_ref(a8, s_a, w8, s_w))
+    assert float(got[0, 0]) == 1000.0 * a * w
+
+
+def test_quant_matmul_kernel_odd_offset(dev):
+    """a8 a contiguous view one byte into its storage: the byte copies."""
+    g = torch.Generator().manual_seed(2)
+    buf = torch.randint(-128, 128, (37 * 192 + 1,), generator=g, dtype=torch.int8).to(dev)
+    a8 = buf[1:].view(37, 192)
+    assert a8.is_contiguous() and a8.data_ptr() % 2 == 1
+    w8 = torch.randint(-127, 128, (192, 256), generator=g, dtype=torch.int8).to(dev)
+    s_a = torch.rand(37, generator=g).to(dev)
+    s_w = torch.rand(256, generator=g).to(dev)
+    got = _qmm_cuda_once(a8, s_a, w8, s_w)
+    assert torch.equal(got, ref.quant_matmul_ref(a8, s_a, w8, s_w))
 
 
 def test_fused_embed_equals_staged_kernels(dev):
@@ -235,23 +273,42 @@ def test_ip2_ragged_float_and_sign_readouts(dev, readout):
     assert torch.equal(ragged[live], sparse[live]) and not ragged[~live].any()
 
 
-@pytest.mark.parametrize("s,dh", [(16, 64), (13, 16)])
+# dh 10 takes the 4-byte copies (rows that are not whole float4s)
+@pytest.mark.parametrize("dh", [10, 16, 24, 64])
+@pytest.mark.parametrize("s", [1, 13, 16, 40])
 def test_delta_attention_kernel_vs_plain(dev, s, dh):
-    g = torch.Generator().manual_seed(s)
-    b, h = 5, 4
+    """Counts 0, 1, partial, S, below 0 and above S; the last slot has no
+    valid key (a uniform softmax over its -1e30 scores)."""
+    g = torch.Generator().manual_seed(s * 100 + dh)
+    b, h = 7, 4
     q, k, v = (torch.randn((b, s, h, dh), generator=g).to(dev) for _ in range(3))
     mask = torch.rand((b, s), generator=g) < 0.8
     mask[:, 0] = True
+    mask[-1] = False
     mask = mask.to(dev)
-    counts = torch.tensor([0, 3, s, 9, 1], dtype=torch.int32, device=dev)
+    counts = torch.tensor([0, 1, max(s // 2, 1), s, -2, s + 5, s], dtype=torch.int32,
+                          device=dev)
     n0 = ops.LAUNCHES["delta_attention"]
     got = ops._delta_attention_cuda(q, k, v, mask, counts)
     assert ops.LAUNCHES["delta_attention"] == n0 + 1
     want = ref.delta_attention_ref(q, k, v, mask, counts)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
-    live = torch.arange(s, device=dev)[None, :] < counts[:, None]
+    live = torch.arange(s, device=dev)[None, :] < counts.clamp(0, s)[:, None]
     assert not got[~live].any()
+    assert got[-1].abs().sum() > 0
+
+
+def test_delta_attention_kernel_rejects_large_shape(dev):
+    """A shape whose keys and values do not fit a block's shared memory
+    raises, naming the shape, and counts no launch."""
+    q = torch.zeros((2, 1000, 1, 64), device=dev)
+    mask = torch.ones((2, 1000), dtype=torch.bool, device=dev)
+    counts = torch.ones(2, dtype=torch.int32, device=dev)
+    n0 = ops.LAUNCHES["delta_attention"]
+    with pytest.raises(RuntimeError, match=r"\(2, 1000, 1, 64\)"):
+        ops._delta_attention_cuda(q, q, q, mask, counts)
+    assert ops.LAUNCHES["delta_attention"] == n0
 
 
 def test_embed_kernels_reject_wide_codes(dev):

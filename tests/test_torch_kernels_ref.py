@@ -197,6 +197,23 @@ def test_quant_matmul_pre_bitwise():
         jy = np.asarray(j_ops.quant_matmul_pre(jnp.asarray(a8), jnp.asarray(s_a), jw8, jsw))
         ty = t_ops.quant_matmul_pre(_t(a8), _t(s_a), tw8, tsw).numpy()
         np.testing.assert_array_equal(ty, jy)
+    # extreme operands at K 1000: the largest sums (|acc| up to 1000 * 128 *
+    # 128), all -128 against all -127, and mixed signs at the extremes
+    k = 1000
+    a_ext = np.stack([np.full(k, -128), np.full(k, 127),
+                      RNG.choice([-128, 127], size=k)]).astype(np.int8)
+    w_ext = np.concatenate([np.full((k, 1), -127), np.full((k, 1), 127),
+                            RNG.choice([-127, 127], size=(k, 6))], axis=1).astype(np.int8)
+    s_a = RNG.uniform(0.001, 0.1, (3,)).astype(np.float32)
+    s_w = RNG.uniform(0.001, 0.1, (8,)).astype(np.float32)
+    jy = np.asarray(j_ops.quant_matmul_pre(jnp.asarray(a_ext), jnp.asarray(s_a),
+                                           jnp.asarray(w_ext), jnp.asarray(s_w)))
+    ty = t_ops.quant_matmul_pre(_t(a_ext), _t(s_a), _t(w_ext), _t(s_w)).numpy()
+    np.testing.assert_array_equal(ty, jy)
+    acc = a_ext.astype(np.int64) @ w_ext.astype(np.int64)
+    assert acc[0, 0] == k * 128 * 127
+    np.testing.assert_array_equal(
+        ty, (acc.astype(np.float32) * s_a[:, None]) * s_w[None, :])
 
 
 def test_ip2_fused_embed():
