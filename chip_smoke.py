@@ -19,7 +19,11 @@ one CUDA device. Phases, any failure exits non-zero:
          same below the count and 0 past it, and within 1 LSB on at most
          1% of rows of its plain version; delta_attention within 1e-5 of
          its plain version, 0 past the counts, also with counts below 0
-         and above S, a slot with no valid key, and S 40.
+         and above S, a slot with no valid key, and S 40. Then the int16
+         codes of a 10- and a 16-bit ADC: the fused and the staged route
+         bitwise equal to each other, quant_matmul bitwise its plain
+         version, the fused kernel bitwise its plain version on rows whose
+         codes agree.
   (b)    the main paths, each with the launch counts reset just before and
          read just after, on 12 ticks of admit / evict / partial-fed churn
          at ip2-vit width (256x256 frames, 32x32 patches, M=192, 6 layers,
@@ -40,11 +44,15 @@ one CUDA device. Phases, any failure exits non-zero:
          tiles, M = 100 off the column tile, K = 1000 off the K step; and
          K = 250, M = 30, which take the 4-byte copies): ip2_project's
          codes through quant_matmul and the sparse kernel's codes equal
-         ip2_fused_embed, which keeps the older tile, bit for bit; the
-         ragged kernel's codes through the same embed equal
-         ip2_fused_embed with the same counts (all zero, all full, one
-         slot full, the gated path's counts, and counts below 0 and
-         above k handed to the kernel unclipped), zeros past the counts.
+         ip2_fused_embed bit for bit; the ragged kernel's codes through
+         the same embed equal ip2_fused_embed with the same counts (all
+         zero, all full, one slot full, the gated path's counts, and
+         counts below 0 and above k handed to the kernel unclipped),
+         zeros past the counts. Fused and staged share one projection
+         tile, so the oracle independent of it is a sha256 of
+         ip2_fused_embed's output at the serving shape and at each (a')
+         shape and count pattern, printed as one JSON line: a run of this
+         script over another version of the kernels must print the same.
   (ref)  small inputs through the kernel route on the card and the plain
          route on the CPU: same indices, logits and saliency within 1e-4
          on every slot whose codes agree; the same for the gated engine.
@@ -54,7 +62,10 @@ one CUDA device. Phases, any failure exits non-zero:
          is shorter than the wrapper's host work) and device_ms from the
          profiler's kernel events over 30 calls, beside its plain
          version's ms, a PyTorch yardstick call's ms and device_ms (never
-         used by the port) and its bound.
+         used by the port) and its bound; for ip2_fused_embed, which has
+         no PyTorch yardstick, staged_device_ms, the device time of the
+         staged pair (ip2_project and quant_matmul) on the same operands,
+         and how its clusters sit on the card.
 
 Prints the kernel table as one JSON line, the card's name and power limit
 (nvidia-smi), and last ``{"ok": true, "device": {...}}``. With ``--out DIR``
@@ -63,7 +74,9 @@ written to ``DIR/chip_smoke.json``.
 """
 
 import argparse
+import ctypes
 import dataclasses
+import hashlib
 import json
 import subprocess
 import sys
@@ -133,6 +146,10 @@ def _device_ms(fn, kernel=None, n=30, warm=5, tries=3):
         if kernel is not None and n - 2 <= len(evs) <= n:
             return us / 1e3 / len(evs)
     raise AssertionError(f"{kernel or 'device'} events per window of {n} calls: {seen}")
+
+
+def _sha(t):
+    return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()
 
 
 def _bound(n_bytes, t_ops):
@@ -271,10 +288,11 @@ def main():
     cnt3_mix = torch.tensor([(0, 5, k_tok, 11)[i % 4] for i in range(CAPACITY)],
                             dtype=torch.int32, device=dev)
 
-    def fused_plain():
-        return ref.ip2_fused_embed_ref(table, counts, flat_p, w_t, w8, s_w, p_codes, k_tok)
+    def fused_plain(p=p_codes):
+        return ref.ip2_fused_embed_ref(table, counts, flat_p, w_t, w8, s_w, p, k_tok)
 
     kernels = {}
+    hashes = {}  # ip2_fused_embed's output at fixed seeded inputs
 
     # ---- (a) each kernel against its plain version ----------------------
     @phase("a_kernels_vs_plain")
@@ -326,6 +344,7 @@ def main():
         torch.cuda.synchronize()
         fused = fused.reshape(r_rows, d)
         kernels["ip2_fused_embed"] = {"max_abs_err": float((fused - y).abs().max())}
+        hashes["serving"] = _sha(fused)
         assert torch.equal(fused, y), "ip2_fused_embed differs from ip2_project -> quant_matmul"
         same = dc.amax(-1) == 0
         assert torch.equal(fused[same], fused_plain()[same]), \
@@ -385,6 +404,33 @@ def main():
             le = torch.arange(s_e, device=dev)[None, :] < ce.clamp(0, s_e)[:, None]
             assert not oe[~le].any(), f"delta_attention at S {s_e}: rows past the counts"
         kernels["delta_attention"]["edge_max_abs_err"] = edge
+
+    @phase("a_wide_codes")
+    def _aw():
+        # a 10- and a 16-bit ADC store int16 codes; both embed kernels split
+        # them into a high and a low byte
+        out = {}
+        for bits in (10, 16):
+            wide = ADCSpec(bits=bits)
+            p_w = ops.kernel_params_from_spec(fcfg.patch, wide, codes=True)
+            codes = ops.ip2_project(gathered, weights, fcfg.patch, adc=wide, codes=True)
+            assert codes.dtype == torch.int16
+            s_aw = torch.full((r_rows,), wide.lsb, dtype=torch.float32, device=dev)
+            y = ops.quant_matmul_pre(codes, wide.lsb, w8, s_w)
+            assert torch.equal(y, ref.quant_matmul_ref(codes, s_aw, w8, s_w)), \
+                f"{bits} bits: quant_matmul differs from its plain version"
+            fused = ops.ip2_fused_embed(patches, weights, idx, fcfg.patch, wide, w8, s_w)
+            fused = fused.reshape(r_rows, d)
+            assert torch.equal(fused, y), f"{bits} bits: fused and staged routes differ"
+            plain_codes = ref.ip2_project_ref(gathered, w_t, zero_bias, p_w)
+            same = (plain_codes == codes).all(-1)
+            # at 16 bits an LSB nears the fp32 sums' order noise: few rows agree
+            assert bits == 16 or int(same.sum()) >= r_rows // 2, \
+                f"{bits} bits: codes agree on {int(same.sum())} rows"
+            assert torch.equal(fused[same], fused_plain(p_w)[same]), \
+                f"{bits} bits: ip2_fused_embed differs from its plain version"
+            out[bits] = {"rows_with_equal_codes": int(same.sum()), "rows": r_rows}
+        report["wide_codes"] = out
 
     # ---- (b) the main paths ------------------------------------------------
     engines = {
@@ -642,6 +688,7 @@ def main():
             codes_o = ops.ip2_project(sal.gather_patches(x, idx), wts, spec, adc=adc,
                                       codes=True)
             fused_o = ops.ip2_fused_embed(x, wts, idx, spec, adc, w8_o, s_w_o)
+            hashes[f"K{kk}_M{mm}"] = _sha(fused_o)
             assert torch.equal(ops.quant_matmul_pre(codes_o, adc.lsb, w8_o, s_w_o), fused_o), \
                 f"K {kk} M {mm}: ip2_project -> quant_matmul differs from ip2_fused_embed"
             sp = ops.ip2_project_sparse(x, wts, idx, spec, adc=adc, codes=True)
@@ -656,6 +703,7 @@ def main():
                 rg = ops._ip2_sparse_cuda(table_o, cnt, x.reshape(-1, kk), w_t_o, zero_o,
                                           p_o, j_rows).reshape(s_n, j_rows, mm)
                 fz = ops.ip2_fused_embed(x, wts, idx, spec, adc, w8_o, s_w_o, row_counts=cnt)
+                hashes[f"K{kk}_M{mm}_{name}"] = _sha(fz)
                 live = torch.arange(j_rows, device=dev)[None, :] < cnt.clamp(0, j_rows)[:, None]
                 assert torch.equal(ops.quant_matmul_pre(rg, adc.lsb, w8_o, s_w_o), fz), \
                     f"K {kk} M {mm} {name}: ip2_ragged -> quant_matmul differs from fused"
@@ -664,6 +712,9 @@ def main():
                 assert not rg[~live].any(), f"K {kk} M {mm} {name}: rows past the counts"
                 out[f"K{kk}_M{mm}_{name}"] = int(live.sum())
         report["odd_shapes"] = {"rows": s_n * j_rows, "live_rows": out}
+
+    report["fused_sha256"] = hashes
+    print(json.dumps({"fused_sha256": hashes}))
 
     # ---- (ref) small input: kernel route on the card vs plain on the CPU --
     small_fe = FrontendConfig(image_h=64, image_w=64,
@@ -840,7 +891,7 @@ def main():
                        + CAPACITY * k_tok + CAPACITY * 4 + q3.numel() * 4),
                 t_ops=4.0 * rows3 * h * k_tok * dh / FP32_FLOPS),
             "ip2_fused_embed": dict(
-                redesigned=None,
+                redesigned="PR 15",
                 replaces="src/repro/kernels/ip2_megakernel.py:251",
                 source="src/repro_torch/kernels/csrc/ip2_fused_embed.cu",
                 symbol="ip2_fused_embed_kernel",
@@ -848,6 +899,9 @@ def main():
                     table, counts, flat_p, w_t, w8, s_w, adc.lsb, p_codes, k_tok),
                 plain=fused_plain,
                 library=None,
+                # the port's own yardstick: the staged pair on the same operands
+                staged=lambda: ops._quant_matmul_cuda(
+                    ops._ip2_project_cuda(gathered, w_t, zero_bias, p_codes), s_a, w8, s_w),
                 # the gathered rows this run's selection needs, read once
                 bytes=(r_rows * k_in * 4 + r_rows * 4 + CAPACITY * 4 + k_in * m * 4
                        + m * d + d * 4 + r_rows * d * 4),
@@ -874,6 +928,16 @@ def main():
                 t_ops=fp32_ops / FP32_FLOPS),
         }
         report["timed_counts"] = {"ip2_ragged": cnt2.tolist(), "delta_attention": cnt3.tolist()}
+        occupancy = getattr(_build.load("ip2_fused_embed"), "ip2_fused_embed_occupancy", None)
+        if occupancy is not None:  # kernel 4's clusters on this card, at M 192
+            report["fused_occupancy"] = {}
+            for b in (1, 2):
+                res = (ctypes.c_int * 4)()
+                assert occupancy(m, b, res) == 0, "ip2_fused_embed occupancy query failed"
+                report["fused_occupancy"][f"{b}-byte codes"] = dict(zip(
+                    ("cluster_blocks", "dynamic_smem_bytes", "blocks_per_sm",
+                     "max_active_clusters"), res))
+            print(json.dumps({"fused_occupancy": report["fused_occupancy"]}))
         for name, row in rows.items():
             ms = _time_ms(row["kernel"])
             device_ms = _device_ms(row["kernel"], kernel=row["symbol"])
@@ -881,6 +945,8 @@ def main():
             lib_ms = _time_ms(row["library"]) if row["library"] else None
             lib_device_ms = _device_ms(row["library"]) if row["library"] else None
             bound_ms, bound_by = _bound(row["bytes"], row["t_ops"])
+            if row.get("staged"):
+                kernels.setdefault(name, {})["staged_device_ms"] = _device_ms(row["staged"])
             kernels.setdefault(name, {}).update(
                 name=name, route="cuda", source=row["source"], replaces=row["replaces"],
                 symbol=row["symbol"], redesigned=row["redesigned"],
@@ -930,7 +996,7 @@ def main():
     report["kernels"] = [kernels.get(n, {"name": n}) for n in KERNELS]
     keys = ("name", "route", "source", "symbol", "replaces", "redesigned", "launches",
             "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "library_device_ms")
+            "library_ms", "library_device_ms", "staged_device_ms")
     print(json.dumps({"kernels": [{k: row.get(k) for k in keys} for row in report["kernels"]]}))
     try:
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

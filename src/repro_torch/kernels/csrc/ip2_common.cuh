@@ -1,10 +1,11 @@
-// Device routines shared by the IP2 projection kernels.
+// Device routines shared by the IP2 projection and embed kernels.
 //
-// The PWM quantiser, the fp32 projection tile and the analog/ADC epilogue
-// live here once, so ip2_project.cu and ip2_fused_embed.cu run the same
-// instructions in the same K order: the fused kernel then equals the staged
-// ip2_project -> quant_matmul pair bit for bit, as the two Pallas kernels
-// do in the JAX package (ip2_project.py:75,82 are the shared helpers there).
+// The PWM quantiser, the analog/ADC epilogue, the readout store and the
+// w8a8 epilogue live here once. Every projection kernel sums each output as
+// the same fmaf chain (ip2_tile.cuh) and ends in the same epilogue, so
+// ip2_fused_embed equals the staged ip2_project -> quant_matmul pair bit for
+// bit, as the two Pallas kernels do in the JAX package (ip2_project.py:75,82
+// are the shared helpers there).
 //
 // Rounding: every product and sum in the epilogue is an explicit _rn
 // intrinsic (never contracted into an FMA), the ADC step is a true IEEE
@@ -90,82 +91,9 @@ __host__ __forceinline__ bool out_bytes_ok(int out_bytes, const Epilogue& e) {
   return !int_out || out_bytes == 1 || out_bytes == 2 || out_bytes == 4;
 }
 
-// Block-cooperative fp32 projection tile on CUDA cores:
-//   acc[i][j] = sum_k PWM(x[rows[r_i] + k]) * w[k * M + c0 + c_j]
-// for BR rows x BM columns. ``rows`` (shared) holds each row's element
-// offset into x, or -1 for a row that does not exist (it reads zeros).
-// Every thread walks k = 0 .. K-1 in order with one fmaf per step, so the
-// sum's rounding depends on K alone, not on the tiling or the caller.
-// PWM quantisation happens as the x tile is loaded.
-template <int BR, int BM, int BK, int TR, int TM>
-__device__ __forceinline__ void project_tile(
-    const float* __restrict__ x, const long long* rows,
-    const float* __restrict__ w, int K, int M, int c0, const Epilogue& e,
-    float* xs, float* ws, float (&acc)[TR][TM]) {
-  constexpr int NT = (BR / TR) * (BM / TM);
-  const int tid = threadIdx.x;
-  const int tr = tid / (BM / TM), tc = tid % (BM / TM);
-#pragma unroll
-  for (int i = 0; i < TR; ++i)
-#pragma unroll
-    for (int j = 0; j < TM; ++j) acc[i][j] = 0.0f;
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    for (int t = tid; t < BR * BK; t += NT) {
-      const int r = t / BK, k = k0 + t % BK;
-      const long long base = rows[r];
-      xs[t] = (base >= 0 && k < K) ? pwm_quantize(x[base + k], e) : 0.0f;
-    }
-    for (int t = tid; t < BK * BM; t += NT) {
-      const int k = k0 + t / BM, col = c0 + t % BM;
-      ws[t] = (k < K && col < M) ? w[(long long)k * M + col] : 0.0f;
-    }
-    __syncthreads();
-    const int kmax = min(BK, K - k0);
-    for (int kk = 0; kk < kmax; ++kk) {
-      float a[TR], b[TM];
-#pragma unroll
-      for (int i = 0; i < TR; ++i) a[i] = xs[(tr * TR + i) * BK + kk];
-#pragma unroll
-      for (int j = 0; j < TM; ++j) b[j] = ws[kk * BM + tc * TM + j];
-#pragma unroll
-      for (int i = 0; i < TR; ++i)
-#pragma unroll
-        for (int j = 0; j < TM; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-}
-
-// int8 x int8 -> int32 for BR rows against one column c of w8 (K x N):
-//   acc[r] += sum_m a_s[r * Kp + m] * w8[m * N + c]
-// a_s is shared, row stride Kp (a multiple of 4, zero past K). Four k at a
-// time go through __dp4a; integer sums are exact in any order.
-template <int BR>
-__device__ __forceinline__ void int8_rows_dot_col(
-    const int8_t* a_s, int Kp, const int8_t* __restrict__ w8, int K, int N,
-    int c, int (&acc)[BR]) {
-  for (int m = 0; m < K; m += 4) {
-    int packed = 0;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int mm = m + q;
-      const int v = mm < K ? (int)(uint8_t)w8[(long long)mm * N + c] : 0;
-      packed |= v << (8 * q);
-    }
-#pragma unroll
-    for (int r = 0; r < BR; ++r)
-      acc[r] = __dp4a(*reinterpret_cast<const int*>(a_s + r * Kp + m), packed,
-                      acc[r]);
-  }
-}
-
 // w8a8 epilogue in the reference's order: (float(acc) * s_a) * s_w
 __device__ __forceinline__ float qmm_epilogue(int acc, float s_a, float s_w) {
   return __fmul_rn(__fmul_rn(__int2float_rn(acc), s_a), s_w);
 }
-
-// projection tiling shared by both projection kernels
-constexpr int kBR = 16, kBM = 64, kBK = 32, kTR = 2, kTM = 4;
-constexpr int kThreads = (kBR / kTR) * (kBM / kTM);  // 128
 
 }  // namespace ip2

@@ -13,8 +13,8 @@
 // out on purpose: TF32 keeps 10 mantissa bits and moves ADC codes, and the
 // codes are the contract. So are split-K and any reassociation: each
 // output is one fmaf chain over k in order (ip2_tile.cuh), which is what
-// keeps ip2_fused_embed (the older project_tile, same chain) bitwise equal
-// to this kernel. In practice the SM's shared-memory datapath bounds it:
+// keeps ip2_fused_embed (the same tile and chain) bitwise equal to this
+// kernel. In practice the SM's shared-memory datapath bounds it:
 // the fixed chain leaves ~12 chains per fp32 lane, too few for a register
 // tile that would feed the FMAs from shared memory at full rate (see
 // ip2_tile.cuh).

@@ -1,13 +1,14 @@
-// The pipelined fp32 projection tile of ip2_project.cu and ip2_ragged.cu.
+// The pipelined fp32 projection tile of ip2_project.cu, ip2_ragged.cu and
+// ip2_fused_embed.cu.
 //
 //   acc[i][j] = sum_k PWM(x[rows[r_i] + k]) * w[k * M + c0 + c_j]
 //
 // Bitwise contract: every output is ONE fmaf chain over k = 0 .. K-1 in
 // order, starting from 0.0f, with a_k = pwm_quantize(x[row, k]) and
-// b_k = w[k, col] — the instructions of project_tile (ip2_common.cuh),
-// which ip2_fused_embed.cu keeps. So every code equals the fused kernel's
-// bit for bit, whatever the tile shape. Past K the tile is zero-filled and
-// fmaf(0, 0, acc) == acc. No split-K, no reassociation, no tensor cores.
+// b_k = w[k, col]. So every kernel on this tile gives the same code for the
+// same row bit for bit, whatever the tile shape. Past K the tile is
+// zero-filled and fmaf(0, 0, acc) == acc. No split-K, no reassociation, no
+// tensor cores.
 //
 // Design, for Hopper:
 // - A ring of NS shared-memory stages of BK k each, filled with cp.async
@@ -55,11 +56,17 @@ struct Tile {
   static_assert(TM == 2 || TM == 4, "w fragment is one 8- or 16-byte load");
 };
 
-// ip2_project and the dense sparse gather: 48 x 32 outputs per 128-thread
-// block, 3 x 4 per thread, 4 stages of 32 k (44 KB). At R = 1024, M = 192
-// that is 22 x 6 = 132 blocks, one per SM, one warp per scheduler, 12
-// independent chains each.
+// ip2_project, the dense sparse gather and ip2_fused_embed: 48 x 32
+// outputs per 128-thread block, 3 x 4 per thread, 4 stages of 32 k (44 KB).
+// At R = 1024, M = 192 that is 22 x 6 = 132 blocks, one per SM, one warp
+// per scheduler, 12 independent chains each.
 using ProjectTile = Tile<48, 32, 3, 4>;
+// ip2_fused_embed: 64 x 32 outputs per 128-thread block, 4 x 4 per thread.
+// A bank of 64 rows is one cluster of 6 such blocks at M = 192; at R = 1024
+// that is 16 clusters, which the card places one block per SM (96 SMs),
+// where 48-row banks give 22 clusters of which only 20 fit one block per
+// SM (the rest double up on 12 SMs and take twice as long).
+using FusedTile = Tile<64, 32, 4, 4>;
 // The ragged kernel: few live rows (75 on the gated path), so 64-thread
 // blocks of 16 x 16 outputs, 2 x 2 per thread, put 5 x 12 = 60 SMs on
 // them; 3 stages of 64 k (25 KB) halve the stages, and with them the

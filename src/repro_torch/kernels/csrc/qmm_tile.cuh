@@ -1,21 +1,28 @@
-// The int8 tensor-core tile of quant_matmul.cu:
+// The int8 tensor-core tile of quant_matmul.cu and ip2_fused_embed.cu:
 //
-//   acc[r][c] = sum_k a8[r, k] * w8[k, c]     (int8 x int8 -> int32, exact)
+//   acc[r][c] = sum_k a[r, k] * w8[k, c]     (int32, exact)
 //
 // Hopper's warp-level int8 MMA (mma.sync m16n8k32 .s8.s8.s32) from shared
-// memory. Integer sums are exact in any order (|acc| <= K * 128 * 128 <
-// 2^31 for K <= kMaxK), so any tiling, k order or k permutation gives the
-// same bits as the reference's int32 sum.
+// memory. Integer sums are exact in any order below the bounds below, so
+// any tiling, k order or k permutation gives the same bits as the
+// reference's int32 sum.
+//
+// Codes wider than 8 bits (an ADC of 9 to 16 bits stores int16 codes) are
+// split c = 256 h + l into a signed high byte h = c >> 8 and an unsigned
+// low byte l = c & 0xFF, each in its own A plane of the same layout; two
+// MMAs (.s8.s8 on h, .u8.s8 on l) give acc = 256 (h . w) + (l . w), the
+// int32 sum bit for bit.
 //
 // Layout:
-// - A block owns kBR rows x kBN columns; its four warps own 16 x 32 each
-//   (2 x 2). A ring of kNS shared-memory stages of kBK k holds the block's
-//   A rows (kBR x kBK bytes, k contiguous) and W rows (kBK x kBN bytes, n
-//   contiguous, as W lies in global memory). Stages are filled with
-//   cp.async 16-byte copies where K (for A) or N (for W) is a multiple of
-//   16 and the base is 16-byte aligned, 4-byte copies where both are
-//   multiples of 4, and plain byte loads otherwise; everything past R, N
-//   and K is zero-filled.
+// - A quant_matmul block owns kBR rows x kBN columns; its four warps own
+//   16 x 32 each (2 x 2). A ring of kNS shared-memory stages of kBK k holds
+//   the block's A rows (kBR x kBK bytes per plane, k contiguous) and W rows
+//   (kBK x kBN bytes, n contiguous, as W lies in global memory). Stages are
+//   filled with cp.async 16-byte copies where K (for A) or N (for W) is a
+//   multiple of 16 and the base is 16-byte aligned, 4-byte copies where
+//   both are multiples of 4, and plain byte loads otherwise; int16 codes go
+//   through registers (8, 2 or 1 codes a load), where they are split.
+//   Everything past R, N and K is zero-filled.
 // - The A fragment (16 rows x 32 k) is four 4-byte shared loads per lane.
 // - The B fragment wants 4 consecutive k of one column per register, and W
 //   is n-contiguous. The columns of an n8 tile may be any 8 columns, so
@@ -27,7 +34,7 @@
 //   adjacent columns of a row: two float4 stores.
 // - Both stages are XOR-swizzled on 16-byte chunks (swz_a, swz_w), so the
 //   fragment loads of a warp touch 32 distinct banks and the 16-byte
-//   copies stay whole.
+//   copies stay whole. swz_a holds for any number of 64-byte rows.
 #pragma once
 
 #include "ip2_common.cuh"
@@ -40,11 +47,17 @@ constexpr int kBN = 64;        // columns per block
 constexpr int kBK = 64;        // k per stage
 constexpr int kNS = 3;         // stages in the ring (K = 192: all of K at once)
 constexpr int kThreads = 128;  // 4 warps, 2 (rows) x 2 (columns) of 16 x 32
-constexpr int kAStage = kBR * kBK;  // bytes
+constexpr int kAStage = kBR * kBK;  // bytes per plane
 constexpr int kWStage = kBK * kBN;
-constexpr int kMaxK = 131071;  // K * 128 * 128 < 2^31: the int32 sum is exact
+constexpr int kMaxK = 131071;  // int8 codes: K * 128 * 128 < 2^31
+constexpr int kMaxK16 = 511;   // int16 codes: K * 32768 * 128 < 2^31
 static_assert(kBK == 64 && kBN == 64, "the swizzles assume 64-byte stage rows");
 static_assert(kBR == 32 && kThreads == 128, "2 x 2 warps of 16 x 32");
+
+// The largest K whose int32 sums are exact for codes of code_bytes (1 or 2).
+__host__ __forceinline__ int max_k(int code_bytes) {
+  return code_bytes == 1 ? kMaxK : kMaxK16;
+}
 
 // Byte offset of A (r, k) in a stage: rows of 64 bytes; the 16-byte chunk
 // index is XORed with bits 1-2 of the row, so the 8 rows a fragment load
@@ -83,7 +96,7 @@ __device__ __forceinline__ void wait() {
 }
 
 // The widest copy (16, 4 or 1 bytes) for rows of len bytes starting at p.
-__host__ __forceinline__ int copy_bytes(const void* p, int len) {
+__host__ __forceinline__ int copy_bytes(const void* p, long long len) {
   const uintptr_t a = reinterpret_cast<uintptr_t>(p);
   if (len % 16 == 0 && a % 16 == 0) return 16;
   if (len % 4 == 0 && a % 4 == 0) return 4;
@@ -102,6 +115,39 @@ __device__ __forceinline__ void load_a(int8_t* as, const int8_t* __restrict__ a8
     const int r = t / PER_ROW, k = (t % PER_ROW) * V;
     const bool ok = r0 + r < R && k0 + k < K;
     copy<V>(as + swz_a(r * kBK + k), ok ? a8 + (long long)(r0 + r) * K + k0 + k : a8, ok);
+  }
+}
+
+// The same for int16 codes, V of them a load (8: 16 bytes, 2: 4 bytes, or
+// 1), split into the high-byte plane ah and the low-byte plane al.
+template <int V>
+__device__ __forceinline__ void load_a16(int8_t* ah, int8_t* al,
+                                         const int16_t* __restrict__ a16, int R, int K,
+                                         int r0, int k0) {
+  constexpr int PER_ROW = kBK / V, COUNT = kBR * PER_ROW;
+  static_assert(COUNT % kThreads == 0, "whole passes");
+#pragma unroll
+  for (int i = 0; i < COUNT / kThreads; ++i) {
+    const int t = i * kThreads + threadIdx.x;
+    const int r = t / PER_ROW, k = (t % PER_ROW) * V;
+    const bool ok = r0 + r < R && k0 + k < K;
+    const int16_t* src = a16 + (long long)(r0 + r) * K + k0 + k;
+    const int o = swz_a(r * kBK + k);
+    if constexpr (V == 8) {  // words of two codes, bytes l0 h0 l1 h1
+      const uint4 v = ok ? *reinterpret_cast<const uint4*>(src) : make_uint4(0, 0, 0, 0);
+      *reinterpret_cast<uint2*>(ah + o) =
+          make_uint2(__byte_perm(v.x, v.y, 0x7531), __byte_perm(v.z, v.w, 0x7531));
+      *reinterpret_cast<uint2*>(al + o) =
+          make_uint2(__byte_perm(v.x, v.y, 0x6420), __byte_perm(v.z, v.w, 0x6420));
+    } else if constexpr (V == 2) {
+      const unsigned v = ok ? *reinterpret_cast<const unsigned*>(src) : 0u;
+      *reinterpret_cast<uint16_t*>(ah + o) = (uint16_t)__byte_perm(v, 0, 0x31);
+      *reinterpret_cast<uint16_t*>(al + o) = (uint16_t)__byte_perm(v, 0, 0x20);
+    } else {
+      const int c = ok ? *src : 0;
+      ah[o] = (int8_t)(c >> 8);
+      al[o] = (int8_t)(c & 0xFF);
+    }
   }
 }
 
@@ -137,38 +183,121 @@ __device__ __forceinline__ void transpose4x4(unsigned (&w)[4]) {
   w[3] = __byte_perm(t1, t3, 0x7632);
 }
 
-// d += a (16 x 32, row) * b (32 x 8, col), int8 in, int32 sums
-__device__ __forceinline__ void mma_s8(int (&d)[4], const unsigned (&a)[4], unsigned b0,
-                                       unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// d += a (16 x 32, row) * b (32 x 8, col), int32 sums; a signed (.s8) or
+// unsigned (.u8) bytes, b signed
+template <bool A_SIGNED>
+__device__ __forceinline__ void mma(int (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                    unsigned b1) {
+  if constexpr (A_SIGNED)
+    asm volatile(
+        "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  else
+    asm volatile(
+        "mma.sync.aligned.m16n8k32.row.col.s32.u8.s8.s32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The A fragment of rows wr .. wr + 15, stage columns kk .. kk + 31.
+__device__ __forceinline__ void load_a_frag(const int8_t* as, int wr, int kk,
+                                            unsigned (&a)[4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  a[0] = lds32(as + swz_a((wr + g) * kBK + kk + 4 * t));
+  a[1] = lds32(as + swz_a((wr + g + 8) * kBK + kk + 4 * t));
+  a[2] = lds32(as + swz_a((wr + g) * kBK + kk + 16 + 4 * t));
+  a[3] = lds32(as + swz_a((wr + g + 8) * kBK + kk + 16 + 4 * t));
+}
+
+// The B fragments of stage rows kk .. kk + 31 for the warp's four n8 tiles:
+// tile j's local column c is the stage column wc + 4 c + j.
+__device__ __forceinline__ void load_b_frag(const int8_t* ws, int wc, int kk,
+                                            unsigned (&lo)[4], unsigned (&hi)[4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    lo[q] = lds32(ws + swz_w((kk + 4 * t + q) * kBN + wc + 4 * g));
+    hi[q] = lds32(ws + swz_w((kk + 16 + 4 * t + q) * kBN + wc + 4 * g));
+  }
+  transpose4x4(lo);
+  transpose4x4(hi);
+}
+
+// 32 k of one warp's 16 x 32 outputs from a loaded B fragment: the codes'
+// (high-byte) plane ah into acc, and with WIDE the low-byte plane al into
+// acc_l.
+template <bool WIDE>
+__device__ __forceinline__ void mma_k32(const int8_t* ah, const int8_t* al, int wr, int kk,
+                                        const unsigned (&lo)[4], const unsigned (&hi)[4],
+                                        int (&acc)[4][4], int (&acc_l)[4][4]) {
+  unsigned a[4];
+  load_a_frag(ah, wr, kk, a);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) mma<true>(acc[j], a, lo[j], hi[j]);
+  if constexpr (WIDE) {
+    load_a_frag(al, wr, kk, a);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) mma<false>(acc_l[j], a, lo[j], hi[j]);
+  }
 }
 
 // One warp's 16 x 32 outputs (rows wr.., stage columns wc..) over one
 // stage. acc[j] is the m16n8 tile j, whose local column c is the stage
 // column wc + 4 c + j.
-__device__ __forceinline__ void mma_stage(const int8_t* as, const int8_t* ws, int wr, int wc,
-                                          int (&acc)[4][4]) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+template <bool WIDE>
+__device__ __forceinline__ void mma_stage(const int8_t* ah, const int8_t* al, const int8_t* ws,
+                                          int wr, int wc, int (&acc)[4][4],
+                                          int (&acc_l)[4][4]) {
 #pragma unroll
   for (int kk = 0; kk < kBK; kk += 32) {
-    unsigned a[4], lo[4], hi[4];
-    a[0] = lds32(as + swz_a((wr + g) * kBK + kk + 4 * t));
-    a[1] = lds32(as + swz_a((wr + g + 8) * kBK + kk + 4 * t));
-    a[2] = lds32(as + swz_a((wr + g) * kBK + kk + 16 + 4 * t));
-    a[3] = lds32(as + swz_a((wr + g + 8) * kBK + kk + 16 + 4 * t));
+    unsigned lo[4], hi[4];
+    load_b_frag(ws, wc, kk, lo, hi);
+    mma_k32<WIDE>(ah, al, wr, kk, lo, hi, acc, acc_l);
+  }
+}
+
+// acc = 256 acc + acc_l, the int16 codes' sum (exact below kMaxK16; the
+// unsigned arithmetic only keeps the expression free of signed overflow).
+__device__ __forceinline__ void combine(int (&acc)[4][4], const int (&acc_l)[4][4]) {
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      lo[q] = lds32(ws + swz_w((kk + 4 * t + q) * kBN + wc + 4 * g));
-      hi[q] = lds32(ws + swz_w((kk + 16 + 4 * t + q) * kBN + wc + 4 * g));
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      acc[j][i] = (int)((unsigned)acc[j][i] * 256u + (unsigned)acc_l[j][i]);
+}
+
+// The epilogue of one warp's 16 x 32 tile: acc[j][2h + e] is row g + 8h,
+// column c + 4e + j of the output (c = the lane's first column, n0 + wc +
+// 8t), so each lane holds 8 adjacent columns of two rows. For h = 0, 1,
+// o[h] points at (row, c) in the output, or is null for a row that is not
+// stored; a row with live[h] false is stored as 0.
+__device__ __forceinline__ void store_warp(const int (&acc)[4][4], float* const (&o)[2],
+                                           const float (&sa)[2], const bool (&live)[2],
+                                           const float* __restrict__ s_w, int c, int N,
+                                           bool vec_out) {
+  float sw[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) sw[i] = c + i < N ? s_w[c + i] : 0.0f;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (o[h] == nullptr) continue;
+    float v[8];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      v[j] = live[h] ? qmm_epilogue(acc[j][2 * h], sa[h], sw[j]) : 0.0f;
+      v[4 + j] = live[h] ? qmm_epilogue(acc[j][2 * h + 1], sa[h], sw[4 + j]) : 0.0f;
     }
-    transpose4x4(lo);
-    transpose4x4(hi);
+    if (vec_out) {
+      if (c < N) *reinterpret_cast<float4*>(o[h]) = make_float4(v[0], v[1], v[2], v[3]);
+      if (c + 4 < N) *reinterpret_cast<float4*>(o[h] + 4) = make_float4(v[4], v[5], v[6], v[7]);
+    } else {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) mma_s8(acc[j], a, lo[j], hi[j]);
+      for (int i = 0; i < 8; ++i)
+        if (c + i < N) o[h][i] = v[i];
+    }
   }
 }
 

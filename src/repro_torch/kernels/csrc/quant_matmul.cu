@@ -1,4 +1,5 @@
-// quant_matmul: the w8a8 code-wire embed, y = (a8 @ w8) * s_a[r] * s_w[c].
+// quant_matmul: the w8a8 code-wire embed, y = (a @ w8) * s_a[r] * s_w[c],
+// for int8 codes a8 or the int16 codes of a 9- to 16-bit ADC.
 //
 // Replaces the Pallas TPU kernel quant_matmul_pallas (src/repro/kernels/
 // quant_matmul.py:55, body _qmm_kernel :34): int8 x int8 with int32
@@ -16,7 +17,9 @@
 // int8 MMAs from swizzled shared memory; the epilogue of ip2_common.cuh
 // (built with --fmad=false, so bitwise the reference's) stored as float4.
 // The int32 sums are exact, so the result is bitwise equal to the plain
-// version whatever the tiling.
+// version whatever the tiling. int16 codes are split into a high-byte and a
+// low-byte plane as they are staged (qmm_tile.cuh) and take two MMAs per
+// fragment; K is then bounded by 511 (kMaxK16), not 131 071.
 #include "qmm_tile.cuh"
 
 namespace {
@@ -24,7 +27,7 @@ namespace {
 using namespace ip2::qmm;
 
 struct Args {
-  const int8_t* a8;
+  const void* a;  // int8, or int16 codes with WIDE
   const float* s_a;
   const int8_t* w8;
   const float* s_w;
@@ -33,95 +36,93 @@ struct Args {
   bool vec_out;  // N % 4 == 0 and out 16-byte aligned: float4 stores
 };
 
-template <int VA, int VW>
+// VA: the A copy width in bytes (16, 4 or 1; with WIDE 16, 4 or 2)
+template <int VA, int VW, bool WIDE>
 __global__ void __launch_bounds__(kThreads) quant_matmul_kernel(const Args p) {
-  __shared__ __align__(128) int8_t as[kNS][kAStage];
+  constexpr int kPlanes = WIDE ? 2 : 1;
+  __shared__ __align__(128) int8_t as[kNS][kPlanes * kAStage];
   __shared__ __align__(128) int8_t ws[kNS][kWStage];
   const int r0 = blockIdx.x * kBR, n0 = blockIdx.y * kBN;
   const int warp = threadIdx.x >> 5;
   const int wr = (warp >> 1) * 16, wc = (warp & 1) * 32;
-  int acc[4][4] = {};
+  int acc[4][4] = {}, acc_l[4][4] = {};
   const int nk = (p.K + kBK - 1) / kBK;
+  auto load = [&](int s, int slot) {
+    if constexpr (WIDE)
+      load_a16<VA / 2>(as[slot], as[slot] + kAStage, static_cast<const int16_t*>(p.a), p.R,
+                       p.K, r0, s * kBK);
+    else
+      load_a<VA>(as[slot], static_cast<const int8_t*>(p.a), p.R, p.K, r0, s * kBK);
+    load_w<VW>(ws[slot], p.w8, p.K, p.N, s * kBK, n0);
+  };
 #pragma unroll
   for (int s = 0; s < kNS - 1; ++s) {
-    if (s < nk) {
-      load_a<VA>(as[s], p.a8, p.R, p.K, r0, s * kBK);
-      load_w<VW>(ws[s], p.w8, p.K, p.N, s * kBK, n0);
-    }
+    if (s < nk) load(s, s);
     commit();
   }
   for (int s = 0; s < nk; ++s) {
     wait<kNS - 2>();  // this thread's copies of stage s have landed
     __syncthreads();  // everyone's have, and stage s - 1 is consumed
     const int nx = s + kNS - 1;
-    if (nx < nk) {
-      load_a<VA>(as[nx % kNS], p.a8, p.R, p.K, r0, nx * kBK);
-      load_w<VW>(ws[nx % kNS], p.w8, p.K, p.N, nx * kBK, n0);
-    }
+    if (nx < nk) load(nx, nx % kNS);
     commit();
-    mma_stage(as[s % kNS], ws[s % kNS], wr, wc, acc);
+    mma_stage<WIDE>(as[s % kNS], as[s % kNS] + kAStage, ws[s % kNS], wr, wc, acc, acc_l);
   }
-  // acc[j][2h + e] is row wr + g + 8h, column wc + 8t + 4e + j: each lane
-  // holds 8 adjacent columns of two rows
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int c = n0 + wc + 8 * t;
-  float sw[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) sw[i] = c + i < p.N ? p.s_w[c + i] : 0.0f;
+  if constexpr (WIDE) combine(acc, acc_l);
+  const int lane = threadIdx.x & 31, g = lane >> 2;
+  float* o[2];
+  float sa[2];
+  const bool live[2] = {true, true};
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = r0 + wr + g + 8 * h;
-    if (r >= p.R) continue;
-    const float sa = p.s_a[r];
-    float v[8];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      v[j] = ip2::qmm_epilogue(acc[j][2 * h], sa, sw[j]);
-      v[4 + j] = ip2::qmm_epilogue(acc[j][2 * h + 1], sa, sw[4 + j]);
-    }
-    float* o = p.out + (long long)r * p.N + c;
-    if (p.vec_out) {
-      if (c < p.N) *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
-      if (c + 4 < p.N) *reinterpret_cast<float4*>(o + 4) = make_float4(v[4], v[5], v[6], v[7]);
-    } else {
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-        if (c + i < p.N) o[i] = v[i];
-    }
+    const int c = n0 + wc + 8 * (lane & 3);
+    o[h] = r < p.R ? p.out + (long long)r * p.N + c : nullptr;
+    sa[h] = r < p.R ? p.s_a[r] : 0.0f;
   }
+  store_warp(acc, o, sa, live, p.s_w, n0 + wc + 8 * (lane & 3), p.N, p.vec_out);
 }
 
-template <int VA, int VW>
+template <int VA, int VW, bool WIDE>
 void run(const Args& p, cudaStream_t stream) {
   const dim3 grid((p.R + kBR - 1) / kBR, (p.N + kBN - 1) / kBN);
-  quant_matmul_kernel<VA, VW><<<grid, kThreads, 0, stream>>>(p);
+  quant_matmul_kernel<VA, VW, WIDE><<<grid, kThreads, 0, stream>>>(p);
 }
 
-template <int VA>
+template <int VA, bool WIDE>
 void run_w(int vw, const Args& p, cudaStream_t stream) {
-  if (vw == 16) run<VA, 16>(p, stream);
-  else if (vw == 4) run<VA, 4>(p, stream);
-  else run<VA, 1>(p, stream);
+  if (vw == 16) run<VA, 16, WIDE>(p, stream);
+  else if (vw == 4) run<VA, 4, WIDE>(p, stream);
+  else run<VA, 1, WIDE>(p, stream);
 }
 
 }  // namespace
 
-// a8 (R, K) int8, s_a (R,) f32, w8 (K, N) int8, s_w (N,) f32 -> out (R, N)
-// f32. Returns cudaGetLastError(), or cudaErrorInvalidValue for a K whose
-// int32 sums could overflow.
-extern "C" int quant_matmul_launch(const int8_t* a8, const float* s_a,
-                                   const int8_t* w8, const float* s_w,
-                                   float* out, int R, int K, int N,
-                                   void* stream) {
-  if (R < 0 || K < 0 || N < 0 || K > kMaxK) return (int)cudaErrorInvalidValue;
+// a (R, K) codes of a_bytes (1: int8, 2: int16), s_a (R,) f32, w8 (K, N)
+// int8, s_w (N,) f32 -> out (R, N) f32. Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for another code width or a K whose int32 sums
+// could overflow (above kMaxK for int8 codes, kMaxK16 for int16).
+extern "C" int quant_matmul_launch(const void* a, int a_bytes, const float* s_a,
+                                   const int8_t* w8, const float* s_w, float* out,
+                                   int R, int K, int N, void* stream) {
+  if (a_bytes != 1 && a_bytes != 2) return (int)cudaErrorInvalidValue;
+  if (R < 0 || K < 0 || N < 0 || K > max_k(a_bytes)) return (int)cudaErrorInvalidValue;
   if (R > 0 && N > 0) {
-    const Args p{a8, s_a, w8, s_w, out, R, K, N,
+    const Args p{a, s_a, w8, s_w, out, R, K, N,
                  N % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0};
-    const int va = copy_bytes(a8, K), vw = copy_bytes(w8, N);
+    const int vw = copy_bytes(w8, N);
     const cudaStream_t st = (cudaStream_t)stream;
-    if (va == 16) run_w<16>(vw, p, st);
-    else if (va == 4) run_w<4>(vw, p, st);
-    else run_w<1>(vw, p, st);
+    if (a_bytes == 2) {
+      const int va = copy_bytes(a, 2LL * K);
+      if (va == 16) run_w<16, true>(vw, p, st);
+      else if (va == 4) run_w<4, true>(vw, p, st);
+      else run_w<2, true>(vw, p, st);
+    } else {
+      const int va = copy_bytes(a, K);
+      if (va == 16) run_w<16, false>(vw, p, st);
+      else if (va == 4) run_w<4, false>(vw, p, st);
+      else run_w<1, false>(vw, p, st);
+    }
   }
   return (int)cudaGetLastError();
 }

@@ -155,7 +155,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _EP = ctypes.POINTER(_Epilogue)
 _ARGTYPES = {
     "ip2_project": [_P, _P, _P, _P, _I, _I, _I, _I, _EP, _P],
-    "quant_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "quant_matmul": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _P],
     "ip2_fused_embed": [_P, _P, _P, _I, _I, _I, _P, _I, _P, _P, _F, _I, _P, _EP, _P],
     "ip2_project_sparse": [_P, _P, _I, _I, _P, _I, _P, _P, _I, _EP, _P],
     "ip2_ragged": [_P, _P, _P, _I, _I, _I, _P, _I, _P, _P, _I, _EP, _P],
@@ -278,25 +278,33 @@ def _delta_attention_cuda(q, k, v, key_mask, q_counts) -> torch.Tensor:
 
 
 def _quant_matmul_cuda(a8, s_a, w8, s_w) -> torch.Tensor:
+    """``a8`` holds int8 codes, or the int16 codes of a 9- to 16-bit ADC
+    (then K is at most 511, where the int32 sums stay exact)."""
     r, k = a8.shape
     n = w8.shape[1]
-    _need(a8, torch.int8, (r, k), "a8")
+    if a8.dtype not in (torch.int8, torch.int16):
+        raise ValueError(f"quant_matmul kernel: {a8.dtype} codes; it takes int8 and "
+                         "int16 codes (ADCs of up to 16 bits)")
+    _need(a8, a8.dtype, (r, k), "a8")
     _need(w8, torch.int8, (k, n), "w8")
     _need(s_a, torch.float32, (r,), "s_a")
     _need(s_w, torch.float32, (n,), "s_w")
     out = torch.empty((r, n), dtype=torch.float32, device=a8.device)
-    _launch("quant_matmul", a8.data_ptr(), s_a.data_ptr(), w8.data_ptr(),
-            s_w.data_ptr(), out.data_ptr(), r, k, n, _stream(a8), shape=(r, k, n))
+    _launch("quant_matmul", a8.data_ptr(), a8.element_size(), s_a.data_ptr(),
+            w8.data_ptr(), s_w.data_ptr(), out.data_ptr(), r, k, n, _stream(a8),
+            shape=(r, k, n))
     return out
 
 
 def _fused_embed_cuda(table, counts, patches, w_t, w8, s_w, s_a: float,
                       p: IP2KernelParams, k: int) -> torch.Tensor:
     """``table`` rows must lie in the patch grid (``ip2_fused_embed``
-    clamps them; checking here would cost a device sync per call)."""
-    if p.adc_bits > 8:
-        raise ValueError(f"ip2_fused_embed kernel: {p.adc_bits}-bit ADC codes do "
-                         "not fit its int8 code bank (8 bits at most)")
+    clamps them; checking here would cost a device sync per call). Codes of
+    up to 8 bits run as int8, of 9 to 16 bits as int16 (then M is at most
+    511, where the int32 sums stay exact)."""
+    if p.adc_bits > 16:
+        raise ValueError(f"ip2_fused_embed kernel: {p.adc_bits}-bit ADC codes; it "
+                         "takes codes of up to 16 bits")
     n_rows, kk = patches.shape
     m = w_t.shape[1]
     d = w8.shape[1]
@@ -311,7 +319,7 @@ def _fused_embed_cuda(table, counts, patches, w_t, w8, s_w, s_a: float,
     _launch("ip2_fused_embed", patches.data_ptr(), table.data_ptr(),
             counts.data_ptr(), s, k, kk, w_t.data_ptr(), m, w8.data_ptr(),
             s_w.data_ptr(), s_a, d, out.data_ptr(),
-            ctypes.byref(_epilogue(p)), _stream(patches))
+            ctypes.byref(_epilogue(p)), _stream(patches), shape=(s * k, kk, m, d))
     return out
 
 

@@ -43,7 +43,8 @@ ROOT = Path(__file__).resolve().parents[1]
 
 
 def _port_files():
-    return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+            + [ROOT / "chip_smoke.py", ROOT / "tools" / "fused_embed_variants.py"])
 
 
 def _imported_modules(path):

@@ -4,15 +4,17 @@ These need an NVIDIA GPU with ``nvcc`` (the kernels are built at first
 use); everywhere else they skip. Run them on the card with
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py``.
 Tolerances: quant_matmul bitwise (exact int32 sums), at shapes that take
-each of its copy paths and at the largest sums; ip2_project codes within
-1 LSB on a bounded number of rows (cuBLAS and the kernel sum fp32 in
-different orders); ip2_fused_embed bitwise equal to ip2_project ->
-quant_matmul; the sparse and ragged projections bitwise ip2_project on the
-gathered rows (the same fmaf chain and epilogue), zero past the counts,
-and at awkward shapes and count patterns bitwise ip2_fused_embed (the
-older tile) through the embed; delta_attention within 1e-5 of its plain
-version (its sums run in another order), exact zeros past the counts, at
-counts outside [0, S] and with a slot that has no valid key.
+each of its copy paths, at the largest sums and on the int16 codes of 10-
+and 16-bit ADCs; ip2_project codes within 1 LSB on a bounded number of rows
+(cuBLAS and the kernel sum fp32 in different orders); ip2_fused_embed
+bitwise equal to ip2_project -> quant_matmul (the same projection tile and
+chain, exact embed sums) over cluster sizes 1 to 8 and beyond, odd D and K,
+banks that span slots and every count pattern, and at 10 and 16 bits; the
+sparse and ragged projections bitwise ip2_project on the gathered rows,
+zero past the counts, and at awkward shapes and count patterns bitwise
+ip2_fused_embed through the embed; delta_attention within 1e-5 of its
+plain version (its sums run in another order), exact zeros past the
+counts, at counts outside [0, S] and with a slot that has no valid key.
 """
 
 import numpy as np
@@ -218,9 +220,8 @@ def _odd_operands(dev, kk, mm):
 
 @pytest.mark.parametrize("kk,mm", ODD_SHAPES)
 def test_odd_shapes_project_equals_fused(dev, kk, mm):
-    """ip2_project's codes through quant_matmul equal ip2_fused_embed, which
-    keeps the older tile, bit for bit; the sparse kernel equals
-    ip2_project."""
+    """ip2_project's codes through quant_matmul equal ip2_fused_embed bit
+    for bit; the sparse kernel equals ip2_project."""
     spec, x, w, idx, w8, s_w = _odd_operands(dev, kk, mm)
     adc = adc_mod.ADCSpec()
     gathered = torch.gather(x, 1, idx.long()[..., None].expand(*idx.shape, kk))
@@ -311,13 +312,137 @@ def test_delta_attention_kernel_rejects_large_shape(dev):
     assert ops.LAUNCHES["delta_attention"] == n0
 
 
+def _bitwise(a, b):
+    return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def _fused_once(x, w, idx, spec, adc, w8, s_w, counts=None):
+    n0 = ops.LAUNCHES["ip2_fused_embed"]
+    got = ops.ip2_fused_embed(x, w, idx, spec, adc, w8, s_w, row_counts=counts)
+    assert ops.LAUNCHES["ip2_fused_embed"] == n0 + 1
+    return got
+
+
+def _staged(x, w, idx, spec, adc, w8, s_w, counts=None):
+    """ip2_project -> quant_matmul on the gathered rows, rows past the
+    counts set to +0.0: what the fused kernel must give bit for bit."""
+    gathered = torch.gather(x, 1, idx.long()[..., None].expand(*idx.shape, x.shape[-1]))
+    codes = ops.ip2_project(gathered, w, spec, adc=adc, codes=True)
+    y = ops.quant_matmul_pre(codes, adc.lsb, w8, s_w)
+    if counts is None:
+        return y, codes
+    live = torch.arange(idx.shape[1], device=x.device)[None, :] < counts.clamp(
+        0, idx.shape[1])[:, None]
+    return torch.where(live[..., None], y, torch.zeros((), device=x.device)), codes
+
+
+FUSED_SLOTS, FUSED_PATCHES = 7, 20
+FUSED_PATTERNS = {
+    "zero": lambda k: [0] * FUSED_SLOTS,
+    "full": lambda k: [k] * FUSED_SLOTS,
+    "one_full": lambda k: [0, 0, 0, k, 0, 0, 0],
+    # handed to the kernel unclipped: it clips to [0, k] itself
+    "clipped": lambda k: [-3, k + 4, 5, 0, k, -1, 1],
+}
+
+
+# M 30 .. 256: clusters of 1, 4, 6 and 8 blocks; M 300 and 1000: 8 blocks
+# that take 2 and 4 column slices each. D 40 and 300 are off the 64-column
+# embed tile (40: the 4-byte w8 copies; 300: 5 tiles, 4-byte copies), K 250
+# and 1000 off the 32-k step (250: the 4-byte patch copies). k 8, 13, 16
+# over 7 slots put the 48-row banks across slot boundaries at odd places.
+@pytest.mark.parametrize("kk", [250, 1000, 1024])
+@pytest.mark.parametrize("d", [40, 256, 300])
+@pytest.mark.parametrize("m", [30, 100, 192, 256, 300, 1000])
+def test_fused_embed_kernel_grid(dev, m, d, kk):
+    """ip2_fused_embed equals ip2_project -> quant_matmul bit for bit at
+    k 8, 13, 16 under every count pattern (rows past the counts +0.0)."""
+    g = torch.Generator().manual_seed(m * 31 + d * 7 + kk)
+    spec = proj.PatchSpec(32, 32, n_vectors=m)
+    x = torch.rand((FUSED_SLOTS, FUSED_PATCHES, kk), generator=g).to(dev)
+    w = (torch.randn((m, kk), generator=g) * 6.4).to(dev)
+    w8, s_w = ops.quantize_weights_int8((torch.randn((m, d), generator=g) * 0.1).to(dev))
+    adc = adc_mod.ADCSpec()
+    for k in (8, 13, 16):
+        idx = torch.stack([torch.randperm(FUSED_PATCHES, generator=g)[:k]
+                           for _ in range(FUSED_SLOTS)]).to(torch.int32).to(dev)
+        full, _ = _staged(x, w, idx, spec, adc, w8, s_w)
+        assert _bitwise(_fused_once(x, w, idx, spec, adc, w8, s_w), full), f"k {k} no counts"
+        for name, pattern in FUSED_PATTERNS.items():
+            cnt = torch.tensor(pattern(k), dtype=torch.int32, device=dev)
+            want, _ = _staged(x, w, idx, spec, adc, w8, s_w, cnt)
+            got = _fused_once(x, w, idx, spec, adc, w8, s_w, cnt)
+            torch.cuda.synchronize()
+            assert _bitwise(got, want), f"k {k} {name}"
+
+
+@pytest.mark.parametrize("bits", [10, 16])
+def test_quant_matmul_kernel_wide_codes(dev, bits):
+    """int16 codes of a 10- or 16-bit ADC: bitwise the plain version, with
+    the extreme codes against the extreme weights at the K bound (511)."""
+    half = 1 << (bits - 1)
+    g = torch.Generator().manual_seed(bits)
+    for r, k, n in ((1024, 192, 256), (37, 250, 100), (33, 511, 72), (5, 7, 3)):
+        a = torch.randint(-half, half, (r, k), generator=g, dtype=torch.int16)
+        a[0], a[1] = -half, half - 1
+        w8 = torch.randint(-128, 128, (k, n), generator=g, dtype=torch.int8)
+        w8[:, 0], w8[:, 1] = -128, 127
+        s_a, s_w = torch.rand(r, generator=g) * 0.01, torch.rand(n, generator=g) * 0.01
+        a, w8, s_a, s_w = a.to(dev), w8.to(dev), s_a.to(dev), s_w.to(dev)
+        got = _qmm_cuda_once(a, s_a, w8, s_w)
+        assert _bitwise(got, ref.quant_matmul_ref(a, s_a, w8, s_w)), (r, k, n)
+        assert torch.equal(ops.quant_matmul_pre(a, s_a, w8, s_w), got)
+
+
+@pytest.mark.parametrize("bits", [10, 16])
+def test_fused_embed_kernel_wide_codes(dev, bits):
+    """10- and 16-bit codes through ip2_fused_embed: bitwise the staged
+    kernels (whose codes are int16) and the plain version on rows whose
+    codes agree; large weights drive many codes to both ends of the ADC."""
+    spec, x, w, idx, w8, s_w = _operands(dev, m=192, d=256)
+    adc = adc_mod.ADCSpec(bits=bits)
+    for scale in (1.0, 40.0):
+        cnt = torch.tensor([4, 2, 0, 9, 3], dtype=torch.int32, device=dev)
+        got = _fused_once(x, w * scale, idx, spec, adc, w8, s_w, cnt)
+        want, codes = _staged(x, w * scale, idx, spec, adc, w8, s_w, cnt)
+        assert codes.dtype == torch.int16
+        assert _bitwise(got, want), f"scale {scale}"
+        if scale > 1:
+            assert int((codes == -(1 << (bits - 1))).sum()) > 0
+            assert int((codes == (1 << (bits - 1)) - 1).sum()) > 0
+        w_t = ops._dac_weights(w * scale, spec).T.contiguous()
+        table, cnt_c = ops._ragged_tables(idx, x.shape[1], cnt)
+        params = ops.kernel_params_from_spec(spec, adc, codes=True)
+        flat = x.reshape(-1, x.shape[-1])
+        plain = ref.ip2_fused_embed_ref(table, cnt_c, flat, w_t, w8, s_w, params,
+                                        idx.shape[1]).reshape(got.shape)
+        plain_codes = ref.ip2_project_ref(flat[table.long()], w_t,
+                                          torch.zeros(w_t.shape[1], device=dev), params)
+        same = (plain_codes.reshape(codes.shape) == codes).all(-1)
+        if bits == 10:  # at 16 bits an LSB nears the fp32 sums' order noise
+            assert int((~same).sum()) <= 2
+        assert _bitwise(got[same], plain[same])
+
+
 def test_embed_kernels_reject_wide_codes(dev):
-    """The int8 embed kernels raise on codes wider than 8 bits rather than
-    wrapping them."""
+    """Codes wider than 16 bits (int32, an ADC of 17 bits or more) raise
+    in both embed kernels, and so does an M above the int16 codes' exact
+    sum bound, naming the shape and counting no launch."""
     spec, x, w, idx, w8, s_w = _operands(dev)
-    adc = adc_mod.ADCSpec(bits=10)
-    with pytest.raises(ValueError, match="8 bits"):
+    adc = adc_mod.ADCSpec(bits=20)
+    with pytest.raises(ValueError, match="16 bits"):
         ops.ip2_fused_embed(x, w, idx, spec, adc, w8, s_w)
     codes = ops.ip2_project(x, w, spec, adc=adc, codes=True)
-    with pytest.raises(ValueError, match="int8"):
+    assert codes.dtype == torch.int32
+    with pytest.raises(ValueError, match="16 bits"):
         ops.quant_matmul_pre(codes, adc.lsb, w8, s_w)
+    # 16-bit codes at M 600 > 511: the int32 sums could overflow
+    spec6, x6, w6, idx6, w86, s_w6 = _operands(dev, m=600, d=40)
+    n0 = dict(ops.LAUNCHES)
+    with pytest.raises(RuntimeError, match=r"\(20, 256, 600, 40\)"):
+        ops.ip2_fused_embed(x6, w6, idx6, spec6, adc_mod.ADCSpec(bits=16), w86, s_w6)
+    a16 = torch.zeros((20, 600), dtype=torch.int16, device=dev)
+    with pytest.raises(RuntimeError, match=r"\(20, 600, 40\)"):
+        ops.quant_matmul_pre(a16, 1.0, w86, s_w6)
+    assert ops.LAUNCHES["ip2_fused_embed"] == n0["ip2_fused_embed"]
+    assert ops.LAUNCHES["quant_matmul"] == n0["quant_matmul"]

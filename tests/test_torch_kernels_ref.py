@@ -8,7 +8,8 @@ in interpret mode here.
   may differ by exactly 1 LSB on a counted, bounded number of rows; float
   readouts carry that LSB, and otherwise agree to atol 1e-6.
 * ``ip2_fused_embed``: equal to the port's own staged pair bitwise, and to
-  the JAX fused kernel on every row whose codes agree.
+  the JAX fused kernel on every row whose codes agree; so at 10 bits too,
+  where ``quant_matmul_pre`` takes int16 codes bitwise.
 * ``ip2_project_sparse`` (the sparse and the ragged kernel): codes within
   1 LSB on counted rows; rows past a slot's count exactly zero.
 """
@@ -244,3 +245,39 @@ def test_ip2_fused_embed():
                                row_counts=_t(cnt)).numpy()
     np.testing.assert_array_equal(tr[0, :2], ty[0, :2])
     assert not tr[0, 2:].any() and not tr[1].any()
+
+
+def test_wide_codes_embed_10_bits():
+    """A 10-bit ADC's int16 codes through the port's plain quant_matmul_pre
+    (bitwise the JAX kernel, the extreme codes against the extreme weights
+    included) and ip2_fused_embed (bitwise the port's staged pair, and the
+    JAX fused kernel on rows whose codes agree)."""
+    js, ts, x, w, _ = _operands()
+    jadc, tadc = j_adc.ADCSpec(bits=10), t_adc.ADCSpec(bits=10)
+    idx = np.stack([RNG.permutation(x.shape[1])[:5] for _ in range(2)]).astype(np.int32)
+    emb = (RNG.normal(size=(32, 24)) * 0.1).astype(np.float32)
+    tw8, tsw = t_ops.quantize_weights_int8(_t(emb))
+    jw8, jsw = jnp.asarray(tw8.numpy()), jnp.asarray(tsw.numpy())
+    gathered = np.take_along_axis(x, idx[..., None].astype(np.int64), axis=1)
+    codes = t_ops.ip2_project(_t(gathered), _t(w), ts, adc=tadc, codes=True)
+    assert codes.dtype == torch.int16
+    ext = codes.clone()
+    ext[0, 0], ext[0, 1] = -512, 511
+    w_ext = tw8.clone()
+    w_ext[:, 0], w_ext[:, 1] = -127, 127
+    for c, w8 in ((codes, tw8), (ext, w_ext)):
+        jy = np.asarray(j_ops.quant_matmul_pre(jnp.asarray(c.numpy()), jnp.float32(tadc.lsb),
+                                               jnp.asarray(w8.numpy()), jsw))
+        ty = t_ops.quant_matmul_pre(c, torch.tensor(tadc.lsb, dtype=torch.float32), w8, tsw)
+        np.testing.assert_array_equal(ty.numpy(), jy)
+    staged = t_ops.quant_matmul_pre(codes, torch.tensor(tadc.lsb, dtype=torch.float32),
+                                    tw8, tsw).numpy()
+    ty = t_ops.ip2_fused_embed(_t(x), _t(w), _t(idx), ts, tadc, tw8, tsw).numpy()
+    np.testing.assert_array_equal(ty, staged)
+    jy = np.asarray(j_ops.ip2_fused_embed(jnp.asarray(x), jnp.asarray(w), jnp.asarray(idx),
+                                          js, jadc, jw8, jsw))
+    jcodes = np.asarray(j_ops.ip2_project(jnp.asarray(gathered), jnp.asarray(w), js,
+                                          adc=jadc, codes=True))
+    same = ~_flip_rows(codes.numpy(), jcodes).reshape(idx.shape)
+    assert same.sum() > 0
+    np.testing.assert_array_equal(ty[same], jy[same])
