@@ -20,10 +20,13 @@ one CUDA device. Phases, any failure exits non-zero:
          1% of rows of its plain version; delta_attention within 1e-5 of
          its plain version, 0 past the counts, also with counts below 0
          and above S, a slot with no valid key, and S 40. Then the int16
-         codes of a 10- and a 16-bit ADC: the fused and the staged route
-         bitwise equal to each other, quant_matmul bitwise its plain
-         version, the fused kernel bitwise its plain version on rows whose
-         codes agree.
+         codes of a 10- and a 16-bit ADC and the int32 codes of a 24-bit
+         one: the fused and the staged route bitwise equal to each other,
+         quant_matmul bitwise its plain version, the fused kernel bitwise
+         its plain version on rows whose codes agree; and at 10 and 16 bits
+         the codes of kernels 6 and 4 (the latter through its embed of the
+         identity) at most 1 LSB from the plain projection's, on at most
+         0.1 % (10 bits) or 1 % (16 bits) of the codes.
   (b)    the main paths, each with the launch counts reset just before and
          read just after, on 12 ticks of admit / evict / partial-fed churn
          at ip2-vit width (256x256 frames, 32x32 patches, M=192, 6 layers,
@@ -66,6 +69,26 @@ one CUDA device. Phases, any failure exits non-zero:
          no PyTorch yardstick, staged_device_ms, the device time of the
          staged pair (ip2_project and quant_matmul) on the same operands,
          and how its clusters sit on the card.
+  (d)    device rollouts: the staged, fused, gated and sign-tier-governed
+         engines at the same width and 64 slots, each a twin pair: 8 ticks
+         of the reference's partial-fed pattern (a third of the streams fed
+         every tick, a third every other tick, a third once, one tick with
+         none) as one step_rollout against 8 step() calls, logits and every
+         state leaf bitwise; then 8 more on warm state after churn, both
+         block=False paths run under torch.cuda.set_sync_debug_mode("error")
+         from the call until the handle returns (the one exemption: the
+         host wait on a staging buffer whose previous upload is in flight,
+         run with the check off and counted). The sign-tier budget puts
+         half the slots below the finest tier's floor, and some slot must
+         read out signs on some tick. Launch counts are reset before each
+         rollout and read after it. Two engines issued before either result
+         is fetched must equal two served one after the other.
+  (e)    on the staged and gated engines at 64 fed streams: ticks/s of
+         step(), of step_rollout at T 1, 4, 16 and 64, the host return time
+         of step(block=False) beside its tick time, the device busy share of
+         a T = 16 rollout (union of the profiler's device intervals over
+         wall time), and the 50 MB frame upload alone, pageable against
+         page-locked.
 
 Prints the kernel table as one JSON line, the card's name and power limit
 (nvidia-smi), and last ``{"ok": true, "device": {...}}``. With ``--out DIR``
@@ -95,6 +118,9 @@ CAPACITY = 64
 # the kernel table's rows, numbered as in ROADMAP.md's kernel queue
 KERNELS = ("ip2_project_sparse", "ip2_ragged", "delta_attention", "ip2_fused_embed",
            "quant_matmul", "ip2_project")
+# bound on the share of codes a 1-LSB move may touch between a projection
+# kernel and the plain projection (fp32 sums on an ADC rounding boundary)
+LSB_MOVES = {10: 0.001, 16: 0.01}
 
 
 def _fail(msg):
@@ -190,8 +216,12 @@ def main():
         from repro_torch.core.temporal import TemporalSpec
         from repro_torch.data.pipeline import SceneStream
         from repro_torch.kernels import _build, ops, ref
+        from repro_torch.models import backend_delta as bdel
+        from repro_torch.models import vit as vit_mod
         from repro_torch.models.vit import ViTConfig, init_vit, prepare_quant_embed, \
             vit_forward_compact
+        from repro_torch.core.power import EnergyMeter
+        from repro_torch.serve import governor as gov_mod
         from repro_torch.serve.engine import SaccadeEngine
         from repro_torch.serve.governor import GovernorSpec
     except ImportError as e:
@@ -407,14 +437,16 @@ def main():
 
     @phase("a_wide_codes")
     def _aw():
-        # a 10- and a 16-bit ADC store int16 codes; both embed kernels split
-        # them into a high and a low byte
+        # a 10- and a 16-bit ADC store int16 codes, a 24-bit one int32 codes;
+        # both embed kernels split them into 2 or 4 byte planes
         out = {}
-        for bits in (10, 16):
+        eye = torch.eye(m, dtype=torch.int8, device=dev)
+        ones = torch.ones(m, device=dev)
+        for bits in (10, 16, 24):
             wide = ADCSpec(bits=bits)
             p_w = ops.kernel_params_from_spec(fcfg.patch, wide, codes=True)
             codes = ops.ip2_project(gathered, weights, fcfg.patch, adc=wide, codes=True)
-            assert codes.dtype == torch.int16
+            assert codes.dtype == wide.code_dtype
             s_aw = torch.full((r_rows,), wide.lsb, dtype=torch.float32, device=dev)
             y = ops.quant_matmul_pre(codes, wide.lsb, w8, s_w)
             assert torch.equal(y, ref.quant_matmul_ref(codes, s_aw, w8, s_w)), \
@@ -424,13 +456,28 @@ def main():
             assert torch.equal(fused, y), f"{bits} bits: fused and staged routes differ"
             plain_codes = ref.ip2_project_ref(gathered, w_t, zero_bias, p_w)
             same = (plain_codes == codes).all(-1)
-            # at 16 bits an LSB nears the fp32 sums' order noise: few rows agree
-            assert bits == 16 or int(same.sum()) >= r_rows // 2, \
+            assert bits > 10 or int(same.sum()) >= r_rows // 2, \
                 f"{bits} bits: codes agree on {int(same.sum())} rows"
             assert torch.equal(fused[same], fused_plain(p_w)[same]), \
                 f"{bits} bits: ip2_fused_embed differs from its plain version"
             out[bits] = {"rows_with_equal_codes": int(same.sum()), "rows": r_rows}
+            if bits > 16:
+                continue
+            # the LSB distance of kernels 6 and 4 from the plain projection:
+            # kernel 4's codes through its embed of the M x M identity
+            k4 = ops.ip2_fused_embed(patches, weights, idx, fcfg.patch, wide, eye, ones)
+            k4 = torch.round(k4.reshape(r_rows, m) / wide.lsb).to(torch.int64)
+            for name, got in (("ip2_project", codes.to(torch.int64)), ("ip2_fused_embed", k4)):
+                dist = (got - plain_codes.to(torch.int64)).abs()
+                moved = int((dist > 0).sum())
+                out[bits][name] = {"max_lsb": int(dist.max()), "codes_moved": moved,
+                                   "rows_moved": int((dist.amax(-1) > 0).sum()),
+                                   "codes": dist.numel()}
+                assert int(dist.max()) <= 1, f"{bits} bits {name}: {int(dist.max())} LSB apart"
+                assert moved <= LSB_MOVES[bits] * dist.numel(), \
+                    f"{bits} bits {name}: {moved} codes moved by 1 LSB"
         report["wide_codes"] = out
+        print(json.dumps({"wide_codes": out}))
 
     # ---- (b) the main paths ------------------------------------------------
     engines = {
@@ -992,6 +1039,285 @@ def main():
                                     sorted(evs, key=dev_us, reverse=True)[:10]},
             }
         report["profile"] = out
+
+    # ---- (d) device rollouts and the async surface ------------------------
+    meter = EnergyMeter()
+    ppp, n_vec = fcfg_g.patch.pixels_per_patch, fcfg_g.patch.n_vectors
+    sign_spec = GovernorSpec(budget_mw=1.0, sign_tier=True)
+    fixed_min = float(gov_mod.fixed_power_mw(
+        meter, float(fcfg_g.image_h * fcfg_g.image_w), ppp, n_vec,
+        torch.full((1,), sign_spec.tier_tokens(k_tok)[-1], dtype=torch.int32), 30.0)[0])
+    # a share below the finest k tier's floor enters the sign tier
+    floor_mw = fixed_min + 1e3 * meter.slot_recompute_power_w(ppp, n_vec, 30.0)
+    roll_ids = [f"r{i}" for i in range(CAPACITY)]
+
+    def make_engine(mode):
+        if mode == "staged":
+            return SaccadeEngine(cfg_s, params, capacity=CAPACITY,
+                                 project_fn=ops.ip2_codes_fn(fcfg.patch, adc))
+        if mode == "fused":
+            return SaccadeEngine(cfg_f, params, capacity=CAPACITY)
+        if mode == "gated":
+            budget = report.get("gated_path", {}).get("budget_mw", 2.0 * CAPACITY * floor_mw)
+            return SaccadeEngine(cfg_g, params, capacity=CAPACITY, project_fn=pf_g,
+                                 temporal=True, backend_delta=True,
+                                 governor=GovernorSpec(budget_mw=budget, backend_eps=1e-3))
+        # sign tier: priorities 1 and 2 alternate, so a priority-1 share is
+        # 0.53 of the floor (into the sign tier) and a priority-2 one 1.07
+        return SaccadeEngine(cfg_g, params, capacity=CAPACITY, project_fn=pf_g,
+                             temporal=True, governor=dataclasses.replace(
+                                 sign_spec, budget_mw=0.8 * CAPACITY * floor_mw))
+
+    def admit_all(eng, mode):
+        for i, sid in enumerate(roll_ids):
+            eng.admit(sid, priority=(1.0, 2.0)[i % 2] if mode == "sign_tier" else 1.0)
+
+    def roll_frames(mode, t, fed_ids):
+        held = mode in ("gated", "sign_tier")     # scenes hold for 4 ticks
+        return {sid: scene_pool[(roll_ids.index(sid) + (t // 4 if held else t))
+                                % len(scene_pool)] for sid in fed_ids}
+
+    def roll_sched(mode, t0, t_len=8):
+        """The reference's partial-fed pattern over 64 streams: a third fed
+        every tick, a third every other tick, a third once; one tick feeds
+        nobody."""
+        out = []
+        for t in range(t0, t0 + t_len):
+            fed = [] if t % 8 == 3 else [
+                sid for i, sid in enumerate(roll_ids)
+                if i % 3 == 0 or (i % 3 == 1 and t % 2 == 0) or (i % 3 == 2 and t % 8 == 2)]
+            out.append(roll_frames(mode, t, fed))
+        return out
+
+    def state_leaves(eng):
+        out = []
+        for leaf in eng.state:
+            if isinstance(leaf, torch.Tensor):
+                out.append(leaf)
+            elif leaf is not None:
+                out.extend(leaf)
+        return out
+
+    def same_outputs(seq, roll, msg):
+        assert len(seq) == len(roll), msg
+        for t, (a, b) in enumerate(zip(seq, roll)):
+            assert a.keys() == b.keys(), f"{msg} tick {t}: fed cover differs"
+            for sid in a:
+                assert np.array_equal(a[sid], b[sid]), f"{msg} tick {t} {sid}: logits differ"
+                assert np.isfinite(a[sid]).all(), f"{msg} tick {t}: non-finite logits"
+
+    def same_states(a, b, msg):
+        la, lb = state_leaves(a), state_leaves(b)
+        assert len(la) == len(lb)
+        for i, (x, y) in enumerate(zip(la, lb)):
+            assert x.dtype == y.dtype and torch.equal(x, y), f"{msg}: state leaf {i} differs"
+
+    @phase("d_rollout")
+    def _d():
+        out = {}
+        n_kt = len(sign_spec.k_tiers)
+        # the one host wait the async path may make: a staging buffer whose
+        # previous upload is still in flight. It is exempt from the sync
+        # check below (run with the check off), and counted.
+        waits = {"calls": 0, "pending": 0}
+        orig_wait = SaccadeEngine.__dict__["_wait_staging"]   # the staticmethod
+
+        def exempt_wait(st):
+            waits["calls"] += 1
+            if st.event is not None and not st.event.query():
+                waits["pending"] += 1
+            prev = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode(0)
+            try:
+                orig_wait.__func__(st)
+            finally:
+                torch.cuda.set_sync_debug_mode(prev)
+
+        for mode in ("staged", "fused", "gated", "sign_tier"):
+            seq, roll = make_engine(mode), make_engine(mode)
+            for e in (seq, roll):
+                admit_all(e, mode)
+            sched = roll_sched(mode, 0)
+            ops.reset_launches()
+            got = roll.step_rollout(sched)
+            torch.cuda.synchronize()
+            launches = {n: c for n, c in ops.LAUNCHES.items() if c}
+            want, sign_ticks = [], 0
+            for fr in sched:
+                want.append(seq.step(fr))
+                if seq.governor is not None and seq.governor.sign_tier:
+                    sign_ticks += int((seq.state.controls.tier >= n_kt).any())
+            same_outputs(want, got, f"{mode} rollout")
+            same_states(seq, roll, f"{mode} rollout")
+            # warm state, churn at the boundary, and both block=False paths
+            # under the sync check, from the call until the handle returns
+            for e in (seq, roll):
+                e.evict(roll_ids[5])
+                e.admit(roll_ids[5], priority=2.0 if mode == "sign_tier" else 1.0)
+            sched2 = roll_sched(mode, 8)
+            SaccadeEngine._wait_staging = staticmethod(exempt_wait)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                hs = [seq.step(fr, block=False) for fr in sched2]
+                hr = roll.step_rollout(sched2, block=False)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+                SaccadeEngine._wait_staging = orig_wait
+            same_outputs([h.result() for h in hs], hr.result(), f"{mode} block=False")
+            same_states(seq, roll, f"{mode} block=False")
+            if mode == "sign_tier":
+                for sid in roll_ids:
+                    sign_ticks += int(seq.sign_readout(sid))
+            out[mode] = {"ticks": 2 * len(sched), "rollout_launches": launches,
+                         "sign_readout_ticks": sign_ticks}
+            need = {"staged": ("ip2_project", "quant_matmul"), "fused": ("ip2_fused_embed",),
+                    "gated": ("ip2_ragged", "delta_attention", "quant_matmul"),
+                    "sign_tier": ("ip2_ragged", "quant_matmul")}[mode]
+            assert all(launches.get(n, 0) > 0 for n in need), f"{mode}: {launches}"
+            del seq, roll
+        assert out["sign_tier"]["sign_readout_ticks"] > 0, "no slot reached the sign tier"
+        # two engines issued before either result is fetched, against two
+        # served one after the other
+        pair = [make_engine("staged") for _ in range(4)]
+        for e in pair:
+            admit_all(e, "staged")
+        for t in range(2):
+            f1, f2 = roll_frames("staged", t, roll_ids), roll_frames("staged", t + 7, roll_ids)
+            h1, h2 = pair[0].step(f1, block=False), pair[1].step(f2, block=False)
+            o1, o2 = h1.result(), h2.result()
+            same_outputs([pair[2].step(f1), pair[3].step(f2)], [o1, o2], f"overlap tick {t}")
+        del pair
+        out["staging_waits"] = waits
+        report["d_rollout"] = out
+        print(json.dumps({"d_rollout": out}))
+
+    # ---- (e) ticks per second: step, rollouts, the async return, ingest ----
+    @phase("e_async_times")
+    def _e():
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        out = {}
+        for mode in ("staged", "gated"):
+            eng = make_engine(mode)
+            admit_all(eng, mode)
+
+            def frames_at(t):
+                return roll_frames(mode, t, roll_ids)
+
+            for t in range(3):
+                eng.step(frames_at(t))
+            torch.cuda.synchronize()
+            n = 10
+            t0 = time.perf_counter()
+            for t in range(n):
+                eng.step(frames_at(t))
+            step_s = (time.perf_counter() - t0) / n
+            ret, tick = [], []
+            for t in range(n):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                h = eng.step(frames_at(t), block=False)
+                t1 = time.perf_counter()
+                h.result()
+                ret.append((t1 - t0) * 1e3)
+                tick.append((time.perf_counter() - t0) * 1e3)
+            rollout = {}
+            for t_len in (1, 4, 16, 64):
+                ticks = [frames_at(t) for t in range(t_len)]
+                eng.step_rollout(ticks)                      # staging allocated
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                h = eng.step_rollout(ticks, block=False)
+                t1 = time.perf_counter()
+                h.result()
+                dt = time.perf_counter() - t0
+                rollout[t_len] = {"ticks_per_s": t_len / dt, "ms_per_tick": dt * 1e3 / t_len,
+                                  "host_return_ms": (t1 - t0) * 1e3}
+            ticks = [frames_at(t) for t in range(16)]
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                eng.step_rollout(ticks)
+                wall_us = (time.perf_counter() - t0) * 1e6
+            spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                           if e.device_type == DeviceType.CUDA)
+            busy, cur = 0.0, None
+            for a, b in spans:                         # union of device intervals
+                if cur is None or a > cur[1]:
+                    if cur is not None:
+                        busy += cur[1] - cur[0]
+                    cur = [a, b]
+                else:
+                    cur[1] = max(cur[1], b)
+            if cur is not None:
+                busy += cur[1] - cur[0]
+            out[mode] = {
+                "step_ticks_per_s": 1.0 / step_s, "step_ms": step_s * 1e3,
+                "step_nonblocking_return_ms": float(np.median(ret)),
+                "step_nonblocking_tick_ms": float(np.median(tick)),
+                "rollout": rollout,
+                "rollout16_device_busy_ms": busy / 1e3, "rollout16_wall_ms": wall_us / 1e3,
+                "rollout16_device_busy_share": busy / wall_us if spans else None,
+                "rollout16_device_events": len(spans),
+            }
+            del eng
+        # the 64 fed frames (50 MB) alone: pageable against page-locked
+        host = np.ascontiguousarray(np.stack([scene_pool[i % len(scene_pool)]
+                                              for i in range(CAPACITY)]))
+        src = torch.from_numpy(host)
+        pinned = src.pin_memory()
+        copies = {}
+        for name, fn in (("pageable", lambda: src.to(dev)),
+                         ("pinned", lambda: pinned.to(dev, non_blocking=True))):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(10):
+                fn()
+            torch.cuda.synchronize()
+            copies[name] = {"ms": (time.perf_counter() - t0) * 1e2, "bytes": host.nbytes}
+            copies[name]["gb_per_s"] = host.nbytes / copies[name]["ms"] / 1e6
+        out["frame_copy_64"] = copies
+        # what the staging holds: the per-T pinned rows of one engine
+        row_bytes = fcfg.image_h * fcfg.image_w * 3 * 4
+        out["staging_bytes"] = {"step_pinned": 2 * CAPACITY * row_bytes,
+                                "rollout_T64_pinned": 64 * CAPACITY * row_bytes,
+                                "rollout_T64_device_rows": 64 * CAPACITY * row_bytes}
+        report["async_times"] = out
+        print(json.dumps({"async_times": out}))
+
+    @phase("e_delta_skip_cost")
+    def _e2():
+        out = {}
+        # what the delta backend's device-side skip costs: a fully cached
+        # frame at 64 slots now runs the encoder and selects the cache
+        eng = make_engine("gated")
+        admit_all(eng, "gated")
+        for t in range(2):
+            eng.step(roll_frames("gated", 0, roll_ids))
+        bc = eng.state.bcache
+        scale, zero = fe.feature_scale_zero(params["ip2"], fcfg_g)
+        cf = fe.CompactFeatures(bc.feats, bc.indices, bc.tvalid,
+                                torch.zeros((CAPACITY, fcfg_g.n_patches), device=dev),
+                                scale, zero, bc.gain)
+        eps = torch.zeros(CAPACITY, device=dev)
+
+        def delta(cf_):
+            return bdel.delta_forward(params, cfg_g, cf_, lambda: vit_mod._embed_tokens(
+                params, cf_, cfg_g) + params["pos"][cf_.indices.long()], bc, eps)
+
+        changed = cf._replace(gain=torch.where(torch.arange(k_tok, device=dev) == 0,
+                                               bc.gain * 0.5, bc.gain))
+        macs = {n: float(delta(c)[3].sum()) for n, c in (("cached", cf), ("computed", changed))}
+        assert macs["cached"] == 0.0 and macs["computed"] > 0.0, macs
+        out["delta_forward_64_slots"] = {
+            n: {"device_ms": _device_ms(lambda c=c: delta(c)),
+                "ms": _time_ms(lambda c=c: delta(c))}
+            for n, c in (("cached", cf), ("computed", changed))}
+        del eng
+        report["delta_skip_cost"] = out
+        print(json.dumps({"delta_skip_cost": out}))
 
     report["kernels"] = [kernels.get(n, {"name": n}) for n in KERNELS]
     keys = ("name", "route", "source", "symbol", "replaces", "redesigned", "launches",

@@ -1,4 +1,5 @@
-"""Arithmetic helpers that keep the reference's float32 rounding."""
+"""Arithmetic helpers that keep the reference's float32 rounding, and
+device constants made without a host-to-device copy."""
 
 from __future__ import annotations
 
@@ -11,5 +12,24 @@ def div(x: torch.Tensor, c: float) -> torch.Tensor:
     On CUDA, PyTorch turns a division by a Python scalar into a
     multiplication by its reciprocal, which rounds differently (and moves
     PWM levels and ADC codes at their boundaries). Dividing by a 0-dim
-    tensor on the same device keeps the IEEE division on every device."""
-    return x / torch.tensor(c, dtype=x.dtype, device=x.device)
+    tensor on the same device keeps the IEEE division on every device; the
+    divisor is filled on that device, so no host-to-device copy (and no
+    host sync) is made."""
+    return x / torch.full((), c, dtype=x.dtype, device=x.device)
+
+
+_VECTORS: dict = {}
+
+
+def const_vector(values, dtype: torch.dtype, device) -> torch.Tensor:
+    """A 1-D tensor of Python numbers on ``device``, filled there element by
+    element (no host-to-device copy, so no host sync) and cached per
+    (values, dtype, device). Shared: callers never write into it."""
+    key = (tuple(values), dtype, torch.device(device))
+    out = _VECTORS.get(key)
+    if out is None:
+        with torch.inference_mode(False):  # usable outside inference mode too
+            out = torch.stack([torch.full((), v, dtype=dtype, device=device)
+                               for v in values])
+        _VECTORS[key] = out
+    return out

@@ -58,14 +58,16 @@ def readout_scale_zero(
     v_ref: float, bias: torch.Tensor | float = 0.0, spec: ADCSpec = ADCSpec()
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The static ``(scale, zero)`` metadata of the code wire for a given
-    reference and bias. Each constant is rounded to float32 once."""
+    reference and bias. Each constant is rounded to float32 once, filled
+    on the bias's device (no host-to-device copy)."""
     half = spec.levels // 2
     dev = bias.device if isinstance(bias, torch.Tensor) else None
-    scale = torch.tensor(spec.lsb, dtype=torch.float32, device=dev)
-    zero = torch.tensor(spec.v_min + half * spec.lsb - v_ref,
-                        dtype=torch.float32, device=dev) + torch.as_tensor(
-        bias, dtype=torch.float32, device=dev)
-    return scale, zero
+    scale = torch.full((), spec.lsb, dtype=torch.float32, device=dev)
+    zero = torch.full((), spec.v_min + half * spec.lsb - v_ref, dtype=torch.float32,
+                      device=dev)
+    if isinstance(bias, torch.Tensor):
+        return scale, zero + bias.to(torch.float32)
+    return scale, zero + torch.full((), bias, dtype=torch.float32, device=dev)
 
 
 def dequantize(codes: torch.Tensor, scale: torch.Tensor, zero: torch.Tensor) -> torch.Tensor:
@@ -76,6 +78,29 @@ def dequantize(codes: torch.Tensor, scale: torch.Tensor, zero: torch.Tensor) -> 
 def sign_encode(out_v: torch.Tensor, v_ref: float) -> torch.Tensor:
     """The ADC-less comparator: one bit per vector, ``out_v >= V_R``."""
     return out_v >= v_ref
+
+
+#: reconstruction magnitude of a sign-only readout (the event meter's
+#: mean-signal calibration)
+SIGN_V_MAG = 0.1
+
+
+def sign_code_points(v_ref: float, spec: ADCSpec = ADCSpec(),
+                     v_mag: float = SIGN_V_MAG) -> tuple[int, int, int]:
+    """The sign readout on the code grid: ``c' = c_pos if c >= c_thresh
+    else c_neg``. ``c_thresh`` is the code of the comparator boundary
+    ``out_v == V_R``; ``c_pos`` / ``c_neg`` dequantize through the wire's
+    own ``(scale, zero)`` to ``±v_mag + bias``. Python ints, independent of
+    the bias (the governor's sign tier applies them as data)."""
+    half = spec.levels // 2
+    lo, hi = -half, spec.levels - 1 - half
+    v_r = min(max(v_ref, spec.v_min), spec.v_max)
+    c_thresh = round((v_r - spec.v_min) / spec.lsb) - half
+    # code*lsb + (v_min + half*lsb - v_ref) = ±v_mag  (the bias cancels)
+    off = spec.v_min + half * spec.lsb - v_ref
+    c_pos = min(max(round((v_mag - off) / spec.lsb), lo), hi)
+    c_neg = min(max(round((-v_mag - off) / spec.lsb), lo), hi)
+    return c_thresh, c_pos, c_neg
 
 
 def digital_readout(

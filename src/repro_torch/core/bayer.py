@@ -14,16 +14,13 @@ import torch.nn.functional as F
 
 from repro_torch._arith import div
 
-# RGGB unit cell: channel index at (row%2, col%2)
-_BAYER_RGGB = ((0, 1), (1, 2))  # R G / G B
-
-
 def bayer_channel_map(h: int, w: int, device=None) -> torch.Tensor:
-    """(H, W) int64 colour-channel index of each pixel site."""
+    """(H, W) int64 colour-channel index of each pixel site. The RGGB unit
+    cell (R G / G B: channels 0 1 / 1 2) is ``row % 2 + col % 2``, computed
+    on the device."""
     rows = torch.arange(h, device=device)[:, None] % 2
     cols = torch.arange(w, device=device)[None, :] % 2
-    cell = torch.tensor(_BAYER_RGGB, dtype=torch.int64, device=device)
-    return cell[rows, cols]
+    return rows + cols
 
 
 def mosaic(rgb: torch.Tensor) -> torch.Tensor:

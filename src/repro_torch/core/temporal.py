@@ -170,7 +170,7 @@ def held_gain(cache: FeatureCache, indices: torch.Tensor, summer) -> torch.Tenso
     """Per-served-row droop multiplier ``d^age`` (0 on never-computed
     entries), with ``d`` rounded to float32 once as the reference does."""
     age = take_rows(cache.age, indices).to(torch.float32)
-    d = torch.tensor(summer.droop_factor(), dtype=torch.float32, device=age.device)
+    d = torch.full((), summer.droop_factor(), dtype=torch.float32, device=age.device)
     return torch.pow(d, age) * take_rows(cache.valid, indices).to(torch.float32)
 
 

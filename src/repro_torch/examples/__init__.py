@@ -1,0 +1,1 @@
+"""Runnable demonstrations of the port (``python -m repro_torch.examples.<name>``)."""

@@ -6,8 +6,10 @@
 //   codes[p, :] = ADC(project(patches[row, :]))        (bias 0)
 //   out[s*k+p, d] = (float(codes[p, :] @ w8[:, d]) * s_a) * s_w[d]
 // and rows at or past the slot's count are 0. Codes of up to 8 bits are
-// int8; those of a 9- to 16-bit ADC take the split int16 path of
-// qmm_tile.cuh. The codes never leave the chip.
+// int8; those of a 9- to 16-bit ADC are split into 2 byte planes, of a 17-
+// to 32-bit ADC into 4 (qmm_tile.cuh), so the embed sums are the
+// reference's int32 sums modulo 2^32 at every M. The codes never leave the
+// chip.
 //
 // What bounds it here: the projection's fp32 work (2·R·K·M) dominates, so
 // fp32 operations bound it, as for ip2_project (0.006 ms at R = 1024, K =
@@ -17,7 +19,7 @@
 //
 // Bitwise contract: the projection is ip2_tile.cuh's pipelined tile, one
 // fmaf chain from 0.0f in k order per output, with ip2_project's epilogue;
-// the embed sums are exact int32 in any order; the store is
+// the embed sums are int32 modulo 2^32, which no order changes; the store is
 // ip2::qmm_epilogue. So the result equals ip2_project -> quant_matmul bit
 // for bit at any shape.
 //
@@ -32,7 +34,7 @@
 //   block q projects slices q, q + 8, ... with project_tile_pipelined and
 //   writes their ADC codes into its own copy of the bank's code tile in
 //   shared memory (zero for dead rows and columns past M), laid out as
-//   int8 A stages of 64 k (one plane, or a high- and a low-byte plane).
+//   int8 A stages of 64 k (one plane per code byte: 1, 2 or 4).
 //   At the serving shape that is 16 clusters of 6 blocks, placed one block
 //   per SM on 96 SMs. (With 48-row banks, ip2_project's tile, 22 clusters
 //   of 6 would fill 132 SMs, but the card fits only 20 such clusters at one
@@ -80,8 +82,10 @@ static_assert(qmm::kBK % T::BM == 0 && T::BM % 16 == 0,
 constexpr int kSliceChunks = T::BM / 16;
 
 // Dynamic shared memory: the projection ring (later the k halves' partial
-// sums), the w8 ring, and the bank's code tile (planes of ceil(M / 64) A
-// stages of 16 kRG rows x 64 k).
+// sums), the w8 ring, and the bank's code tile (np planes of ceil(M / 64)
+// A stages of 16 kRG rows x 64 k). That tile bounds M: the whole bank's
+// codes must fit one block's shared memory (M <= 2496 for int8 codes, 1216
+// for int16, 576 for int32).
 constexpr int kProjBytes = T::SMEM_FLOATS * 4;
 constexpr int kWRingBytes = kNW * qmm::kWStage;
 constexpr int kXchBytes = 2 * kRG * 16 * 32 * 4;  // 2 warps, 16 kRG sums, 32 lanes
@@ -91,8 +95,8 @@ __host__ __device__ __forceinline__ int plane_bytes(int M) {
   return (M + qmm::kBK - 1) / qmm::kBK * kCodeBlock;
 }
 
-__host__ __forceinline__ size_t smem_bytes(int M, bool wide) {
-  return (size_t)kProjBytes + kWRingBytes + (wide ? 2 : 1) * (size_t)plane_bytes(M);
+__host__ __forceinline__ size_t smem_bytes(int M, int np) {
+  return (size_t)kProjBytes + kWRingBytes + np * (size_t)plane_bytes(M);
 }
 
 __host__ __forceinline__ int cluster_size(int M) {
@@ -126,8 +130,8 @@ struct Args {
 };
 
 // VEC: the projection's copy width (ip2::vec4_ok); VW: the w8 copy width;
-// WIDE: int16 codes in two planes.
-template <int VEC, int VW, bool WIDE>
+// NP: the code planes (1 for int8 codes, 2 for int16, 4 for int32).
+template <int VEC, int VW, int NP>
 __global__ void __launch_bounds__(T::NT, 1)
 ip2_fused_embed_kernel(const Args p, const ip2::Epilogue e) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -184,18 +188,19 @@ ip2_fused_embed_kernel(const Args p, const ip2::Epilogue e) {
 #pragma unroll
     for (int i = 0; i < T::TR; ++i) {
       const int r = tr * T::TR + i;
-      unsigned hi = 0, lo = 0;
+      unsigned pb[NP] = {};  // plane q holds byte NP - 1 - q of each code
 #pragma unroll
       for (int j = 0; j < T::TM; ++j) {
         const int c = rows[r] >= 0 && m + j < p.M
                           ? __float2int_rn(ip2::adc_code(ip2::analog_out(acc[i][j], e), e))
                           : 0;
-        hi |= (unsigned)((WIDE ? c >> 8 : c) & 0xFF) << (8 * j);
-        lo |= (unsigned)(c & 0xFF) << (8 * j);
+#pragma unroll
+        for (int q = 0; q < NP; ++q)
+          pb[q] |= ((static_cast<unsigned>(c) >> (8 * (NP - 1 - q))) & 0xFF) << (8 * j);
       }
       const int o = (m / qmm::kBK) * kCodeBlock + qmm::swz_a(r * qmm::kBK + m % qmm::kBK);
-      *reinterpret_cast<unsigned*>(codes + o) = hi;
-      if constexpr (WIDE) *reinterpret_cast<unsigned*>(codes + plane + o) = lo;
+#pragma unroll
+      for (int q = 0; q < NP; ++q) *reinterpret_cast<unsigned*>(codes + q * plane + o) = pb[q];
     }
     __syncthreads();  // the codes are written; the ring is free for the next slice
   }
@@ -205,7 +210,7 @@ ip2_fused_embed_kernel(const Args p, const ip2::Epilogue e) {
   // 64-byte row)
   cluster_wait();
   cg::cluster_group cluster = cg::this_cluster();
-  constexpr int kChunks = (WIDE ? 2 : 1) * kBankRows * kSliceChunks;  // per slice
+  constexpr int kChunks = NP * kBankRows * kSliceChunks;  // per slice
   for (int sl = rank; sl < n_slices; sl += p.cs) {
     for (int t = tid; t < kChunks; t += T::NT) {
       const int pl = t / (kSliceChunks * kBankRows), r = t / kSliceChunks % kBankRows;
@@ -221,7 +226,7 @@ ip2_fused_embed_kernel(const Args p, const ip2::Epilogue e) {
   cluster_wait();  // the whole bank's codes are in every block of the cluster
 
   // the embed: tiles rank, rank + cs, ... of the bank's rows x 64 columns
-  int* xch = reinterpret_cast<int*>(smem);  // over the projection ring
+  unsigned* xch = reinterpret_cast<unsigned*>(smem);  // over the projection ring
   const int wc = (warp & 1) * 32, kk = (warp >> 1) * 32;
   const int g = lane >> 2, t4 = lane & 3;
   for (int tile = rank; tile < n_tiles; tile += p.cs) {
@@ -230,7 +235,7 @@ ip2_fused_embed_kernel(const Args p, const ip2::Epilogue e) {
       __syncthreads();  // the last tile's ring stages and partial sums are consumed
       load_w_prologue(n0);
     }
-    int acc[kRG][4][4] = {}, acc_l[kRG][4][4] = {};
+    unsigned acc[kRG][4][4] = {};
     for (int s = 0; s < nkw; ++s) {
       qmm::wait<kNW - 2>();  // this thread's copies of stage s have landed
       __syncthreads();       // everyone's have, and stage s - 1 is consumed
@@ -243,14 +248,10 @@ ip2_fused_embed_kernel(const Args p, const ip2::Epilogue e) {
       const int8_t* ah = codes + s * kCodeBlock;
 #pragma unroll
       for (int rg = 0; rg < kRG; ++rg)
-        qmm::mma_k32<WIDE>(ah, ah + plane, rg * 16, kk, lo, hi, acc[rg], acc_l[rg]);
-    }
-    if constexpr (WIDE) {
-#pragma unroll
-      for (int rg = 0; rg < kRG; ++rg) qmm::combine(acc[rg], acc_l[rg]);
+        qmm::mma_k32<NP>(ah, plane, rg * 16, kk, lo, hi, acc[rg]);
     }
     // the k halves: warps 2 and 3 hand their sums to warps 0 and 1
-    int* x = xch + (warp & 1) * kRG * 16 * 32 + lane;
+    unsigned* x = xch + (warp & 1) * kRG * 16 * 32 + lane;
     if (warp >= 2) {
 #pragma unroll
       for (int rg = 0; rg < kRG; ++rg)
@@ -283,10 +284,10 @@ ip2_fused_embed_kernel(const Args p, const ip2::Epilogue e) {
   }
 }
 
-template <int VEC, int VW, bool WIDE>
+template <int VEC, int VW, int NP>
 cudaError_t launch(const Args& a, const ip2::Epilogue& e, size_t smem, long long n_banks,
                    cudaStream_t stream) {
-  const auto kernel = ip2_fused_embed_kernel<VEC, VW, WIDE>;
+  const auto kernel = ip2_fused_embed_kernel<VEC, VW, NP>;
   if (smem > 48 * 1024) {
     const cudaError_t rc =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -307,17 +308,27 @@ cudaError_t launch(const Args& a, const ip2::Epilogue& e, size_t smem, long long
   return cudaLaunchKernelEx(&cfg, kernel, a, e);
 }
 
-template <int VEC, bool WIDE>
+template <int VEC, int NP>
 cudaError_t launch_w(int vw, const Args& a, const ip2::Epilogue& e, size_t smem,
                      long long n_banks, cudaStream_t stream) {
-  if (vw == 16) return launch<VEC, 16, WIDE>(a, e, smem, n_banks, stream);
-  if (vw == 4) return launch<VEC, 4, WIDE>(a, e, smem, n_banks, stream);
-  return launch<VEC, 1, WIDE>(a, e, smem, n_banks, stream);
+  if (vw == 16) return launch<VEC, 16, NP>(a, e, smem, n_banks, stream);
+  if (vw == 4) return launch<VEC, 4, NP>(a, e, smem, n_banks, stream);
+  return launch<VEC, 1, NP>(a, e, smem, n_banks, stream);
 }
 
-// 1 for int8 codes, 2 for int16, 0 for an ADC wider than 16 bits
+template <int NP>
+cudaError_t launch_v(bool vec, int vw, const Args& a, const ip2::Epilogue& e, size_t smem,
+                     long long n_banks, cudaStream_t stream) {
+  return vec ? launch_w<4, NP>(vw, a, e, smem, n_banks, stream)
+             : launch_w<1, NP>(vw, a, e, smem, n_banks, stream);
+}
+
+// 1 for int8 codes, 2 for int16, 4 for int32, 0 for an ADC wider than 32 bits
 __host__ int code_bytes(const ip2::Epilogue& e) {
-  return e.adc_half <= 128.0f ? 1 : e.adc_half <= 32768.0f ? 2 : 0;
+  return e.adc_half <= 128.0f     ? 1
+         : e.adc_half <= 32768.0f ? 2
+         : e.adc_half <= 2147483648.0f ? 4
+                                       : 0;
 }
 
 }  // namespace
@@ -325,10 +336,9 @@ __host__ int code_bytes(const ip2::Epilogue& e) {
 // patches (rows, K) f32, table (S * k,) i32 dense row indices, counts (S,)
 // i32, w (K, M) f32 on the DAC grid, w8 (M, D) int8, s_w (D,) f32, s_a the
 // ADC LSB -> out (S * k, D) f32. The epilogue must be in code mode; the
-// code width (int8 up to 8 bits, int16 up to 16) follows its ADC. Returns
-// cudaGetLastError(), or cudaErrorInvalidValue for an ADC wider than 16
-// bits, an M above the exact-sum bound of its code width (qmm::max_k) or
-// a code tile beyond a block's shared memory.
+// code width (int8 up to 8 bits, int16 up to 16, int32 up to 32) follows
+// its ADC. Returns cudaGetLastError(), or cudaErrorInvalidValue for an ADC
+// wider than 32 bits or a code tile beyond a block's shared memory.
 extern "C" int ip2_fused_embed_launch(const float* patches, const int* table,
                                       const int* counts, int S, int k, int K,
                                       const float* w, int M, const int8_t* w8,
@@ -337,9 +347,8 @@ extern "C" int ip2_fused_embed_launch(const float* patches, const int* table,
                                       void* stream) {
   const int cb = code_bytes(*e);
   if (e->mode != ip2::kCodes || cb == 0) return (int)cudaErrorInvalidValue;
-  if (S < 0 || k < 0 || K < 0 || M < 0 || D < 0 || M > qmm::max_k(cb))
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(M, cb == 2);
+  if (S < 0 || k < 0 || K < 0 || M < 0 || D < 0) return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(M, cb);
   if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
   const long long R = (long long)S * k;
   if (R == 0 || D == 0) return (int)cudaGetLastError();
@@ -349,13 +358,9 @@ extern "C" int ip2_fused_embed_launch(const float* patches, const int* table,
   const int vw = qmm::copy_bytes(w8, D);
   const cudaStream_t st = (cudaStream_t)stream;
   const bool vec = ip2::vec4_ok(patches, w, K, M);
-  cudaError_t rc;
-  if (cb == 2)
-    rc = vec ? launch_w<4, true>(vw, a, *e, smem, n_banks, st)
-             : launch_w<1, true>(vw, a, *e, smem, n_banks, st);
-  else
-    rc = vec ? launch_w<4, false>(vw, a, *e, smem, n_banks, st)
-             : launch_w<1, false>(vw, a, *e, smem, n_banks, st);
+  const cudaError_t rc = cb == 4   ? launch_v<4>(vec, vw, a, *e, smem, n_banks, st)
+                        : cb == 2 ? launch_v<2>(vec, vw, a, *e, smem, n_banks, st)
+                                  : launch_v<1>(vec, vw, a, *e, smem, n_banks, st);
   const cudaError_t last = cudaGetLastError();
   return (int)(rc != cudaSuccess ? rc : last);
 }
@@ -365,11 +370,12 @@ extern "C" int ip2_fused_embed_launch(const float* patches, const int* table,
 // shared memory per block in bytes, out[2] resident blocks per SM, out[3]
 // clusters resident at once on the device. Returns a cudaError_t.
 extern "C" int ip2_fused_embed_occupancy(int M, int code_bytes_, int* out) {
-  if ((code_bytes_ != 1 && code_bytes_ != 2) || M < 0) return (int)cudaErrorInvalidValue;
-  const bool wide = code_bytes_ == 2;
-  const size_t smem = smem_bytes(M, wide);
-  const auto kernel = wide ? ip2_fused_embed_kernel<4, 16, true>
-                           : ip2_fused_embed_kernel<4, 16, false>;
+  if ((code_bytes_ != 1 && code_bytes_ != 2 && code_bytes_ != 4) || M < 0)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(M, code_bytes_);
+  const auto kernel = code_bytes_ == 4   ? ip2_fused_embed_kernel<4, 16, 4>
+                      : code_bytes_ == 2 ? ip2_fused_embed_kernel<4, 16, 2>
+                                         : ip2_fused_embed_kernel<4, 16, 1>;
   cudaError_t rc = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                         (int)smem);
   if (rc != cudaSuccess) return (int)rc;

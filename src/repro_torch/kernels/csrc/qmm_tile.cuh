@@ -1,17 +1,21 @@
 // The int8 tensor-core tile of quant_matmul.cu and ip2_fused_embed.cu:
 //
-//   acc[r][c] = sum_k a[r, k] * w8[k, c]     (int32, exact)
+//   acc[r][c] = sum_k a[r, k] * w8[k, c]     (int32, modulo 2^32)
 //
 // Hopper's warp-level int8 MMA (mma.sync m16n8k32 .s8.s8.s32) from shared
-// memory. Integer sums are exact in any order below the bounds below, so
-// any tiling, k order or k permutation gives the same bits as the
-// reference's int32 sum.
+// memory. The reference sums in int32, which wraps modulo 2^32; a sum
+// modulo 2^32 does not depend on its order, so any tiling, k order or k
+// permutation gives the reference's bits, wrapped or not.
 //
-// Codes wider than 8 bits (an ADC of 9 to 16 bits stores int16 codes) are
-// split c = 256 h + l into a signed high byte h = c >> 8 and an unsigned
-// low byte l = c & 0xFF, each in its own A plane of the same layout; two
-// MMAs (.s8.s8 on h, .u8.s8 on l) give acc = 256 (h . w) + (l . w), the
-// int32 sum bit for bit.
+// Codes wider than 8 bits are split into NP byte planes as they are
+// staged: c = sum_p b_p 256^(NP-1-p) with the top byte b_0 signed and the
+// others unsigned (an ADC of 9 to 16 bits stores int16 codes, NP = 2; of 17
+// to 32 bits int32 codes, NP = 4). Each plane is an A operand of the same
+// layout. Every MMA starts from a zero accumulator and covers 32 k, so its
+// int32 sum is exact (|sum| <= 32 * 255 * 128); the plane sums are shifted
+// and added into the tile's accumulator in uint32, which wraps modulo 2^32
+// by definition. So the result is the reference's wrapped int32 sum bit
+// for bit at every K, with no reliance on how the MMA treats an overflow.
 //
 // Layout:
 // - A quant_matmul block owns kBR rows x kBN columns; its four warps own
@@ -21,7 +25,8 @@
 //   filled with cp.async 16-byte copies where K (for A) or N (for W) is a
 //   multiple of 16 and the base is 16-byte aligned, 4-byte copies where
 //   both are multiples of 4, and plain byte loads otherwise; int16 codes go
-//   through registers (8, 2 or 1 codes a load), where they are split.
+//   and int32 codes go through registers (int16: 8, 2 or 1 codes a load;
+//   int32: 4 or 1), where they are split into their planes.
 //   Everything past R, N and K is zero-filled.
 // - The A fragment (16 rows x 32 k) is four 4-byte shared loads per lane.
 // - The B fragment wants 4 consecutive k of one column per register, and W
@@ -49,15 +54,8 @@ constexpr int kNS = 3;         // stages in the ring (K = 192: all of K at once)
 constexpr int kThreads = 128;  // 4 warps, 2 (rows) x 2 (columns) of 16 x 32
 constexpr int kAStage = kBR * kBK;  // bytes per plane
 constexpr int kWStage = kBK * kBN;
-constexpr int kMaxK = 131071;  // int8 codes: K * 128 * 128 < 2^31
-constexpr int kMaxK16 = 511;   // int16 codes: K * 32768 * 128 < 2^31
 static_assert(kBK == 64 && kBN == 64, "the swizzles assume 64-byte stage rows");
 static_assert(kBR == 32 && kThreads == 128, "2 x 2 warps of 16 x 32");
-
-// The largest K whose int32 sums are exact for codes of code_bytes (1 or 2).
-__host__ __forceinline__ int max_k(int code_bytes) {
-  return code_bytes == 1 ? kMaxK : kMaxK16;
-}
 
 // Byte offset of A (r, k) in a stage: rows of 64 bytes; the 16-byte chunk
 // index is XORed with bits 1-2 of the row, so the 8 rows a fragment load
@@ -151,6 +149,36 @@ __device__ __forceinline__ void load_a16(int8_t* ah, int8_t* al,
   }
 }
 
+// The same for int32 codes, V of them a load (4: 16 bytes, or 1), split
+// into four planes kAStage bytes apart: plane p holds byte 3 - p.
+template <int V>
+__device__ __forceinline__ void load_a32(int8_t* a, const int32_t* __restrict__ a32, int R,
+                                         int K, int r0, int k0) {
+  constexpr int PER_ROW = kBK / V, COUNT = kBR * PER_ROW;
+  static_assert(COUNT % kThreads == 0, "whole passes");
+#pragma unroll
+  for (int i = 0; i < COUNT / kThreads; ++i) {
+    const int t = i * kThreads + threadIdx.x;
+    const int r = t / PER_ROW, k = (t % PER_ROW) * V;
+    const bool ok = r0 + r < R && k0 + k < K;
+    const int32_t* src = a32 + (long long)(r0 + r) * K + k0 + k;
+    const int o = swz_a(r * kBK + k);
+    if constexpr (V == 4) {  // four codes; byte b of each, in code order
+      const uint4 v = ok ? *reinterpret_cast<const uint4*>(src) : make_uint4(0, 0, 0, 0);
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        const unsigned sel = (3 - p) | ((7 - p) << 4);
+        *reinterpret_cast<unsigned*>(a + p * kAStage + o) =
+            __byte_perm(__byte_perm(v.x, v.y, sel), __byte_perm(v.z, v.w, sel), 0x5410);
+      }
+    } else {
+      const unsigned c = ok ? static_cast<unsigned>(*src) : 0u;
+#pragma unroll
+      for (int p = 0; p < 4; ++p) a[p * kAStage + o] = (int8_t)(c >> (8 * (3 - p)));
+    }
+  }
+}
+
 // Stage rows k0 .. k0 + kBK - 1, columns n0 .. n0 + kBN - 1 of w8 (K x N).
 template <int V>
 __device__ __forceinline__ void load_w(int8_t* ws, const int8_t* __restrict__ w8,
@@ -183,23 +211,24 @@ __device__ __forceinline__ void transpose4x4(unsigned (&w)[4]) {
   w[3] = __byte_perm(t1, t3, 0x7632);
 }
 
-// d += a (16 x 32, row) * b (32 x 8, col), int32 sums; a signed (.s8) or
-// unsigned (.u8) bytes, b signed
+// d = a (16 x 32, row) * b (32 x 8, col), int32 sums from a zero
+// accumulator; a signed (.s8) or unsigned (.u8) bytes, b signed
 template <bool A_SIGNED>
 __device__ __forceinline__ void mma(int (&d)[4], const unsigned (&a)[4], unsigned b0,
                                     unsigned b1) {
+  const int z = 0;
   if constexpr (A_SIGNED)
     asm volatile(
         "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+        : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "r"(z));
   else
     asm volatile(
         "mma.sync.aligned.m16n8k32.row.col.s32.u8.s8.s32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+        : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "r"(z));
 }
 
 // The A fragment of rows wr .. wr + 15, stage columns kk .. kk + 31.
@@ -226,47 +255,41 @@ __device__ __forceinline__ void load_b_frag(const int8_t* ws, int wc, int kk,
   transpose4x4(hi);
 }
 
-// 32 k of one warp's 16 x 32 outputs from a loaded B fragment: the codes'
-// (high-byte) plane ah into acc, and with WIDE the low-byte plane al into
-// acc_l.
-template <bool WIDE>
-__device__ __forceinline__ void mma_k32(const int8_t* ah, const int8_t* al, int wr, int kk,
+// 32 k of one warp's 16 x 32 outputs from a loaded B fragment, over the
+// NP code planes at a, a + plane, ...: each plane's exact sums, shifted to
+// its byte, are added into acc modulo 2^32.
+template <int NP>
+__device__ __forceinline__ void mma_k32(const int8_t* a, int plane, int wr, int kk,
                                         const unsigned (&lo)[4], const unsigned (&hi)[4],
-                                        int (&acc)[4][4], int (&acc_l)[4][4]) {
-  unsigned a[4];
-  load_a_frag(ah, wr, kk, a);
+                                        unsigned (&acc)[4][4]) {
 #pragma unroll
-  for (int j = 0; j < 4; ++j) mma<true>(acc[j], a, lo[j], hi[j]);
-  if constexpr (WIDE) {
-    load_a_frag(al, wr, kk, a);
+  for (int p = 0; p < NP; ++p) {
+    unsigned af[4];
+    load_a_frag(a + p * plane, wr, kk, af);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) mma<false>(acc_l[j], a, lo[j], hi[j]);
+    for (int j = 0; j < 4; ++j) {
+      int d[4];
+      if (p == 0) mma<true>(d, af, lo[j], hi[j]);
+      else mma<false>(d, af, lo[j], hi[j]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        acc[j][i] += static_cast<unsigned>(d[i]) << (8 * (NP - 1 - p));
+    }
   }
 }
 
 // One warp's 16 x 32 outputs (rows wr.., stage columns wc..) over one
 // stage. acc[j] is the m16n8 tile j, whose local column c is the stage
 // column wc + 4 c + j.
-template <bool WIDE>
-__device__ __forceinline__ void mma_stage(const int8_t* ah, const int8_t* al, const int8_t* ws,
-                                          int wr, int wc, int (&acc)[4][4],
-                                          int (&acc_l)[4][4]) {
+template <int NP>
+__device__ __forceinline__ void mma_stage(const int8_t* a, int plane, const int8_t* ws, int wr,
+                                          int wc, unsigned (&acc)[4][4]) {
 #pragma unroll
   for (int kk = 0; kk < kBK; kk += 32) {
     unsigned lo[4], hi[4];
     load_b_frag(ws, wc, kk, lo, hi);
-    mma_k32<WIDE>(ah, al, wr, kk, lo, hi, acc, acc_l);
+    mma_k32<NP>(a, plane, wr, kk, lo, hi, acc);
   }
-}
-
-// acc = 256 acc + acc_l, the int16 codes' sum (exact below kMaxK16; the
-// unsigned arithmetic only keeps the expression free of signed overflow).
-__device__ __forceinline__ void combine(int (&acc)[4][4], const int (&acc_l)[4][4]) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      acc[j][i] = (int)((unsigned)acc[j][i] * 256u + (unsigned)acc_l[j][i]);
 }
 
 // The epilogue of one warp's 16 x 32 tile: acc[j][2h + e] is row g + 8h,
@@ -274,7 +297,7 @@ __device__ __forceinline__ void combine(int (&acc)[4][4], const int (&acc_l)[4][
 // 8t), so each lane holds 8 adjacent columns of two rows. For h = 0, 1,
 // o[h] points at (row, c) in the output, or is null for a row that is not
 // stored; a row with live[h] false is stored as 0.
-__device__ __forceinline__ void store_warp(const int (&acc)[4][4], float* const (&o)[2],
+__device__ __forceinline__ void store_warp(const unsigned (&acc)[4][4], float* const (&o)[2],
                                            const float (&sa)[2], const bool (&live)[2],
                                            const float* __restrict__ s_w, int c, int N,
                                            bool vec_out) {
@@ -287,8 +310,8 @@ __device__ __forceinline__ void store_warp(const int (&acc)[4][4], float* const 
     float v[8];
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      v[j] = live[h] ? qmm_epilogue(acc[j][2 * h], sa[h], sw[j]) : 0.0f;
-      v[4 + j] = live[h] ? qmm_epilogue(acc[j][2 * h + 1], sa[h], sw[4 + j]) : 0.0f;
+      v[j] = live[h] ? qmm_epilogue((int)acc[j][2 * h], sa[h], sw[j]) : 0.0f;
+      v[4 + j] = live[h] ? qmm_epilogue((int)acc[j][2 * h + 1], sa[h], sw[4 + j]) : 0.0f;
     }
     if (vec_out) {
       if (c < N) *reinterpret_cast<float4*>(o[h]) = make_float4(v[0], v[1], v[2], v[3]);

@@ -1,5 +1,6 @@
 // quant_matmul: the w8a8 code-wire embed, y = (a @ w8) * s_a[r] * s_w[c],
-// for int8 codes a8 or the int16 codes of a 9- to 16-bit ADC.
+// for int8 codes a8, the int16 codes of a 9- to 16-bit ADC or the int32
+// codes of a 17- to 32-bit one.
 //
 // Replaces the Pallas TPU kernel quant_matmul_pallas (src/repro/kernels/
 // quant_matmul.py:55, body _qmm_kernel :34): int8 x int8 with int32
@@ -16,10 +17,10 @@
 // extent of the block is in flight after one round of copies; m16n8k32
 // int8 MMAs from swizzled shared memory; the epilogue of ip2_common.cuh
 // (built with --fmad=false, so bitwise the reference's) stored as float4.
-// The int32 sums are exact, so the result is bitwise equal to the plain
-// version whatever the tiling. int16 codes are split into a high-byte and a
-// low-byte plane as they are staged (qmm_tile.cuh) and take two MMAs per
-// fragment; K is then bounded by 511 (kMaxK16), not 131 071.
+// The int32 sums are the reference's modulo 2^32, so the result is bitwise
+// equal to the plain version whatever the tiling, at every K. int16 and
+// int32 codes are split into 2 or 4 byte planes as they are staged
+// (qmm_tile.cuh) and take 2 or 4 MMAs per fragment.
 #include "qmm_tile.cuh"
 
 namespace {
@@ -27,7 +28,7 @@ namespace {
 using namespace ip2::qmm;
 
 struct Args {
-  const void* a;  // int8, or int16 codes with WIDE
+  const void* a;  // int8, int16 (NP = 2) or int32 (NP = 4) codes
   const float* s_a;
   const int8_t* w8;
   const float* s_w;
@@ -36,19 +37,21 @@ struct Args {
   bool vec_out;  // N % 4 == 0 and out 16-byte aligned: float4 stores
 };
 
-// VA: the A copy width in bytes (16, 4 or 1; with WIDE 16, 4 or 2)
-template <int VA, int VW, bool WIDE>
+// VA: the A copy width in bytes (16, 4 or 1; int16 codes 16, 4 or 2; int32
+// codes 16 or 4); NP: the code planes
+template <int VA, int VW, int NP>
 __global__ void __launch_bounds__(kThreads) quant_matmul_kernel(const Args p) {
-  constexpr int kPlanes = WIDE ? 2 : 1;
-  __shared__ __align__(128) int8_t as[kNS][kPlanes * kAStage];
+  __shared__ __align__(128) int8_t as[kNS][NP * kAStage];
   __shared__ __align__(128) int8_t ws[kNS][kWStage];
   const int r0 = blockIdx.x * kBR, n0 = blockIdx.y * kBN;
   const int warp = threadIdx.x >> 5;
   const int wr = (warp >> 1) * 16, wc = (warp & 1) * 32;
-  int acc[4][4] = {}, acc_l[4][4] = {};
+  unsigned acc[4][4] = {};
   const int nk = (p.K + kBK - 1) / kBK;
   auto load = [&](int s, int slot) {
-    if constexpr (WIDE)
+    if constexpr (NP == 4)
+      load_a32<VA / 4>(as[slot], static_cast<const int32_t*>(p.a), p.R, p.K, r0, s * kBK);
+    else if constexpr (NP == 2)
       load_a16<VA / 2>(as[slot], as[slot] + kAStage, static_cast<const int16_t*>(p.a), p.R,
                        p.K, r0, s * kBK);
     else
@@ -66,9 +69,8 @@ __global__ void __launch_bounds__(kThreads) quant_matmul_kernel(const Args p) {
     const int nx = s + kNS - 1;
     if (nx < nk) load(nx, nx % kNS);
     commit();
-    mma_stage<WIDE>(as[s % kNS], as[s % kNS] + kAStage, ws[s % kNS], wr, wc, acc, acc_l);
+    mma_stage<NP>(as[s % kNS], kAStage, ws[s % kNS], wr, wc, acc);
   }
-  if constexpr (WIDE) combine(acc, acc_l);
   const int lane = threadIdx.x & 31, g = lane >> 2;
   float* o[2];
   float sa[2];
@@ -83,45 +85,47 @@ __global__ void __launch_bounds__(kThreads) quant_matmul_kernel(const Args p) {
   store_warp(acc, o, sa, live, p.s_w, n0 + wc + 8 * (lane & 3), p.N, p.vec_out);
 }
 
-template <int VA, int VW, bool WIDE>
+template <int VA, int VW, int NP>
 void run(const Args& p, cudaStream_t stream) {
   const dim3 grid((p.R + kBR - 1) / kBR, (p.N + kBN - 1) / kBN);
-  quant_matmul_kernel<VA, VW, WIDE><<<grid, kThreads, 0, stream>>>(p);
+  quant_matmul_kernel<VA, VW, NP><<<grid, kThreads, 0, stream>>>(p);
 }
 
-template <int VA, bool WIDE>
+template <int VA, int NP>
 void run_w(int vw, const Args& p, cudaStream_t stream) {
-  if (vw == 16) run<VA, 16, WIDE>(p, stream);
-  else if (vw == 4) run<VA, 4, WIDE>(p, stream);
-  else run<VA, 1, WIDE>(p, stream);
+  if (vw == 16) run<VA, 16, NP>(p, stream);
+  else if (vw == 4) run<VA, 4, NP>(p, stream);
+  else run<VA, 1, NP>(p, stream);
 }
 
 }  // namespace
 
-// a (R, K) codes of a_bytes (1: int8, 2: int16), s_a (R,) f32, w8 (K, N)
-// int8, s_w (N,) f32 -> out (R, N) f32. Returns cudaGetLastError(), or
-// cudaErrorInvalidValue for another code width or a K whose int32 sums
-// could overflow (above kMaxK for int8 codes, kMaxK16 for int16).
+// a (R, K) codes of a_bytes (1: int8, 2: int16, 4: int32), s_a (R,) f32,
+// w8 (K, N) int8, s_w (N,) f32 -> out (R, N) f32. Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for another code width.
 extern "C" int quant_matmul_launch(const void* a, int a_bytes, const float* s_a,
                                    const int8_t* w8, const float* s_w, float* out,
                                    int R, int K, int N, void* stream) {
-  if (a_bytes != 1 && a_bytes != 2) return (int)cudaErrorInvalidValue;
-  if (R < 0 || K < 0 || N < 0 || K > max_k(a_bytes)) return (int)cudaErrorInvalidValue;
+  if (a_bytes != 1 && a_bytes != 2 && a_bytes != 4) return (int)cudaErrorInvalidValue;
+  if (R < 0 || K < 0 || N < 0) return (int)cudaErrorInvalidValue;
   if (R > 0 && N > 0) {
     const Args p{a, s_a, w8, s_w, out, R, K, N,
                  N % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0};
     const int vw = copy_bytes(w8, N);
     const cudaStream_t st = (cudaStream_t)stream;
-    if (a_bytes == 2) {
+    if (a_bytes == 4) {
+      if (copy_bytes(a, 4LL * K) == 16) run_w<16, 4>(vw, p, st);
+      else run_w<4, 4>(vw, p, st);
+    } else if (a_bytes == 2) {
       const int va = copy_bytes(a, 2LL * K);
-      if (va == 16) run_w<16, true>(vw, p, st);
-      else if (va == 4) run_w<4, true>(vw, p, st);
-      else run_w<2, true>(vw, p, st);
+      if (va == 16) run_w<16, 2>(vw, p, st);
+      else if (va == 4) run_w<4, 2>(vw, p, st);
+      else run_w<2, 2>(vw, p, st);
     } else {
       const int va = copy_bytes(a, K);
-      if (va == 16) run_w<16, false>(vw, p, st);
-      else if (va == 4) run_w<4, false>(vw, p, st);
-      else run_w<1, false>(vw, p, st);
+      if (va == 16) run_w<16, 1>(vw, p, st);
+      else if (va == 4) run_w<4, 1>(vw, p, st);
+      else run_w<1, 1>(vw, p, st);
     }
   }
   return (int)cudaGetLastError();

@@ -278,13 +278,14 @@ def _delta_attention_cuda(q, k, v, key_mask, q_counts) -> torch.Tensor:
 
 
 def _quant_matmul_cuda(a8, s_a, w8, s_w) -> torch.Tensor:
-    """``a8`` holds int8 codes, or the int16 codes of a 9- to 16-bit ADC
-    (then K is at most 511, where the int32 sums stay exact)."""
+    """``a8`` holds int8 codes, or the int16 / int32 codes of a 9- to 16- /
+    17- to 32-bit ADC; the sums are the reference's int32 sums, which wrap
+    modulo 2^32, at every K."""
     r, k = a8.shape
     n = w8.shape[1]
-    if a8.dtype not in (torch.int8, torch.int16):
-        raise ValueError(f"quant_matmul kernel: {a8.dtype} codes; it takes int8 and "
-                         "int16 codes (ADCs of up to 16 bits)")
+    if a8.dtype not in (torch.int8, torch.int16, torch.int32):
+        raise ValueError(f"quant_matmul kernel: {a8.dtype} codes; it takes int8, "
+                         "int16 and int32 codes (ADCs of up to 32 bits)")
     _need(a8, a8.dtype, (r, k), "a8")
     _need(w8, torch.int8, (k, n), "w8")
     _need(s_a, torch.float32, (r,), "s_a")
@@ -300,11 +301,10 @@ def _fused_embed_cuda(table, counts, patches, w_t, w8, s_w, s_a: float,
                       p: IP2KernelParams, k: int) -> torch.Tensor:
     """``table`` rows must lie in the patch grid (``ip2_fused_embed``
     clamps them; checking here would cost a device sync per call). Codes of
-    up to 8 bits run as int8, of 9 to 16 bits as int16 (then M is at most
-    511, where the int32 sums stay exact)."""
-    if p.adc_bits > 16:
-        raise ValueError(f"ip2_fused_embed kernel: {p.adc_bits}-bit ADC codes; it "
-                         "takes codes of up to 16 bits")
+    up to 8 bits run as int8, of 9 to 16 bits as int16 and of 17 to 32 bits
+    as int32; the embed sums wrap modulo 2^32 as the reference's do. M is
+    bounded by the bank's code tile in shared memory (the launch raises
+    past it, naming the shape)."""
     n_rows, kk = patches.shape
     m = w_t.shape[1]
     d = w8.shape[1]

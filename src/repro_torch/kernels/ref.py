@@ -59,9 +59,9 @@ def delta_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     softmax, · V)."""
     dh = q.shape[-1]
     sc = torch.einsum("bqhk,bshk->bhqs", q, k) / torch.sqrt(
-        torch.tensor(dh, dtype=q.dtype, device=q.device))
+        torch.full((), dh, dtype=q.dtype, device=q.device))
     sc = torch.where(key_mask[:, None, None, :], sc,
-                     torch.tensor(-1e30, dtype=sc.dtype, device=sc.device))
+                     torch.full((), -1e30, dtype=sc.dtype, device=sc.device))
     o = torch.einsum("bhqs,bshk->bqhk", torch.softmax(sc, dim=-1), v)
     rows = torch.arange(q.shape[1], device=q.device)[None, :, None, None]
     return torch.where(rows < q_counts[:, None, None, None], o,
@@ -70,12 +70,26 @@ def delta_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def quant_matmul_ref(a8: torch.Tensor, s_a: torch.Tensor, w8: torch.Tensor,
                      s_w: torch.Tensor) -> torch.Tensor:
-    """(R, K) int8 @ (K, N) int8 -> (float(acc) * s_a[r]) * s_w[c], float32.
+    """(R, K) int codes @ (K, N) int8 -> (float(acc) * s_a[r]) * s_w[c],
+    float32, where ``acc`` is the reference's int32 sum, which wraps modulo
+    2^32 (int8 codes, or the int16 / int32 codes of a wider ADC).
 
-    The integer sum is taken in float64: CUDA has no int32 matmul, and
-    every partial sum (|acc| <= K·127·128) is an exact float64 integer, so
-    this is the int32 accumulation bit for bit on either device."""
-    acc = a8.to(torch.float64) @ w8.to(torch.float64)
+    The sum is taken exactly and then wrapped: CUDA has no int32 matmul, so
+    the codes are split into byte planes (the top one signed, the others
+    unsigned), each plane's products are summed in float64 (every partial
+    sum, at most K·255·128, is an exact float64 integer), and the planes are
+    shifted and added in int64 modulo 2^32 before the wrap to int32."""
+    a = a8.to(torch.int64)
+    wf = w8.to(torch.float64)
+    n_planes = a8.element_size()
+    acc = torch.zeros((a8.shape[0], w8.shape[1]), dtype=torch.int64, device=a8.device)
+    for p in range(n_planes):
+        plane = a >> (8 * p)
+        if p < n_planes - 1:
+            plane = plane & 0xFF
+        part = (plane.to(torch.float64) @ wf).to(torch.int64)
+        acc = (acc + part * (1 << (8 * p))) & 0xFFFFFFFF
+    acc = acc - ((acc >> 31) << 32)            # two's complement int32 value
     return acc.to(torch.float32) * s_a[:, None] * s_w[None, :]
 
 

@@ -10,9 +10,12 @@ which nothing changed.
 
 :func:`delta_forward` runs one of three regimes per frame:
 
-* fully cached — no served row changed: the encoder is skipped and the
-  cached logits and saliency are served, with zero MACs. The skip is a
-  host branch on one flag (one device-to-host sync per call);
+* fully cached — no served row changed: the cached logits and saliency
+  are served, with zero MACs. The choice is made on the device (the
+  reference's ``lax.cond``): the encoder runs every frame and a
+  ``torch.where`` on one 0-dim flag picks the cached or computed outputs,
+  so no call waits for the device (the cost: an encoder pass on a fully
+  cached frame);
 * exact (eps <= 0) — once any valid row of a layer changed, every query
   row of that layer is recomputed, which reproduces the dense encoder;
 * budgeted (eps > 0) — recomputed rows that moved by at most eps
@@ -89,11 +92,13 @@ def delta_forward(params: dict, cfg, cf, embed_fn, bc: BackendCache,
                   eps: torch.Tensor, act: torch.Tensor | None = None):
     """Delta-gated encoder over the compact wire ``cf`` against ``bc``.
 
-    ``embed_fn()`` gives the embedded tokens (B, k, d), so a cached frame
-    never runs the embed; ``eps`` (B,) is the snap budget (<= 0: exact);
+    ``embed_fn()`` gives the embedded tokens (B, k, d); ``eps`` (B,) is
+    the snap budget (<= 0: exact);
     ``act`` (B,) restricts the skip test to the slots that advance this
     frame. Returns ``(logits, received, new_bc, macs)`` with ``macs`` the
-    per-slot executed MACs (zero on a cached frame)."""
+    per-slot executed MACs (zero on a cached frame). Both regimes are
+    computed; a device-side flag selects, bitwise what a host branch would
+    return."""
     from repro_torch.models import vit as vit_mod  # vit imports this module
 
     token_valid = cf.valid
@@ -108,10 +113,7 @@ def delta_forward(params: dict, cfg, cf, embed_fn, bc: BackendCache,
     gate = s0 & (token_valid | bc.tvalid)
     if act is not None:
         gate = gate & act[..., None]
-    if not bool(torch.any(gate)):
-        return bc.logits, bc.received, bc, torch.zeros(bc.valid.shape,
-                                                       dtype=torch.float32,
-                                                       device=bc.valid.device)
+    cached = ~torch.any(gate)            # 0-dim: nothing changed anywhere
     mask_changed = torch.any(cf.valid != bc.tvalid, dim=-1) | ~bc.valid
 
     exact = eps <= 0.0
@@ -142,8 +144,8 @@ def delta_forward(params: dict, cfg, cf, embed_fn, bc: BackendCache,
         x_mid = x + out
         full = x_mid + apply_mlp(lp["mlp"], rms_norm(x_mid, lp["norm2"], cfg.norm_eps),
                                  "gelu")
-        cached = bc.x_out[:, li]
-        delta = torch.amax(torch.abs(full - cached), dim=-1)
+        held = bc.x_out[:, li]
+        delta = torch.amax(torch.abs(full - held), dim=-1)
         # exact: the q_stale rule; budgeted: rows that moved by <= eps snap back
         keep = torch.where(exact[:, None], q_stale, delta > eps[:, None])
         keep = keep | ~bc.valid[:, None]
@@ -151,7 +153,7 @@ def delta_forward(params: dict, cfg, cf, embed_fn, bc: BackendCache,
             # the kernel computed only the stale prefix; rows past it are
             # zero attention and stay on their cached values
             keep = keep & covered
-        x = torch.where(keep[..., None], full, cached)
+        x = torch.where(keep[..., None], full, held)
         outs.append(x)
         j_qkv.append(torch.sum(s & token_valid, dim=-1).to(torch.float32))
         q_attn.append(torch.sum(q_stale & token_valid, dim=-1).to(torch.float32))
@@ -174,4 +176,6 @@ def delta_forward(params: dict, cfg, cf, embed_fn, bc: BackendCache,
         feats=cf.features, gain=cf.gain, indices=cf.indices, tvalid=cf.valid,
         x_out=torch.stack(outs, dim=1), logits=logits, received=received,
         valid=torch.ones(bc.valid.shape, dtype=torch.bool, device=bc.valid.device))
-    return logits, received, new_bc, macs
+    new_bc = BackendCache(*(torch.where(cached, o, n) for o, n in zip(bc, new_bc)))
+    macs = torch.where(cached, torch.zeros_like(macs), macs)
+    return new_bc.logits, new_bc.received, new_bc, macs

@@ -19,6 +19,7 @@ import torch
 from repro_torch._arith import div
 from repro_torch._device import resolve_device
 from repro_torch.convert import tree_to
+from repro_torch.core import adc as adc_mod
 from repro_torch.core import power as power_mod
 from repro_torch.core.frontend import (
     CompactFeatures,
@@ -101,9 +102,9 @@ def _encoder_attention(lp: dict, h: torch.Tensor, cfg: ViTConfig,
     k = torch.einsum("bsd,dhk->bshk", h, a["wk"]) + a["bk"]
     v = torch.einsum("bsd,dhk->bshk", h, a["wv"]) + a["bv"]
     scores = torch.einsum("bqhk,bshk->bhqs", q, k) / torch.sqrt(
-        torch.tensor(dh, dtype=h.dtype, device=h.device))
+        torch.full((), dh, dtype=h.dtype, device=h.device))
     scores = torch.where(token_valid[:, None, None, :], scores,
-                         torch.tensor(NEG_INF, dtype=scores.dtype, device=scores.device))
+                         torch.full((), NEG_INF, dtype=scores.dtype, device=scores.device))
     probs = torch.softmax(scores, dim=-1)
     o = torch.einsum("bhqs,bshk->bqhk", probs.to(v.dtype), v)
     out = torch.einsum("bshk,hkd->bsd", o, a["wo"])
@@ -218,22 +219,26 @@ def vit_forward_compact(params: dict, rgb: torch.Tensor, cfg: ViTConfig,
 
     ``cache`` (a FeatureCache) turns on the temporal gate and adds
     ``aux["cache"]`` and ``aux["n_stale"]``; ``k_cap`` / ``stale_cap`` are
-    the governor's per-slot knobs. ``backend_cache`` turns on the
-    delta-gated backend (``backend_eps`` (B,) its snap budget, default
-    exact; ``backend_act`` (B,) the slots that advance): its executed MACs
-    land on ``events.backend_macs`` and the new cache on
-    ``aux["backend_cache"]``."""
+    the governor's per-slot knobs. ``sign_mode`` (B,) bool is its sign
+    tier: flagged rows serve the sign view of their codes (the two code
+    points of ``adc.sign_code_points``) and price this frame's conversions
+    as sign comparisons; the cache keeps the real codes.
+    ``backend_cache`` turns on the delta-gated backend (``backend_eps``
+    (B,) its snap budget, default exact; ``backend_act`` (B,) the slots
+    that advance): its executed MACs land on ``events.backend_macs`` and
+    the new cache on ``aux["backend_cache"]``."""
     if backend_cache is None and (backend_eps is not None or backend_act is not None):
         raise ValueError("backend_eps/backend_act configure the delta-gated backend "
                          "and need a BackendCache to gate against — pass "
                          "backend_cache, or drop them for the dense encoder")
-    if sign_mode is not None:
-        raise NotImplementedError("the sign tier (sign_mode) needs the sign wire, "
-                                  "which is not ported yet")
     if cfg.fused_embed:
         if backend_cache is not None:
             raise ValueError("fused_embed does not thread the backend cache; use "
                              "fused_embed=False for the delta-gated backend")
+        if sign_mode is not None:
+            raise ValueError("fused_embed consumes codes in-kernel; the sign-tier "
+                             "degradation needs the staged code wire — use "
+                             "fused_embed=False in a sign-tier governed engine")
         return _forward_compact_fused(params, rgb, cfg, indices, mask, project_fn,
                                       precomputed, cache, k_cap, stale_cap)
     out = apply_frontend(params["ip2"], rgb, cfg.frontend, mask=mask,
@@ -241,6 +246,21 @@ def vit_forward_compact(params: dict, rgb: torch.Tensor, cfg: ViTConfig,
                          precomputed=precomputed, cache=cache, k_cap=k_cap,
                          stale_cap=stale_cap)
     cf, new_cache = out if cache is not None else (out, None)
+    if sign_mode is not None:
+        c_thresh, c_pos, c_neg = adc_mod.sign_code_points(cfg.frontend.patch.summer.v_ref,
+                                                          cfg.frontend.adc)
+        dt, dev = cf.features.dtype, cf.features.device
+        signed = torch.where(cf.features >= c_thresh,
+                             torch.full((), c_pos, dtype=dt, device=dev),
+                             torch.full((), c_neg, dtype=dt, device=dev))
+        ev = cf.events
+        cf = cf._replace(
+            features=torch.where(sign_mode[:, None, None], signed, cf.features),
+            events=ev._replace(
+                adc_conversions=torch.where(sign_mode, torch.zeros_like(ev.adc_conversions),
+                                            ev.adc_conversions),
+                sign_comparisons=torch.where(sign_mode, ev.adc_conversions,
+                                             ev.sign_comparisons)))
     events = cf.events
     new_bcache = None
     if backend_cache is not None:
@@ -253,10 +273,13 @@ def vit_forward_compact(params: dict, rgb: torch.Tensor, cfg: ViTConfig,
                              f"do not match the served wire "
                              f"{tuple(cf.features.shape[-2:])}")
         b = cf.valid.shape[0]
-        eps = (torch.zeros((b,), dtype=torch.float32, device=cf.valid.device)
-               if backend_eps is None else torch.broadcast_to(
-                   torch.as_tensor(backend_eps, dtype=torch.float32,
-                                   device=cf.valid.device), (b,)))
+        dev = cf.valid.device
+        if backend_eps is None:
+            eps = torch.zeros((b,), dtype=torch.float32, device=dev)
+        elif isinstance(backend_eps, torch.Tensor):
+            eps = torch.broadcast_to(backend_eps.to(torch.float32), (b,))
+        else:
+            eps = torch.full((b,), backend_eps, dtype=torch.float32, device=dev)
 
         def embed_fn():
             return _embed_tokens(params, cf, cfg) + params["pos"][cf.indices.long()]

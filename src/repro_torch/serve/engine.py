@@ -11,6 +11,14 @@ of streams:
   hold: their gaze, frame age, caches, controls and meters pass through
   unchanged and their logits are zero; fed slots are served exactly as in
   a full-cover step.
+* ``step(frames, block=False)`` returns a :class:`StepHandle` as soon as
+  the tick is issued; ``step_rollout(frames_by_tick)`` issues T ticks with
+  no host round-trip between them (:func:`serve_step.make_rollout`),
+  bitwise T ``step()`` calls. Neither waits for the card: constants are
+  filled on the device, the delta backend's skip is a device-side select,
+  and uploads are non-blocking copies from page-locked staging. The one
+  host wait is for a staging buffer whose previous upload is still in
+  flight (two alternate for ``step``; one per rollout length T).
 * Frames live in a persistent device buffer (S, H, W, 3); each tick
   uploads only the fed rows and writes them into it in place.
 * Freshly admitted slots bootstrap their first gaze from the in-pixel
@@ -22,7 +30,8 @@ of streams:
 Modes: ``temporal=True`` threads a per-slot feature cache (only stale
 patches are re-projected); ``governor=GovernorSpec(...)`` (needs temporal)
 steers each slot's recompute cap, token tier and backend snap budget
-toward a mW budget; ``backend_delta=True`` threads a per-slot backend
+toward a mW budget, and with ``sign_tier`` may degrade a slot to the sign
+view of its codes; ``backend_delta=True`` threads a per-slot backend
 cache (unchanged rows reuse their encoder work, an unchanged frame serves
 cached logits).
 """
@@ -43,7 +52,81 @@ from repro_torch.core.temporal import FeatureCache, init_feature_cache
 from repro_torch.models import backend_delta as bdel
 from repro_torch.models.vit import vit_forward_compact
 from repro_torch.serve import governor as gov_mod
-from repro_torch.serve.serve_step import saccade_scores
+from repro_torch.serve.serve_step import make_rollout, saccade_scores
+
+
+class StepHandle:
+    """A tick's result, issued but not fetched: the device's (S, n_classes)
+    logits and the fed streams' sid -> slot map. :meth:`result` makes the
+    one device-to-host fetch and caches the dict. The handle stays valid
+    across later engine calls (step outputs are fresh tensors that nothing
+    writes into), but an unfetched handle keeps its logits on the card."""
+
+    __slots__ = ("_logits", "_slots", "_out")
+
+    def __init__(self, logits, slots: dict):
+        self._logits = logits
+        self._slots = slots
+        self._out = None
+
+    def result(self) -> dict[Hashable, np.ndarray]:
+        """Stream id -> (n_classes,) logits for exactly the fed streams;
+        blocks until they are on the host. Idempotent."""
+        if self._out is None:
+            arr = None if self._logits is None else self._logits.cpu().numpy()
+            self._out = {sid: arr[s] for sid, s in self._slots.items()}
+            self._logits = None
+        return self._out
+
+
+class RolloutHandle:
+    """A rollout's result, issued but not fetched: the device's (T, S,
+    n_classes) logits and each tick's sid -> slot map; :meth:`result`
+    fetches all T ticks in one transfer. Same lifetime as
+    :class:`StepHandle`."""
+
+    __slots__ = ("_logits", "_slot_maps", "_out")
+
+    def __init__(self, logits, slot_maps: list):
+        self._logits = logits
+        self._slot_maps = slot_maps
+        self._out = None
+
+    def result(self) -> list[dict[Hashable, np.ndarray]]:
+        """One dict per tick (stream id -> (n_classes,) logits of that
+        tick's fed streams); blocks until they are on the host. Idempotent."""
+        if self._out is None:
+            arr = None if self._logits is None else self._logits.cpu().numpy()
+            self._out = [{sid: arr[t, s] for sid, s in m.items()}
+                         for t, m in enumerate(self._slot_maps)]
+            self._logits = None
+        return self._out
+
+
+class _Staging(NamedTuple):
+    """Host staging of fed rows (page-locked on a CUDA engine), compact:
+    ``rows[f]`` is the f-th fed frame, ``slots[f]`` its slot, ``fed`` the
+    (S,) or (T, S) fed mask; ``event`` (CUDA only) is recorded after the
+    last upload from it, and the host waits on it before writing again.
+    The numpy views share the tensors' memory."""
+
+    rows: torch.Tensor
+    slots: torch.Tensor
+    fed: torch.Tensor
+    rows_np: np.ndarray
+    slots_np: np.ndarray
+    fed_np: np.ndarray
+    event: Any
+
+
+def _new_staging(n_rows: int, fed_shape: tuple, frame_shape: tuple,
+                 device: torch.device) -> _Staging:
+    pin = device.type == "cuda"
+    rows = torch.zeros((n_rows,) + frame_shape, dtype=torch.float32, pin_memory=pin)
+    slots = torch.zeros((n_rows,), dtype=torch.int64, pin_memory=pin)
+    fed = torch.zeros(fed_shape, dtype=torch.bool, pin_memory=pin)
+    return _Staging(rows, slots, fed, rows.numpy(), slots.numpy(), fed.numpy(),
+                    torch.cuda.Event() if pin else None)
 
 
 class StreamState(NamedTuple):
@@ -132,15 +215,19 @@ def make_engine_step(cfg, explore: float = 0.1, ema_decay: float = 0.0,
             bcache = state.bcache._replace(valid=state.bcache.valid & ~fresh)
             if governor is not None:
                 eps = state.controls.eps
-        k_cap = stale_cap = None
+        k_cap = stale_cap = sign_mode = None
         if governor is not None:
             k_cap = gov_mod.tier_k_eff(governor, state.controls.tier, k)
             stale_cap = state.controls.j_cap
+            if governor.sign_tier:
+                # the sign tier: flagged slots serve the sign view of their
+                # codes; the cache keeps the real ones for the recovery
+                sign_mode = gov_mod.tier_is_sign(governor, state.controls.tier)
         logits, aux = vit_forward_compact(
             params, frames, cfg, indices=indices, project_fn=project_fn,
             precomputed=(patches, weights), cache=cache, k_cap=k_cap,
-            stale_cap=stale_cap, backend_cache=bcache, backend_eps=eps,
-            backend_act=act if backend else None)
+            stale_cap=stale_cap, sign_mode=sign_mode, backend_cache=bcache,
+            backend_eps=eps, backend_act=act if backend else None)
         scores = saccade_scores(aux, explore)
         ema = torch.where(fresh[:, None], scores,
                           ema_decay * state.ema + (1.0 - ema_decay) * scores)
@@ -224,6 +311,12 @@ def _make_churn(k: int, j_max: int):
 class SaccadeEngine:
     """Slot-based multi-stream saccadic server.
 
+    Every call runs on the current CUDA stream in eager PyTorch. ``step``
+    and ``step_rollout`` issue their work and, with ``block=False``, return
+    a handle before the card has finished; churn (admit / evict / budget)
+    is flushed at the next step or rollout, so it lands only at their
+    boundaries.
+
     Args:
       cfg: ViTConfig of the backend (``quant_embed`` / ``fused_embed``
         select the kernel routes; ``delta_kernel`` the ragged attention
@@ -237,6 +330,8 @@ class SaccadeEngine:
       meter / frame_hz: the EnergyMeter pricing the per-slot meters.
       governor: a ``GovernorSpec`` closing the loop on a mW budget (needs
         ``temporal``); shares are priority-weighted over admitted streams.
+        Its ``sign_tier`` serves the sign view of the code wire on slots the
+        budget cannot otherwise fund (the staged route only).
       backend_delta: the per-slot delta-gated backend cache
         (``governor.backend_eps > 0`` needs it).
       device: where the engine runs; None means the GPU (raises without one).
@@ -256,9 +351,6 @@ class SaccadeEngine:
             raise ValueError("governor.backend_eps budgets the delta-gated backend; "
                              "build the engine with backend_delta=True or drop "
                              "backend_eps")
-        if governor is not None and governor.sign_tier:
-            raise NotImplementedError("the governor's sign tier needs the sign wire, "
-                                      "which is not ported yet")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = tree_to(params, self.device)
@@ -277,15 +369,19 @@ class SaccadeEngine:
         self._budgets_dirty = False
         self._budget_mw = None if governor is None else governor.budget_mw
         fcfg = cfg.frontend
-        self._stage = np.zeros((capacity, fcfg.image_h, fcfg.image_w, 3), np.float32)
-        self._stage_slots = np.zeros((capacity,), np.int64)
-        self._fed = np.zeros((capacity,), bool)
+        self._frame_shape = (fcfg.image_h, fcfg.image_w, 3)
+        # step() alternates two staging buffers; rollouts keep one per T
+        self._stages = [_new_staging(capacity, (capacity,), self._frame_shape, self.device)
+                        for _ in range(2)]
+        self._stage_next = 0
+        self._roll_stage: dict[int, _Staging] = {}
         self._step_fn = make_engine_step(
             cfg, explore=explore, ema_decay=ema_decay, project_fn=project_fn,
             temporal=temporal, governor=governor, meter=meter, frame_hz=frame_hz,
             backend=backend_delta)
         k = fcfg.n_active
         self._churn_fn = _make_churn(k, fcfg.temporal.budget(k))
+        self._rollout_fn = make_rollout(self._step_fn)
         self._state = init_stream_state(cfg, capacity, self.device, temporal=temporal,
                                         governed=governor is not None,
                                         backend=backend_delta)
@@ -357,6 +453,15 @@ class SaccadeEngine:
         """The engine-total budget being split over slots (None ungoverned)."""
         return self._budget_mw
 
+    def _upload(self, arr: np.ndarray) -> torch.Tensor:
+        """A small host array on the device without a host wait: through a
+        page-locked copy whose block PyTorch's host allocator keeps until
+        the upload has left it."""
+        t = torch.from_numpy(arr)
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
     def _flush_churn(self) -> None:
         dirty_budget = self.governor is not None and self._budgets_dirty
         if not self._pending and not dirty_budget:
@@ -365,28 +470,53 @@ class SaccadeEngine:
         evict_hit = np.zeros((self.capacity,), bool)
         for slot, op in self._pending.items():
             (admit_hit if op == "admit" else evict_hit)[slot] = True
-        hits = torch.from_numpy(np.stack([admit_hit, evict_hit])).to(self.device)
+        hits = self._upload(np.stack([admit_hit, evict_hit]))
         budgets = None
         if self.governor is not None:
             w = np.zeros((self.capacity,), np.float64)
             for slot, sid in enumerate(self._slots):
                 if sid is not None:
                     w[slot] = self._priority[sid]
-            budgets = torch.from_numpy(gov_mod.allocate_budgets(
-                self.governor, w, total_mw=self._budget_mw)).to(self.device)
+            budgets = self._upload(gov_mod.allocate_budgets(
+                self.governor, w, total_mw=self._budget_mw))
         self._state = self._churn_fn(self._state, hits[0], hits[1], budgets)
         self._pending.clear()
         self._budgets_dirty = False
 
     # ---- serving -------------------------------------------------------
-    def step(self, frames: Mapping[Hashable, Any]) -> dict[Hashable, np.ndarray]:
+    @staticmethod
+    def _wait_staging(st: _Staging) -> None:
+        """Host wait until the staging buffer's last upload has left it: the
+        one wait the serving path makes, and only when the host is a whole
+        buffer cycle ahead of the card."""
+        if st.event is not None:
+            st.event.synchronize()
+
+    def _issue_upload(self, st: _Staging, n_rows: int):
+        """Non-blocking upload of a staging buffer's first ``n_rows`` rows,
+        their slots and the fed mask; records the buffer's event."""
+        dev = self.device
+        out = tuple(t.to(dev, non_blocking=True)
+                    for t in (st.rows[:n_rows], st.slots[:n_rows], st.fed))
+        if st.event is not None:
+            st.event.record()
+        return out
+
+    def step(self, frames: Mapping[Hashable, Any], block: bool = True
+             ) -> "dict[Hashable, np.ndarray] | StepHandle":
         """Serve one frame for any subset of the admitted streams:
         stream id -> (H, W, 3) RGB in, stream id -> (n_classes,) logits out
-        for exactly the fed streams. Unknown stream ids raise."""
+        for exactly the fed streams. Unknown stream ids raise.
+
+        The fed rows are staged in page-locked memory and uploaded with a
+        non-blocking copy. With ``block=False`` the call returns a
+        :class:`StepHandle` once the tick is issued, before the card has
+        run it; an empty ``frames`` issues nothing."""
         if not frames:
-            return {}
-        fed = self._fed
-        fed[:] = False
+            return {} if block else StepHandle(None, {})
+        st = self._stages[self._stage_next]
+        self._wait_staging(st)
+        st.fed_np[:] = False
         slots_by_sid: dict[Hashable, int] = {}
         for f, (sid, frame) in enumerate(frames.items()):
             if sid not in self._slot_index:
@@ -394,21 +524,70 @@ class SaccadeEngine:
                 raise ValueError(f"frames for streams never admitted: "
                                  f"unknown={sorted(map(str, unknown))}")
             slot = self._slot_index[sid]
-            self._stage[f] = frame
-            self._stage_slots[f] = slot
-            fed[slot] = True
+            st.rows_np[f] = frame
+            st.slots_np[f] = slot
+            st.fed_np[slot] = True
             slots_by_sid[sid] = slot
+        self._stage_next ^= 1
         self._flush_churn()
-        n = len(slots_by_sid)
         with torch.inference_mode():
-            rows = torch.from_numpy(self._stage[:n]).to(self.device)
-            slots = torch.from_numpy(self._stage_slots[:n]).to(self.device)
+            rows, slots, fed = self._issue_upload(st, len(slots_by_sid))
             self._frames_dev.index_copy_(0, slots, rows)
-            fed_dev = torch.from_numpy(fed.copy()).to(self.device)
-            logits, self._state = self._step_fn(self.params, self._frames_dev,
-                                                fed_dev, self._state)
-            host = logits.cpu().numpy()
-        return {sid: host[s] for sid, s in slots_by_sid.items()}
+            logits, self._state = self._step_fn(self.params, self._frames_dev, fed,
+                                                self._state)
+        handle = StepHandle(logits, slots_by_sid)
+        return handle.result() if block else handle
+
+    def step_rollout(self, frames_by_tick, block: bool = True
+                     ) -> "list[dict[Hashable, np.ndarray]] | RolloutHandle":
+        """Serve T ticks with no host round-trip between them.
+
+        ``frames_by_tick`` is a sequence of T dicts, each what :meth:`step`
+        takes (an empty dict is an all-hold tick). Logits and the final
+        state are bitwise those of T ``step()`` calls. The cohort is fixed
+        for the rollout: pending churn is flushed before it, and admits or
+        evicts made later apply to the next call. The T ticks' fed rows are
+        staged compactly in page-locked memory kept per T and uploaded in
+        one non-blocking copy; each tick's rows are scattered into the
+        frame buffer inside the loop.
+
+        Returns a list of T dicts, or with ``block=False`` a
+        :class:`RolloutHandle` that fetches all T ticks in one transfer."""
+        ticks = list(frames_by_tick)
+        t_len = len(ticks)
+        if t_len == 0:
+            return [] if block else RolloutHandle(None, [])
+        slot_maps: list[dict[Hashable, int]] = []
+        for t, fr in enumerate(ticks):
+            unknown = set(fr) - self._slot_index.keys()
+            if unknown:
+                raise ValueError(f"tick {t}: frames for streams never admitted: "
+                                 f"unknown={sorted(map(str, unknown))}")
+            slot_maps.append({sid: self._slot_index[sid] for sid in fr})
+        self._flush_churn()
+        st = self._roll_stage.get(t_len)
+        if st is None:
+            st = _new_staging(t_len * self.capacity, (t_len, self.capacity),
+                              self._frame_shape, self.device)
+            self._roll_stage[t_len] = st
+        self._wait_staging(st)
+        st.fed_np[:] = False
+        f = 0
+        counts = []
+        for t, fr in enumerate(ticks):
+            for sid, frame in fr.items():
+                slot = slot_maps[t][sid]
+                st.rows_np[f] = frame
+                st.slots_np[f] = slot
+                st.fed_np[t, slot] = True
+                f += 1
+            counts.append(len(fr))
+        with torch.inference_mode():
+            rows, slots, fed_seq = self._issue_upload(st, f)
+            logits_seq, self._state = self._rollout_fn(
+                self.params, self._frames_dev, rows, slots, fed_seq, counts, self._state)
+        handle = RolloutHandle(logits_seq, slot_maps)
+        return handle.result() if block else handle
 
     def _served_slot(self, stream_id: Hashable) -> int:
         slot = self.slot_of(stream_id)
@@ -441,6 +620,11 @@ class SaccadeEngine:
         c, slot = self._controls(stream_id)
         tokens = self.governor.tier_tokens(self.cfg.frontend.n_active)
         return tokens[min(int(c.tier[slot]), len(tokens) - 1)]
+
+    def sign_readout(self, stream_id: Hashable) -> bool:
+        """True while the governor holds the stream in the sign tier."""
+        c, slot = self._controls(stream_id)
+        return bool(self.governor.sign_tier and int(c.tier[slot]) >= len(self.governor.k_tiers))
 
     def backend_eps(self, stream_id: Hashable) -> float:
         """The governor's current backend snap budget (0.0 = exact reuse)."""
@@ -496,6 +680,10 @@ class SaccadeEngine:
         served = np.array([s is not None for s in self._slots]) & (ages > 0)
         per_slot = np.asarray(self.meter.power_mw(host, self.frame_hz))
         return float(np.where(served, per_slot, 0.0).sum())
+
+    def energy_report(self, stream_id: Hashable) -> dict:
+        """Per-component joules the stream has spent since admit."""
+        return self.meter.energy_j(self.events(stream_id, "total"), self.frame_hz)
 
     def gaze(self, stream_id: Hashable) -> np.ndarray:
         """The (k,) patch indices this stream will convert next frame;

@@ -12,11 +12,11 @@ the cap moves toward it by at most ``slew`` and holds inside the deadband;
 the tier is the largest with ``k_eff <= j_cap · refresh_horizon``, moving
 one step per frame (up only with the ``1 - deadband`` margin); the backend
 snap budget ``eps`` engages when the budget cannot fund the frontend floor
-plus the dense backend. Budget shares are split over the admitted streams
-on the host (:func:`allocate_budgets`).
-
-Not ported yet: the ADC-less sign tier (``sign_tier=True``), which needs
-the sign wire.
+plus the dense backend. With ``sign_tier`` one more rung sits below the k
+ladder: a slot whose budget cannot cover the finest tier's floor serves
+the sign view of its codes (the finest tier's token count, conversions
+priced as sign comparisons). Budget shares are split over the admitted
+streams on the host (:func:`allocate_budgets`).
 """
 
 from __future__ import annotations
@@ -27,7 +27,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch._arith import div
+from repro_torch._arith import const_vector, div
 from repro_torch.core.power import EnergyMeter, EventCounts, frontend_frame_events
 
 
@@ -38,7 +38,7 @@ class GovernorSpec:
     band as a fraction of the budget; slew: max cap move per frame;
     k_tiers: token tiers as fractions of k, best first (tier 0 is 1.0);
     refresh_horizon: bound on served-token staleness; sign_tier: the
-    ADC-less tier below the k ladder (not ported yet); backend_eps: the
+    ADC-less tier (index ``len(k_tiers)``) below the k ladder; backend_eps: the
     delta-gated backend's engaged snap budget (0.0 disables the knob)."""
 
     budget_mw: float
@@ -100,16 +100,17 @@ def reset_rows(controls: GovernorControls, hit: torch.Tensor, j_max: int) -> Gov
 
 
 def tier_k_eff(spec: GovernorSpec, tier: torch.Tensor, k: int) -> torch.Tensor:
-    """(S,) tier indices -> (S,) int32 k_eff token counts."""
-    tokens = torch.tensor(spec.tier_tokens(k), dtype=torch.int32, device=tier.device)
+    """(S,) tier indices -> (S,) int32 k_eff token counts; the sign tier
+    keeps the finest k tier's count."""
+    tokens = const_vector(spec.tier_tokens(k), torch.int32, tier.device)
     return tokens[torch.clamp_max(tier, len(spec.k_tiers) - 1).long()]
 
 
 def tier_is_sign(spec: GovernorSpec, tier: torch.Tensor) -> torch.Tensor:
     """(S,) bool — slots in the ADC-less sign tier (never, without one)."""
-    if spec.sign_tier:
-        raise NotImplementedError("the governor's sign tier is not ported yet")
-    return torch.zeros_like(tier, dtype=torch.bool)
+    if not spec.sign_tier:
+        return torch.zeros_like(tier, dtype=torch.bool)
+    return tier >= len(spec.k_tiers)
 
 
 def fixed_power_mw(meter: EnergyMeter, n_pixels: float, pixels_per_patch: int,
@@ -132,8 +133,6 @@ def control_update(spec: GovernorSpec, controls: GovernorControls,
     """One governor tick from this frame's executed events (inactive slots
     zeroed); the new controls apply from the next frame. ``backend_mw`` is
     the dense backend's per-slot power, the plant model of the eps knob."""
-    if spec.sign_tier:
-        raise NotImplementedError("the governor's sign tier is not ported yet")
     slot_mw = 1e3 * meter.slot_recompute_power_w(pixels_per_patch, n_vectors, frame_hz)
     measured = meter.power_mw(events_last, frame_hz)
     budget = controls.budget_mw
@@ -156,14 +155,28 @@ def control_update(spec: GovernorSpec, controls: GovernorControls,
 
     # 3. token tier: the first tier refreshable within the horizon; one
     # step per frame; up only with the (1 - deadband) margin
-    tiers = torch.tensor(spec.tier_tokens(k), dtype=torch.int32, device=j_new.device)
+    tiers = const_vector(spec.tier_tokens(k), torch.int32, j_new.device)
     room = (j_new * spec.refresh_horizon)[:, None]
     fits = tiers[None, :] <= room
-    fits[:, -1] = True                    # the last tier is always available
+    fits[:, -1].fill_(True)               # the last tier is always available
     t_target = torch.argmax(fits.to(torch.int32), dim=-1).to(torch.int32)
     fits_up = tiers[None, :] <= room.to(torch.float32) * (1.0 - spec.deadband)
-    fits_up[:, -1] = True
+    fits_up[:, -1].fill_(True)
     t_up = torch.argmax(fits_up.to(torch.int32), dim=-1).to(torch.int32)
+
+    # 3b. the sign tier, one rung below the k ladder: entered when the
+    # budget cannot cover the finest k tier's floor (its fixed power plus
+    # `floor` recompute slots), left only with the (1 - deadband) margin
+    if spec.sign_tier:
+        n_kt = len(spec.k_tiers)
+        k_min = torch.full_like(j_new, spec.tier_tokens(k)[-1])
+        fixed_min = fixed_power_mw(meter, n_pixels, pixels_per_patch, n_vectors, k_min,
+                                   frame_hz)
+        floor_mw = fixed_min + spec.floor * slot_mw
+        want_sign = budget < floor_mw
+        recover_ok = budget * (1.0 - spec.deadband) >= floor_mw
+        t_target = torch.where(want_sign, torch.full_like(t_target, n_kt), t_target)
+        t_up = torch.where(recover_ok, t_up, torch.full_like(t_up, n_kt))
     t_cur = controls.tier
     t_new = torch.where(t_target > t_cur, t_cur + 1,
                         torch.where(t_up < t_cur, t_cur - 1, t_cur)).to(torch.int32)

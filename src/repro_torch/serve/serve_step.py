@@ -53,3 +53,39 @@ def make_saccade_step(cfg, explore: float = 0.1, project_fn=None):
         return logits, sal.topk_patch_indices(scores, fcfg.n_active), aux
 
     return step
+
+
+def make_rollout(step_fn):
+    """T engine ticks issued back to back, with no host round-trip between
+    them: the reference's ``lax.scan`` rollout as an eager loop.
+
+    ``step_fn`` is one batched engine tick, ``(params, frames (S, H, W, 3),
+    fed (S,), state) -> (logits (S, n_classes), state)`` from
+    ``engine.make_engine_step``. Returns ``rollout(params, frames, rows,
+    slots, fed_seq, counts, state) -> (logits (T, S, n_classes), state)``:
+    ``frames`` is the engine's persistent frame buffer, written in place;
+    ``rows`` (F, H, W, 3) holds the fed rows of all T ticks in tick order
+    and ``slots`` (F,) their slots; ``fed_seq`` (T, S) the per-tick fed
+    masks and ``counts`` (host ints) the rows of each tick. Tick t writes
+    its rows into ``frames`` and runs ``step_fn`` with the whole state as
+    carry, so the rollout is bitwise T single ticks (an all-hold tick runs
+    too and leaves the state as it was). The logits stack on the device.
+
+    The loop stays eager: no CUDA graph is captured, so nothing is
+    compiled per T and the reference's trace counters (``n_traces``,
+    ``n_rollout_traces``) have no counterpart here (the reference's
+    ``TestTraceDiscipline`` has no port test). Launches are asynchronous,
+    so T ticks are issued ahead of the card."""
+
+    def rollout(params, frames, rows, slots, fed_seq, counts, state):
+        out = []
+        off = 0
+        for t, n in enumerate(counts):
+            if n:
+                frames.index_copy_(0, slots[off:off + n], rows[off:off + n])
+                off += n
+            logits, state = step_fn(params, frames, fed_seq[t], state)
+            out.append(logits)
+        return torch.stack(out), state
+
+    return rollout

@@ -234,5 +234,55 @@ def test_vit_forward_compact_validation(served):
     with pytest.raises(ValueError, match="fused_embed"):
         t_vit.vit_forward_compact(tp, rgb, fused,
                                   cache=t_tm.init_feature_cache(tc.frontend, (1,)))
-    with pytest.raises(NotImplementedError):
-        t_vit.vit_forward_compact(tp, rgb, tc, sign_mode=torch.zeros(1, dtype=torch.bool))
+    with pytest.raises(ValueError, match="fused_embed"):
+        t_vit.vit_forward_compact(tp, rgb, fused, sign_mode=torch.zeros(1, dtype=torch.bool))
+
+
+def test_delta_forward_device_select_both_branches(served):
+    """The skip is a device-side select (the reference's ``lax.cond``):
+    a frame with no changed row (the same scene again) and one with
+    changed rows (the scene panned), each against the reference's
+    delta_forward; the cached one serves the cache bitwise with 0 MACs, and
+    neither reads a value back to the host (no ``aten._local_scalar_dense``,
+    which ``bool(tensor)`` calls)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Ops(TorchDispatchMode):
+        names = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.names.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    jc, tc, jp, tp = served
+    imgs, _ = SceneStream(seed=5, image=64).batch(0, 2)
+    frames = [imgs, imgs, np.roll(imgs, 3, axis=2)]
+    k = jc.frontend.n_active
+    jbc = j_bd.init_backend_cache(jc, k, (2,), dtype=jnp.int8)
+    jeps = jnp.zeros((2,), jnp.float32)
+    regimes = []
+    for t, jcf in enumerate(_clip(jc, jp, frames)):
+        tcf = _cf_to_torch(jcf)
+        tbc = t_bd.BackendCache(*(_t(x) for x in jbc))
+        jl, jr, jnew, jm = j_bd.delta_forward(
+            jp, jc, jcf, lambda: j_vit._embed_tokens(jp, jcf, jc) + jp["pos"][jcf.indices],
+            jbc, jeps)
+        with Ops() as rec:
+            tl, tr, tnew, tm = t_bd.delta_forward(
+                tp, tc, tcf,
+                lambda: t_vit._embed_tokens(tp, tcf, tc) + tp["pos"][tcf.indices.long()],
+                tbc, _t(jeps))
+        assert "aten._local_scalar_dense.default" not in rec.names
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL, rtol=0)
+        np.testing.assert_allclose(tr.numpy(), np.asarray(jr), atol=ATOL, rtol=0)
+        np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))
+        for name in ("feats", "gain", "indices", "tvalid", "valid"):
+            np.testing.assert_array_equal(getattr(tnew, name).numpy(),
+                                          np.asarray(getattr(jnew, name)))
+        cached = float(np.max(np.asarray(jm))) == 0.0
+        if cached:
+            assert torch.equal(tl, tbc.logits) and torch.equal(tr, tbc.received)
+            assert all(torch.equal(a, b) for a, b in zip(tnew, tbc))
+        regimes.append(cached)
+        jbc = jnew
+    assert regimes == [False, True, False], regimes

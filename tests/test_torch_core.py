@@ -83,7 +83,7 @@ class TestPWM:
 
 
 class TestADC:
-    @pytest.mark.parametrize("bits", [6, 8, 10])
+    @pytest.mark.parametrize("bits", [6, 8, 10, 16, 24])
     def test_encode_and_readout_exact(self, bits):
         v = RNG.uniform(-1.3, 1.3, size=(400,)).astype(np.float32)
         js, ts = j_adc.ADCSpec(bits=bits), t_adc.ADCSpec(bits=bits)
@@ -220,3 +220,15 @@ class TestPowerFrontend:
         np.testing.assert_allclose(
             _n(t_fe.dequantize_features(tcf)),
             np.asarray(j_fe.dequantize_features(jcf)), atol=float(jcfg.adc.lsb) + 1e-6)
+
+
+@pytest.mark.parametrize("bits", [8, 10, 16])
+@pytest.mark.parametrize("v_ref", [0.0, 0.3, -1.5])
+def test_sign_code_points(bits, v_ref):
+    """The sign tier's code points: exact against the reference (V_R
+    inside and outside the ADC range)."""
+    assert t_adc.SIGN_V_MAG == j_adc.SIGN_V_MAG
+    got = t_adc.sign_code_points(v_ref, t_adc.ADCSpec(bits=bits))
+    want = j_adc.sign_code_points(v_ref, j_adc.ADCSpec(bits=bits))
+    assert got == want and all(isinstance(c, int) for c in got)
+    assert got[1] >= got[2]

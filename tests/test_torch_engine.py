@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from repro.core import frontend as j_fe
+from repro.core.power import EnergyMeter
 from repro.core import projection as j_proj
 from repro.core import switched_cap as j_sc
 from repro.core import temporal as j_tm
@@ -175,16 +176,46 @@ def test_gated_engine_matches_reference(params):
     tick), so the trajectories are the same: logits at atol 1e-5; gaze,
     n_stale, j_cap, tier, eps, backend_cached and events exact; held slots
     bitwise frozen in the port."""
+    moved, _ = _run_gated(params, GOVERNOR)
+    assert len(moved) > 2, f"the governor never moved: {moved}"
+
+
+def test_sign_tier_engine_matches_reference(params):
+    """The same engine with the governor's sign tier, its budget set so a
+    share covers the finest tier's floor with two streams admitted but not
+    with three: slots enter the sign tier and leave it as the schedule
+    churns, tick for tick with the reference (sign_readout exact, and the
+    rest as above)."""
+    jc, _ = _gated_cfgs()
+    meter = EnergyMeter()
+    fcfg = jc.frontend
+    spec = j_gov.GovernorSpec(budget_mw=1.0, sign_tier=True)
+    k_min = spec.tier_tokens(fcfg.n_active)[-1]
+    fixed_min = float(np.asarray(j_gov.fixed_power_mw(
+        meter, float(fcfg.image_h * fcfg.image_w), fcfg.patch.pixels_per_patch,
+        fcfg.patch.n_vectors, jnp.full((1,), k_min, jnp.int32), 30.0))[0])
+    floor_mw = fixed_min + 1e3 * meter.slot_recompute_power_w(
+        fcfg.patch.pixels_per_patch, fcfg.patch.n_vectors, 30.0)
+    gov = dict(budget_mw=2.5 * floor_mw, sign_tier=True, backend_eps=1e-3,
+               refresh_horizon=2)
+    _, signs = _run_gated(params, gov)
+    assert True in signs and False in signs, signs
+
+
+def _run_gated(params, governor):
+    """The gated engine in both packages over the schedule, twice through;
+    returns the (j_cap, k tier, eps) triples seen and each fed stream's
+    sign_readout per tick."""
     jc, tc = _gated_cfgs()
     jp, tp = params
-    jgov, tgov = j_gov.GovernorSpec(**GOVERNOR), t_gov.GovernorSpec(**GOVERNOR)
+    jgov, tgov = j_gov.GovernorSpec(**governor), t_gov.GovernorSpec(**governor)
     jeng = JEngine(jc, jp, capacity=3, temporal=True, governor=jgov, backend_delta=True,
                    project_fn=j_ops.ip2_codes_fn(jc.frontend.patch, jc.frontend.adc))
     teng = TEngine(tc, tp, capacity=3, temporal=True, governor=tgov, backend_delta=True,
                    project_fn=t_ops.ip2_codes_fn(tc.frontend.patch, tc.frontend.adc),
                    device="cpu")
     pool, _ = SceneStream(seed=11, image=64).batch(0, 6)
-    moved = set()
+    moved, signs = set(), []
     for t, (admits, evicts, fed) in enumerate(SCHEDULE * 2):
         for sid in evicts:
             if sid in teng.stream_ids:
@@ -216,16 +247,18 @@ def test_gated_engine_matches_reference(params):
             assert teng.backend_cached(sid) == jeng.backend_cached(sid)
             assert teng.recompute_cap(sid) == jeng.recompute_cap(sid)
             assert teng.k_tier(sid) == jeng.k_tier(sid)
+            assert teng.sign_readout(sid) == jeng.sign_readout(sid)
             assert teng.backend_eps(sid) == jeng.backend_eps(sid)
             assert teng.recompute_fraction(sid) == jeng.recompute_fraction(sid)
             for a, b in zip(teng.events(sid), jeng.events(sid)):
                 assert a == b
             moved.add((teng.recompute_cap(sid), teng.k_tier(sid), teng.backend_eps(sid)))
+            signs.append(teng.sign_readout(sid))
         for s in held:
             for a, b in zip(_state_rows(ts, s), _state_rows(before, s)):
                 assert torch.equal(a, b)
         assert teng.fleet_power_mw() == pytest.approx(jeng.fleet_power_mw(), rel=1e-6)
-    assert len(moved) > 2, f"the governor never moved: {moved}"
+    return moved, signs
 
 
 def test_slack_budget_is_a_bitwise_noop():
@@ -263,13 +296,14 @@ def test_gated_engine_errors():
     with pytest.raises(ValueError, match="backend_delta"):
         TEngine(tc, tp, temporal=True, device="cpu",
                 governor=t_gov.GovernorSpec(budget_mw=1.0, backend_eps=0.1))
-    with pytest.raises(NotImplementedError):
-        TEngine(tc, tp, temporal=True, device="cpu",
-                governor=t_gov.GovernorSpec(budget_mw=1.0, sign_tier=True))
+    signed = TEngine(tc, tp, temporal=True, device="cpu",
+                     governor=t_gov.GovernorSpec(budget_mw=1.0, sign_tier=True))
+    signed.admit("a")
+    assert signed.sign_readout("a") is False
     eng = TEngine(tc, tp, capacity=1, device="cpu")
     eng.admit("a")
     for accessor in (eng.recompute_fraction, eng.recompute_cap, eng.k_tier,
-                     eng.backend_eps, eng.backend_cached):
+                     eng.backend_eps, eng.backend_cached, eng.sign_readout):
         with pytest.raises(RuntimeError):
             accessor("a")
     with pytest.raises(RuntimeError):

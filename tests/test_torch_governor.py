@@ -136,6 +136,75 @@ def test_spec_validation_and_sign_tier():
             t_gov.GovernorSpec(**bad)
     assert [f.name for f in dataclasses.fields(t_gov.GovernorSpec)] == \
         [f.name for f in dataclasses.fields(j_gov.GovernorSpec)]
-    sign = t_gov.GovernorSpec(budget_mw=1.0, sign_tier=True)
-    with pytest.raises(NotImplementedError):
-        t_gov.tier_is_sign(sign, torch.zeros(2, dtype=torch.int32))
+    js, ts = _specs(budget_mw=1.0, sign_tier=True)
+    tier = np.array([0, 1, 2, 3, 4, 4, 3], np.int32)
+    np.testing.assert_array_equal(t_gov.tier_is_sign(ts, _t(tier)).numpy(),
+                                  np.asarray(j_gov.tier_is_sign(js, jnp.asarray(tier))))
+    assert t_gov.tier_is_sign(ts, _t(tier)).sum() == 2
+    np.testing.assert_array_equal(t_gov.tier_k_eff(ts, _t(tier), K).numpy(),
+                                  np.asarray(j_gov.tier_k_eff(js, jnp.asarray(tier), K)))
+
+
+def test_control_update_sign_tier_across_its_floor():
+    """The sign rung (3b) with ``sign_tier=True``: budgets within a few
+    float32 steps of the finest tier's floor (where a slot enters the sign
+    tier) and of floor / (1 - deadband) (where it may leave it), over ticks
+    that step every slot down into the sign tier and back up; tier exact,
+    j_cap exact, eps within 1e-6 relative."""
+    js, ts = _specs(budget_mw=1.0, sign_tier=True, backend_eps=1e-3)
+    jm, tm = j_pw.EnergyMeter(), t_pw.EnergyMeter()
+    slot_mw = 1e3 * jm.slot_recompute_power_w(PPP, M, HZ)
+    k_min = js.tier_tokens(K)[-1]
+    fixed_min = float(np.asarray(j_gov.fixed_power_mw(
+        jm, N_PIXELS, PPP, M, jnp.full((1,), k_min, jnp.int32), HZ))[0])
+    floor_mw = fixed_min + js.floor * slot_mw
+    edges = (floor_mw, floor_mw / (1.0 - js.deadband))
+    budget = []
+    for edge in edges:
+        b0 = np.float32(edge)
+        for step in range(-3, 4):
+            b = b0
+            for _ in range(abs(step)):
+                b = np.nextafter(b, np.float32(np.sign(step) * np.inf))
+            budget.append(b)
+    budget = np.array(budget + [np.float32(floor_mw * 0.5), np.float32(floor_mw * 3.0)],
+                      np.float32)
+    s = budget.shape[0]
+    rng = np.random.default_rng(3)
+    j_cap = rng.integers(1, J_MAX + 1, s).astype(np.int32)
+    tier = rng.integers(0, 5, s).astype(np.int32)
+    eps = np.zeros(s, np.float32)
+    active = np.ones(s, bool)
+    active[1] = False
+    jc = j_gov.GovernorControls(*map(jnp.asarray, (j_cap, tier, budget, eps)))
+    tc = t_gov.GovernorControls(*map(_t, (j_cap, tier, budget, eps)))
+    seen = set()
+    for tick in range(10):
+        # executed events: the finest tier's selection with j_cap converted
+        k_eff = np.asarray(j_gov.tier_k_eff(js, jc.tier, K)).astype(np.float32)
+        ev = j_pw.frontend_frame_events(N_PIXELS, PPP, M, n_selected_patches=jnp.asarray(
+            k_eff), n_converted_patches=jnp.asarray(np.asarray(jc.j_cap, np.float32)))
+        ev = j_pw.EventCounts(*(e * jnp.asarray(active, jnp.float32) for e in ev))
+        jn = j_gov.control_update(js, jc, ev, jnp.asarray(active), jm, HZ, N_PIXELS, PPP,
+                                  M, J_MAX, K, backend_mw=0.5)
+        tn = t_gov.control_update(ts, tc, t_pw.EventCounts(*(_t(e) for e in ev)),
+                                  _t(active), tm, HZ, N_PIXELS, PPP, M, J_MAX, K,
+                                  backend_mw=0.5)
+        np.testing.assert_array_equal(tn.tier.numpy(), np.asarray(jn.tier), f"tick {tick}")
+        np.testing.assert_array_equal(tn.j_cap.numpy(), np.asarray(jn.j_cap))
+        np.testing.assert_allclose(tn.eps.numpy(), np.asarray(jn.eps), rtol=1e-6, atol=0)
+        seen.update(np.asarray(jn.tier).tolist())
+        jc, tc = jn, t_gov.GovernorControls(*(_t(x) for x in jn))
+    sign = np.asarray(j_gov.tier_is_sign(js, jc.tier))
+    assert 4 in seen and sign.any() and not sign.all(), (seen, sign)
+    # recovery: a slack budget climbs every slot back out, one tier a tick
+    jc = jc._replace(budget_mw=jnp.full((s,), 100.0, jnp.float32))
+    tc = tc._replace(budget_mw=torch.full((s,), 100.0))
+    for tick in range(6):
+        jn = j_gov.control_update(js, jc, ev, jnp.asarray(active), jm, HZ, N_PIXELS, PPP,
+                                  M, J_MAX, K)
+        tn = t_gov.control_update(ts, tc, t_pw.EventCounts(*(_t(e) for e in ev)),
+                                  _t(active), tm, HZ, N_PIXELS, PPP, M, J_MAX, K)
+        np.testing.assert_array_equal(tn.tier.numpy(), np.asarray(jn.tier), f"up {tick}")
+        jc, tc = jn, t_gov.GovernorControls(*(_t(x) for x in jn))
+    assert not np.asarray(j_gov.tier_is_sign(js, jc.tier))[active].any()

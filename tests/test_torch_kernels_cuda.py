@@ -3,13 +3,16 @@
 These need an NVIDIA GPU with ``nvcc`` (the kernels are built at first
 use); everywhere else they skip. Run them on the card with
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py``.
-Tolerances: quant_matmul bitwise (exact int32 sums), at shapes that take
-each of its copy paths, at the largest sums and on the int16 codes of 10-
-and 16-bit ADCs; ip2_project codes within 1 LSB on a bounded number of rows
-(cuBLAS and the kernel sum fp32 in different orders); ip2_fused_embed
-bitwise equal to ip2_project -> quant_matmul (the same projection tile and
-chain, exact embed sums) over cluster sizes 1 to 8 and beyond, odd D and K,
-banks that span slots and every count pattern, and at 10 and 16 bits; the
+Tolerances: quant_matmul bitwise (int32 sums modulo 2^32, as the
+reference's), at shapes that take each of its copy paths, at the largest
+sums and on the int16 / int32 codes of 10-, 16-, 24- and 32-bit ADCs, also
+where the sums wrap; ip2_project codes within 1 LSB on a bounded number of
+rows (cuBLAS and the kernel sum fp32 in different orders), and at 10 and 16
+bits within 1 LSB on a bounded share of the codes, kernel 4's too;
+ip2_fused_embed bitwise equal to ip2_project -> quant_matmul (the same
+projection tile and chain, the same embed sums) over cluster sizes 1 to 8
+and beyond, odd D and K, banks that span slots and every count pattern,
+and at 10 to 32 bits; the
 sparse and ragged projections bitwise ip2_project on the gathered rows,
 zero past the counts, and at awkward shapes and count patterns bitwise
 ip2_fused_embed through the embed; delta_attention within 1e-5 of its
@@ -376,40 +379,59 @@ def test_fused_embed_kernel_grid(dev, m, d, kk):
             assert _bitwise(got, want), f"k {k} {name}"
 
 
-@pytest.mark.parametrize("bits", [10, 16])
+# (R, K, N) per code width: the serving shape, K off the 64-k stage, and
+# K past the old int16 bound (511) where the int32 sums wrap at the extremes
+WIDE_SHAPES = {
+    10: ((1024, 192, 256), (37, 600, 100), (5, 7, 3)),
+    16: ((1024, 192, 256), (33, 512, 72), (37, 1000, 100), (5, 7, 3)),
+    24: ((1024, 192, 256), (33, 600, 72), (5, 7, 3)),
+    32: ((1024, 192, 256), (33, 250, 72), (5, 7, 3)),
+}
+
+
+@pytest.mark.parametrize("bits", [10, 16, 24, 32])
 def test_quant_matmul_kernel_wide_codes(dev, bits):
-    """int16 codes of a 10- or 16-bit ADC: bitwise the plain version, with
-    the extreme codes against the extreme weights at the K bound (511)."""
+    """int16 / int32 codes of a 10-, 16-, 24- or 32-bit ADC: bitwise the
+    plain version, the extreme codes against the extreme weights included,
+    also where the int32 sums wrap (the reference's sums wrap there too)."""
     half = 1 << (bits - 1)
     g = torch.Generator().manual_seed(bits)
-    for r, k, n in ((1024, 192, 256), (37, 250, 100), (33, 511, 72), (5, 7, 3)):
-        a = torch.randint(-half, half, (r, k), generator=g, dtype=torch.int16)
+    dt = torch.int16 if bits <= 16 else torch.int32
+    wrapped = False
+    for r, k, n in WIDE_SHAPES[bits]:
+        a = torch.randint(-half, half, (r, k), generator=g, dtype=torch.int64).to(dt)
         a[0], a[1] = -half, half - 1
         w8 = torch.randint(-128, 128, (k, n), generator=g, dtype=torch.int8)
         w8[:, 0], w8[:, 1] = -128, 127
+        exact = a[:2].double() @ w8.double()
+        wrapped |= bool((exact.abs() >= 2**31).any())
         s_a, s_w = torch.rand(r, generator=g) * 0.01, torch.rand(n, generator=g) * 0.01
         a, w8, s_a, s_w = a.to(dev), w8.to(dev), s_a.to(dev), s_w.to(dev)
         got = _qmm_cuda_once(a, s_a, w8, s_w)
         assert _bitwise(got, ref.quant_matmul_ref(a, s_a, w8, s_w)), (r, k, n)
         assert torch.equal(ops.quant_matmul_pre(a, s_a, w8, s_w), got)
+    assert wrapped == (bits > 10)
 
 
-@pytest.mark.parametrize("bits", [10, 16])
-def test_fused_embed_kernel_wide_codes(dev, bits):
-    """10- and 16-bit codes through ip2_fused_embed: bitwise the staged
-    kernels (whose codes are int16) and the plain version on rows whose
-    codes agree; large weights drive many codes to both ends of the ADC."""
-    spec, x, w, idx, w8, s_w = _operands(dev, m=192, d=256)
+@pytest.mark.parametrize("bits,m", [(10, 192), (10, 600), (16, 192), (16, 600), (24, 192),
+                                    (32, 192), (32, 576)])
+def test_fused_embed_kernel_wide_codes(dev, bits, m):
+    """10- to 32-bit codes through ip2_fused_embed: bitwise the staged
+    kernels (int16 / int32 codes) and the plain version on rows whose
+    codes agree; large weights drive many codes to both ends of the ADC.
+    M 600 is past the old int16 bound (511); M 576 is the largest M whose
+    int32 code tile fits a block's shared memory."""
+    spec, x, w, idx, w8, s_w = _operands(dev, m=m, d=256)
     adc = adc_mod.ADCSpec(bits=bits)
     for scale in (1.0, 40.0):
         cnt = torch.tensor([4, 2, 0, 9, 3], dtype=torch.int32, device=dev)
         got = _fused_once(x, w * scale, idx, spec, adc, w8, s_w, cnt)
         want, codes = _staged(x, w * scale, idx, spec, adc, w8, s_w, cnt)
-        assert codes.dtype == torch.int16
+        assert codes.dtype == adc.code_dtype
         assert _bitwise(got, want), f"scale {scale}"
-        if scale > 1:
-            assert int((codes == -(1 << (bits - 1))).sum()) > 0
-            assert int((codes == (1 << (bits - 1)) - 1).sum()) > 0
+        if scale > 1:  # both ends of the ADC: the codes of v_min and v_max
+            ends = adc_mod.encode(torch.tensor([adc.v_min, adc.v_max], device=dev), adc)
+            assert int((codes == ends[0]).sum()) > 0 and int((codes == ends[1]).sum()) > 0
         w_t = ops._dac_weights(w * scale, spec).T.contiguous()
         table, cnt_c = ops._ragged_tables(idx, x.shape[1], cnt)
         params = ops.kernel_params_from_spec(spec, adc, codes=True)
@@ -419,30 +441,61 @@ def test_fused_embed_kernel_wide_codes(dev, bits):
         plain_codes = ref.ip2_project_ref(flat[table.long()], w_t,
                                           torch.zeros(w_t.shape[1], device=dev), params)
         same = (plain_codes.reshape(codes.shape) == codes).all(-1)
-        if bits == 10:  # at 16 bits an LSB nears the fp32 sums' order noise
+        if bits == 10:  # wider LSBs near the fp32 sums' order noise: see below
             assert int((~same).sum()) <= 2
         assert _bitwise(got[same], plain[same])
 
 
+# bound on the codes a 1-LSB move may touch (of all codes of a call): an
+# fp32 sum on an ADC rounding boundary, summed in another order by the
+# kernel's tile and by cuBLAS
+LSB_MOVES = {10: 0.001, 16: 0.01}
+
+
+@pytest.mark.parametrize("bits", [10, 16])
+def test_wide_codes_lsb_distance(dev, bits):
+    """Kernel 4 (through its codes: fused embed of the identity) and kernel
+    6 against the plain projection at the serving path's widths (1024
+    rows of 32x32 patches, M 192): no code further than 1 LSB, and the
+    1-LSB moves on a bounded share of the codes."""
+    g = torch.Generator().manual_seed(bits)
+    spec = proj.PatchSpec(32, 32, n_vectors=192)
+    x = torch.rand((1024, 1024), generator=g).to(dev)
+    w = (torch.randn((192, 1024), generator=g) * 12.8).to(dev)
+    adc = adc_mod.ADCSpec(bits=bits)
+    params = ops.kernel_params_from_spec(spec, adc, codes=True)
+    w_t = ops._dac_weights(w, spec).T.contiguous()
+    plain = ref.ip2_project_ref(x, w_t, torch.zeros(192, device=dev), params)
+    k6 = ops.ip2_project(x, w, spec, adc=adc, codes=True)
+    # kernel 4's codes: its embed of the 192 x 192 identity reproduces them
+    eye = torch.eye(192, dtype=torch.int8, device=dev)
+    rows = torch.arange(1024, device=dev, dtype=torch.int32)[None]
+    k4 = ops.ip2_fused_embed(x[None], w, rows, spec, adc, eye, torch.ones(192, device=dev))
+    k4 = torch.round(k4[0] / adc.lsb).to(torch.int64)
+    for name, got in (("ip2_project", k6.to(torch.int64)), ("ip2_fused_embed", k4)):
+        d = (got - plain.to(torch.int64)).abs()
+        assert int(d.max()) <= 1, f"{name} {bits} bits: codes {int(d.max())} LSB apart"
+        moved = int((d > 0).sum())
+        assert moved <= LSB_MOVES[bits] * d.numel(), \
+            f"{name} {bits} bits: {moved} codes moved, on {int((d.amax(-1) > 0).sum())} rows"
+
+
 def test_embed_kernels_reject_wide_codes(dev):
-    """Codes wider than 16 bits (int32, an ADC of 17 bits or more) raise
-    in both embed kernels, and so does an M above the int16 codes' exact
-    sum bound, naming the shape and counting no launch."""
-    spec, x, w, idx, w8, s_w = _operands(dev)
-    adc = adc_mod.ADCSpec(bits=20)
-    with pytest.raises(ValueError, match="16 bits"):
-        ops.ip2_fused_embed(x, w, idx, spec, adc, w8, s_w)
-    codes = ops.ip2_project(x, w, spec, adc=adc, codes=True)
-    assert codes.dtype == torch.int32
-    with pytest.raises(ValueError, match="16 bits"):
-        ops.quant_matmul_pre(codes, adc.lsb, w8, s_w)
-    # 16-bit codes at M 600 > 511: the int32 sums could overflow
+    """What the embed kernels do not take raises, naming the shape and
+    counting no launch: the fused kernel an ADC wider than 32 bits (no
+    code dtype holds it) and an M whose code tile does not fit a block's
+    shared memory (32-bit codes at M 600); quant_matmul a code dtype that
+    is not int8, int16 or int32. Codes of up to 32 bits at any K are taken
+    (see the wide-codes tests)."""
     spec6, x6, w6, idx6, w86, s_w6 = _operands(dev, m=600, d=40)
     n0 = dict(ops.LAUNCHES)
     with pytest.raises(RuntimeError, match=r"\(20, 256, 600, 40\)"):
-        ops.ip2_fused_embed(x6, w6, idx6, spec6, adc_mod.ADCSpec(bits=16), w86, s_w6)
-    a16 = torch.zeros((20, 600), dtype=torch.int16, device=dev)
-    with pytest.raises(RuntimeError, match=r"\(20, 600, 40\)"):
-        ops.quant_matmul_pre(a16, 1.0, w86, s_w6)
+        ops.ip2_fused_embed(x6, w6, idx6, spec6, adc_mod.ADCSpec(bits=32), w86, s_w6)
+    spec, x, w, idx, w8, s_w = _operands(dev)
+    with pytest.raises(RuntimeError, match=r"\(20, 256, 32, 40\)"):
+        ops.ip2_fused_embed(x, w, idx, spec, adc_mod.ADCSpec(bits=40), w8, s_w)
+    with pytest.raises(ValueError, match="int8, int16 and int32"):
+        ops.quant_matmul_pre(torch.zeros((20, 32), dtype=torch.int64, device=dev), 1.0,
+                             w8, s_w)
     assert ops.LAUNCHES["ip2_fused_embed"] == n0["ip2_fused_embed"]
     assert ops.LAUNCHES["quant_matmul"] == n0["quant_matmul"]

@@ -2,7 +2,9 @@
 run on CPU tensors) against the JAX ops wrappers, whose Pallas kernels run
 in interpret mode here.
 
-* ``quant_matmul_pre``: bitwise (integer sums, one fixed epilogue order).
+* ``quant_matmul_pre``: bitwise (integer sums, one fixed epilogue order),
+  also where the reference's int32 sum wraps modulo 2^32 (16-bit codes
+  at the extremes, 24-bit int32 codes).
 * ``ip2_project``: an fp32 sum may land on the other side of an ADC (or
   sign) boundary when XLA and PyTorch add in different orders, so codes
   may differ by exactly 1 LSB on a counted, bounded number of rows; float
@@ -12,6 +14,8 @@ in interpret mode here.
   where ``quant_matmul_pre`` takes int16 codes bitwise.
 * ``ip2_project_sparse`` (the sparse and the ragged kernel): codes within
   1 LSB on counted rows; rows past a slot's count exactly zero.
+* 10- and 16-bit codes at the serving projection's width: within 1 LSB of
+  the Pallas kernel's on a bounded share of the codes.
 """
 
 import jax.numpy as jnp
@@ -281,3 +285,57 @@ def test_wide_codes_embed_10_bits():
     same = ~_flip_rows(codes.numpy(), jcodes).reshape(idx.shape)
     assert same.sum() > 0
     np.testing.assert_array_equal(ty[same], jy[same])
+
+
+@pytest.mark.parametrize("bits,k,wraps", [(16, 600, True), (10, 600, False), (24, 300, True)],
+                         ids=["16bit_K600_wraps", "10bit_K600", "24bit_int32"])
+def test_quant_matmul_pre_wraps_like_the_reference(bits, k, wraps):
+    """The reference sums the codes in int32, which wraps modulo 2^32 past
+    its range: the plain version returns that wrapped sum, bitwise the JAX
+    kernel's, for the int16 codes of a 16-bit ADC at the extremes (where
+    the sum wraps), a 10-bit ADC at K 600 (where it does not) and the
+    int32 codes of a 24-bit ADC."""
+    half = 1 << (bits - 1)
+    dt = np.int16 if bits <= 16 else np.int32
+    a = RNG.integers(-half, half, size=(5, k)).astype(dt)
+    a[0], a[1] = -half, half - 1
+    a[2] = RNG.choice([-half, half - 1], size=k)
+    w8 = RNG.integers(-127, 128, size=(k, 12)).astype(np.int8)
+    w8[:, 0], w8[:, 1] = -127, 127
+    s_a = RNG.uniform(0.001, 0.1, (5,)).astype(np.float32)
+    s_w = RNG.uniform(0.001, 0.1, (12,)).astype(np.float32)
+    exact = a.astype(np.int64) @ w8.astype(np.int64)
+    assert bool((np.abs(exact) >= 2**31).any()) == wraps
+    jy = np.asarray(j_ops.quant_matmul_pre(jnp.asarray(a), jnp.asarray(s_a), jnp.asarray(w8),
+                                           jnp.asarray(s_w)))
+    ty = t_ops.quant_matmul_pre(_t(a), _t(s_a), _t(w8), _t(s_w)).numpy()
+    np.testing.assert_array_equal(ty, jy)
+    wrapped = ((exact + 2**31) % 2**32 - 2**31).astype(np.float32)
+    np.testing.assert_array_equal(ty, (wrapped * s_a[:, None]) * s_w[None, :])
+
+
+# bound on the codes (of all codes, per call) a 1-LSB move may touch at the
+# serving projection's width: an fp32 sum on an ADC rounding boundary
+LSB_MOVES = {10: 0.0005, 16: 0.005}
+
+
+@pytest.mark.parametrize("bits", [10, 16])
+def test_wide_codes_lsb_distance(bits):
+    """The plain projection's 10- and 16-bit codes against the JAX Pallas
+    kernel (interpret mode) at the serving path's widths (32x32 patches, M
+    192): no code further than 1 LSB, and the 1-LSB moves on a bounded
+    share of the codes (an LSB of a 16-bit ADC is 2^-15 V, near the fp32
+    sums' order noise, so moves are far more common than at 8 bits)."""
+    js = j_proj.PatchSpec(32, 32, n_vectors=192)
+    ts = t_proj.PatchSpec(32, 32, n_vectors=192)
+    rng = np.random.default_rng(7)
+    x = rng.uniform(size=(128, 1024)).astype(np.float32)
+    w = (rng.normal(size=(192, 1024)) * 12.8).astype(np.float32)
+    jc = np.asarray(j_ops.ip2_project(jnp.asarray(x), jnp.asarray(w), js,
+                                      adc=j_adc.ADCSpec(bits=bits), codes=True))
+    tc = t_ops.ip2_project(_t(x), _t(w), ts, adc=t_adc.ADCSpec(bits=bits), codes=True)
+    assert tc.dtype == torch.int16
+    d = np.abs(tc.numpy().astype(np.int64) - jc.astype(np.int64))
+    assert d.max() <= 1, f"{bits} bits: codes {d.max()} LSB apart"
+    assert (d > 0).sum() <= LSB_MOVES[bits] * d.size, \
+        f"{bits} bits: {(d > 0).sum()} codes of {d.size} moved, on {(d.max(-1) > 0).sum()} rows"

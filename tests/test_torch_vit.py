@@ -140,3 +140,38 @@ def test_saccade_step_loop(setup):
         tl, t_idx, _ = t_step(tp, torch.from_numpy(frame), t_idx)
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL, rtol=0)
         np.testing.assert_array_equal(t_idx.numpy(), np.asarray(j_idx))
+
+
+def test_forward_compact_sign_mode(setup):
+    """The governor's sign tier on the staged route: flagged rows serve the
+    sign view of their codes (the sign code points), conversions move to
+    sign comparisons; codes and events exact, logits and saliency within
+    ATOL; unflagged rows are the plain forward's."""
+    jc, tc, jp, tp, rgb, idx = setup
+    sign = np.array([True, False, True])
+    kw_j = {"project_fn": j_ops.ip2_codes_fn(jc.frontend.patch, jc.frontend.adc)}
+    kw_t = {"project_fn": t_ops.ip2_codes_fn(tc.frontend.patch, tc.frontend.adc)}
+    jl, ja = j_vit.vit_forward_compact(jp, jnp.asarray(rgb), jc, indices=jnp.asarray(idx),
+                                       sign_mode=jnp.asarray(sign), **kw_j)
+    tl, ta = t_vit.vit_forward_compact(tp, torch.from_numpy(rgb), tc,
+                                       indices=torch.from_numpy(idx),
+                                       sign_mode=torch.from_numpy(sign), **kw_t)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL, rtol=0)
+    np.testing.assert_allclose(ta["saliency"].numpy(), np.asarray(ja["saliency"]),
+                               atol=ATOL, rtol=0)
+    for a, b in zip(ta["events"], ja["events"]):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    assert (ta["events"].adc_conversions.numpy()[sign] == 0).all()
+    assert (ta["events"].sign_comparisons.numpy()[sign] > 0).all()
+    # the served codes: the same sign points as the reference's
+    jcf, tcf = _codes(setup)
+    c_thresh, c_pos, c_neg = j_vit.adc_mod.sign_code_points(
+        jc.frontend.patch.summer.v_ref, jc.frontend.adc)
+    want = np.where(np.asarray(jcf.features) >= c_thresh, c_pos, c_neg)
+    got = torch.where(tcf.features >= c_thresh, c_pos, c_neg).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert len(np.unique(want)) == 2
+    plain, _ = t_vit.vit_forward_compact(tp, torch.from_numpy(rgb), tc,
+                                         indices=torch.from_numpy(idx), **kw_t)
+    assert torch.equal(tl[~torch.from_numpy(sign)], plain[~torch.from_numpy(sign)])
+    assert not torch.equal(tl[torch.from_numpy(sign)], plain[torch.from_numpy(sign)])
