@@ -89,6 +89,25 @@ one CUDA device. Phases, any failure exits non-zero:
          a T = 16 rollout (union of the profiler's device intervals over
          wall time), and the 50 MB frame upload alone, pageable against
          page-locked.
+  (f)    dense mode, the float and sign wires and the float simulation at
+         the same width on 64 frames (``wires_dense_phase``), launch counts
+         reset before the kernel routes and read after them: dense
+         ``apply_frontend`` through kernel 6 with no ADC (4096 rows), the
+         compact sign wire (kernel 6's comparator) and float wire, and 12
+         gated ticks of ``vit_forward_compact`` on each of the two wires
+         with a per-slot recompute cap (kernel 2's no-ADC and sign readouts
+         at the n_stale counts). Each
+         against its plain route: bits, codes and float readouts within 1
+         LSB on at most 1 % of rows; the float wire dequantised bitwise the
+         code wire on the plain route; ``quant_embed`` on and off bitwise
+         equal on the sign wire; ``ops.quant_matmul`` bitwise its plain
+         version; ``vit_forward`` against ``vit_forward_compact`` for the
+         same selection within 1e-4, saliency zero off the mask; the float
+         simulation (``analog=False``) finite, and card against CPU on a
+         small input within 1e-4. Then host and device ms of the dense and
+         the two compact forwards. (Phase c times kernel 6's no-ADC readout
+         at the dense shape, 4096 x 1024 x 192, beside its bound and
+         ``torch.matmul``.)
 
 Prints the kernel table as one JSON line, the card's name and power limit
 (nvidia-smi), and last ``{"ok": true, "device": {...}}``. With ``--out DIR``
@@ -191,6 +210,219 @@ def _flip_rows(a, b, rows_per_call):
     assert int(d.max()) <= 1, f"codes differ by {int(d.max())} LSB"
     assert flips <= rows_per_call // 100, f"{flips} rows moved by 1 LSB"
     return int(d.max()), flips
+
+
+def _host_ms(fn, n=10, warm=3):
+    """Host clock per call over ``n`` back-to-back calls ending in a
+    synchronise (what a caller waits for, host work included)."""
+    import torch
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def _moved_rows(a, b, lsb):
+    """Rows of two payloads that differ: codes by at most 1 LSB, sign bits
+    in any bit, float readouts by at most 1 LSB (a code that moved).
+    Returns (rows moved, largest difference)."""
+    import torch
+    a, b = a.reshape(-1, a.shape[-1]), b.reshape(-1, b.shape[-1])
+    if a.dtype == torch.bool:
+        return int((a != b).any(-1).sum()), int((a != b).any())
+    d = (a.double() - b.double()).abs().amax(-1)
+    bound = 1 if not a.is_floating_point() else lsb + 1e-6
+    assert float(d.max()) <= bound, f"a row moved by {float(d.max())} (> 1 LSB)"
+    return int((d > 0).sum()), float(d.max())
+
+
+def wires_dense_phase(dev, params, cfg, cfg_g, small, rgb, pool, out, ticks=12):
+    """Phase f_wires_dense: dense mode, the compact float and sign wires,
+    the gated float and sign wires, and the float simulation, at the width
+    of ``cfg`` on the frames ``rgb`` (gated: ``pool``, each stream's scene
+    changing every 4 ticks). The kernel routes run with the launch counts
+    reset just before and read just after; each is then held against its
+    plain route: codes, bits and float readouts within 1 LSB on at most 1 %
+    of rows, and bitwise where the arithmetic is the same. Fills the
+    phase's report into ``out`` as it goes."""
+    import numpy as np
+    import torch
+    from repro_torch.convert import tree_to
+    from repro_torch.core import frontend as fe
+    from repro_torch.core import saliency as sal
+    from repro_torch.core.temporal import init_feature_cache
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.vit import init_vit, vit_forward, vit_forward_compact
+
+    fcfg, fcfg_g = cfg.frontend, cfg_g.frontend
+    lsb, k, n = fcfg.adc.lsb, fcfg.n_active, rgb.shape[0]
+    j = fcfg_g.temporal.budget(k)
+    x = torch.from_numpy(rgb).to(dev)
+    pf = {"float": ops.ip2_project_fn(fcfg.patch), "sign": ops.ip2_sign_fn(fcfg.patch),
+          "codes": ops.ip2_codes_fn(fcfg.patch, fcfg.adc)}
+    pf_g = {"float": ops.ip2_project_fn(fcfg_g.patch), "sign": ops.ip2_sign_fn(fcfg_g.patch)}
+    cache_dt = {"float": torch.float32, "sign": torch.bool}
+    cfg_fp = dataclasses.replace(cfg, quant_embed=False)
+    patches, _ = fe.sensor_patches(params["ip2"], x, fcfg)
+    idx = sal.topk_patch_indices(sal.patch_energy(patches), k)
+    mask = sal.mask_from_indices(idx, fcfg.n_patches)
+    # the gated clip: frames and the (route-independent) selection per tick
+    clip = []
+    for t in range(ticks):
+        xt = torch.from_numpy(np.stack([pool[(i + t // 4) % len(pool)]
+                                        for i in range(n)])).to(dev)
+        pt, _ = fe.sensor_patches(params["ip2"], xt, fcfg_g)
+        clip.append((xt, sal.topk_patch_indices(sal.patch_energy(pt), k)))
+
+    # a governor-like recompute allocation per slot, so the counts are ragged
+    stale_cap = torch.tensor([(j, j // 2, 3, 1)[i % 4] for i in range(n)],
+                             dtype=torch.int32, device=dev)
+
+    def gated(wire, fn):
+        cache = init_feature_cache(fcfg_g, (n,), dtype=cache_dt[wire], device=dev)
+        hist = []
+        for xt, it in clip:
+            logits, aux = vit_forward_compact(params, xt, cfg_g, indices=it, wire=wire,
+                                              project_fn=fn, cache=cache,
+                                              stale_cap=stale_cap)
+            cache = aux["cache"]
+            hist.append((logits, cache.features, aux["n_stale"]))
+        return hist
+
+    def compact(wire, fn):
+        return fe.apply_frontend(params["ip2"], x, fcfg, mode="compact", wire=wire,
+                                 indices=idx, project_fn=fn)
+
+    # ---- the path through the kernels, counted
+    ops.reset_launches()
+    dense_k, mask_k = fe.apply_frontend(params["ip2"], x, fcfg, mode="dense", indices=idx,
+                                        project_fn=pf["float"])
+    cf_k = {w: compact(w, pf[w]) for w in ("float", "sign", "codes")}
+    logits_k = {w: vit_forward_compact(params, x, cfg, indices=idx, wire=w,
+                                       project_fn=pf[w])[0] for w in ("float", "sign")}
+    gated_k = {w: gated(w, pf_g[w]) for w in ("float", "sign")}
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    out.update(frames=n, ticks=ticks, launches=launches)
+    assert launches["ip2_project"] == 6, launches    # dense, 3 compact, 2 forwards
+    assert launches["ip2_ragged"] == 2 * ticks, launches
+    assert all(launches[m] == 0 for m in ("ip2_fused_embed", "ip2_project_sparse",
+                                           "quant_matmul", "delta_attention")), launches
+
+    # 1. dense: kernel 6 with no ADC against the plain projection
+    dense_p, mask_p = fe.apply_frontend(params["ip2"], x, fcfg, mode="dense", indices=idx)
+    assert torch.equal(mask_k, mask_p) and torch.equal(mask_k, mask)
+    assert dense_k.shape == (n, fcfg.n_patches, fcfg.patch.n_vectors)
+    assert not dense_k[~mask_k].any(), "a deselected patch carries features"
+    rows = dense_k.numel() // dense_k.shape[-1]
+    moved, worst = _moved_rows(dense_k, dense_p, lsb)
+    out["dense"] = {"rows": rows, "rows_moved": moved, "max_abs_diff": worst}
+    assert moved <= rows // 100, out["dense"]
+
+    # 2. the compact sign wire: bits of kernel 6's comparator against the plain one
+    cf_p = {w: compact(w, None) for w in ("float", "sign", "codes")}
+    rows_c = n * k
+    moved, _ = _moved_rows(cf_k["sign"].features, cf_p["sign"].features, lsb)
+    out["sign"] = {"rows": rows_c, "rows_moved": moved}
+    assert cf_k["sign"].features.dtype == torch.bool and moved <= rows_c // 100, out["sign"]
+    lq = vit_forward_compact(params, x, cfg_fp, indices=idx, wire="sign",
+                             project_fn=pf["sign"])[0]
+    assert torch.equal(lq, logits_k["sign"]), "quant_embed moved the sign wire's logits"
+    assert torch.isfinite(logits_k["sign"]).all()
+
+    # 3. the float wire: kernel route against the code route, dequantised;
+    # on the plain route bitwise the dequantised codes
+    deq = {w: fe.dequantize_features(cf_k[w]) for w in ("float", "codes")}
+    moved, worst = _moved_rows(deq["float"], deq["codes"], lsb)
+    out["float"] = {"rows": rows_c, "rows_moved": moved, "max_abs_diff": worst}
+    assert moved <= rows_c // 100, out["float"]
+    assert torch.equal(fe.dequantize_features(cf_p["float"]),
+                       fe.dequantize_features(cf_p["codes"])), "float wire != codes (plain)"
+    assert torch.isfinite(logits_k["float"]).all()
+    # ops.quant_matmul (host-quantised activations, then kernel 5) on the
+    # float readouts: bitwise its plain version
+    a = deq["float"].reshape(-1, deq["float"].shape[-1])
+    w8, s_w = params["embed_q"]
+    ops.reset_launches()
+    y = ops.quant_matmul(a, w8, s_w)
+    assert ops.LAUNCHES["quant_matmul"] == 1
+    assert torch.equal(y, ref.quant_matmul_ref(*ref.quantize_activations_ref(a), w8, s_w)), \
+        "ops.quant_matmul differs from its plain version"
+
+    # 4. the gated wires: kernel 2's no-ADC and sign readouts at the n_stale
+    # counts against the plain projector, tick by tick
+    out["gated"] = {}
+    for w in ("float", "sign"):
+        plain = gated(w, None)
+        worst_rows, worst_logit = 0, 0.0
+        for t, ((lk, fk, sk), (lp, fp, sp)) in enumerate(zip(gated_k[w], plain)):
+            assert torch.equal(sk, sp), f"{w} tick {t}: n_stale differs between routes"
+            moved, _ = _moved_rows(fk, fp, lsb)
+            worst_rows = max(worst_rows, moved)
+            worst_logit = max(worst_logit, float((lk - lp).abs().max()))
+            assert moved <= fk.numel() // fk.shape[-1] // 100, f"{w} tick {t}: {moved} rows"
+            assert torch.isfinite(lk).all()
+        n_stale = torch.stack([h[2] for h in plain]).float()
+        out["gated"][w] = {"cache_rows": n * fcfg_g.n_patches, "max_rows_moved": worst_rows,
+                           "max_logit_diff": worst_logit,
+                           "mean_n_stale": float(n_stale.mean()),
+                           "ragged_slot_ticks": int(((n_stale > 0) & (n_stale < j)).sum())}
+    assert any(g["ragged_slot_ticks"] > 0 for g in out["gated"].values()), out["gated"]
+
+    # 5. dense against compact for the same selection (code wire). The two
+    # project different row sets (4096 rows, or the 1024 selected), so an
+    # fp32 sum on an ADC boundary may move a code between them: logits are
+    # held on the slots whose served features agree
+    ld, ad = vit_forward(params, x, cfg_fp, mask=mask, return_aux=True)
+    lc, ac = vit_forward_compact(params, x, cfg_fp, mask=mask)
+    dense_p, _ = fe.apply_frontend(params["ip2"], x, fcfg, mode="dense", mask=mask)
+    cf_m = fe.apply_frontend(params["ip2"], x, fcfg, mode="compact", mask=mask)
+    served = fe.dequantize_features(cf_m)
+    moved, _ = _moved_rows(sal.gather_patches(dense_p, cf_m.indices), served, lsb)
+    agree = (sal.gather_patches(dense_p, cf_m.indices) == served).all(-1).all(-1)
+    err = float((ld - lc).abs()[agree].max())
+    out["dense_vs_compact"] = {"rows_moved": moved, "slots_agreeing": int(agree.sum()),
+                               "max_logit_err": err, "max_abs_logit": float(ld.abs().max()),
+                               "max_logit_err_all_slots": float((ld - lc).abs().max())}
+    assert moved <= rows_c // 100 and int(agree.sum()) >= n - rows_c // 100, \
+        out["dense_vs_compact"]
+    assert err <= 1e-4, f"dense and compact logits differ by {err}"
+    for s_ in (ad["saliency"], ac["saliency"]):
+        assert (s_[~mask] == 0).all() and (s_[mask] > 0).all(), "saliency off the mask"
+
+    # 6. the float simulation: finite at full width; card against CPU small
+    cfg_sim = dataclasses.replace(cfg_fp, frontend=dataclasses.replace(fcfg, analog=False))
+    for name, l_ in (("dense", vit_forward(params, x, cfg_sim)),
+                     ("compact", vit_forward_compact(params, x, cfg_sim)[0])):
+        assert l_.shape == (n, cfg.n_classes) and torch.isfinite(l_).all(), name
+    small_sim = dataclasses.replace(small, quant_embed=False, frontend=dataclasses.replace(
+        small.frontend, analog=False))
+    p_cpu = init_vit(small_sim, torch.Generator().manual_seed(1), device="cpu")
+    p_dev = tree_to(p_cpu, dev)
+    step = rgb.shape[1] // small.frontend.image_h
+    xs = torch.from_numpy(np.ascontiguousarray(rgb[:8, ::step, ::step]))
+    out["float_sim_small"] = {}
+    for name, f_ in (("dense", lambda p, xx: vit_forward(p, xx, small_sim)),
+                     ("compact", lambda p, xx: vit_forward_compact(p, xx, small_sim)[0])):
+        e = float((f_(p_dev, xs.to(dev)).cpu() - f_(p_cpu, xs)).abs().max())
+        out["float_sim_small"][name] = e
+        assert e <= 1e-4, f"float simulation, {name}: card and CPU differ by {e}"
+
+    # 7. times of the forwards at this width (kernel 6's no-ADC readout at
+    # the dense shape is timed in phase c, beside the other kernels)
+    fwd = {
+        "dense_vit_forward": lambda: vit_forward(params, x, cfg_fp),
+        "compact_sign_kernel": lambda: vit_forward_compact(params, x, cfg, wire="sign",
+                                                           project_fn=pf["sign"]),
+        "compact_float_kernel": lambda: vit_forward_compact(params, x, cfg, wire="float",
+                                                            project_fn=pf["float"]),
+    }
+    out["times"] = {name: {"host_ms": _host_ms(f_), "device_ms": _device_ms(f_, n=10)}
+                    for name, f_ in fwd.items()}
 
 
 def main():
@@ -777,8 +1009,10 @@ def main():
         rgb, _ = SceneStream(seed=3, image=64).batch(0, 8)
         x_cpu = torch.from_numpy(rgb)
         pf_s = ops.ip2_codes_fn(small_fe.patch, small_fe.adc)
-        cf_cpu = fe.apply_frontend(p_cpu["ip2"], x_cpu, small_fe, project_fn=pf_s)
-        cf_gpu = fe.apply_frontend(p_gpu["ip2"], x_cpu.to(dev), small_fe, project_fn=pf_s)
+        cf_cpu = fe.apply_frontend(p_cpu["ip2"], x_cpu, small_fe, project_fn=pf_s,
+                                   mode="compact")
+        cf_gpu = fe.apply_frontend(p_gpu["ip2"], x_cpu.to(dev), small_fe, project_fn=pf_s,
+                                   mode="compact")
         assert torch.equal(cf_gpu.indices.cpu(), cf_cpu.indices), "selection differs"
         agree = (cf_gpu.features.cpu() == cf_cpu.features).all(-1).all(-1)
         assert int((~agree).sum()) <= 1, f"{int((~agree).sum())} slots with a moved code"
@@ -1000,6 +1234,21 @@ def main():
                 launches=kernels.get(name, {}).get("launches", 0), ms=ms,
                 device_ms=device_ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=lib_ms, library_device_ms=lib_device_ms)
+        # kernel 6's no-ADC readout (dense mode's) at the dense shape: every
+        # patch of the 64 frames, 4096 x 1024 x 192
+        p_noadc = ops.kernel_params_from_spec(fcfg.patch)
+        kern = lambda: ops._ip2_project_cuda(flat_p, w_t, zero_bias, p_noadc)  # noqa: E731
+        plain = lambda: ref.ip2_project_ref(flat_p, w_t, zero_bias, p_noadc)   # noqa: E731
+        n_dense = flat_p.shape[0]
+        bound_ms, bound_by = _bound(n_dense * k_in * 4 + k_in * m * 4 + m * 4 + n_dense * m * 4,
+                                    2.0 * n_dense * k_in * m / FP32_FLOPS)
+        report["noadc_dense"] = {
+            "shape": [n_dense, k_in, m], "max_abs_err": float((kern() - plain()).abs().max()),
+            "ms": _time_ms(kern), "device_ms": _device_ms(kern, kernel="ip2_project_kernel"),
+            "plain_ms": _time_ms(plain), "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": _time_ms(lambda: torch.matmul(flat_p, w_t)),
+            "library_device_ms": _device_ms(lambda: torch.matmul(flat_p, w_t))}
+        print(json.dumps({"noadc_dense": report["noadc_dense"]}))
 
     # ---- where the device time goes in the engines' ticks -----------------
     @phase("profile")
@@ -1318,6 +1567,17 @@ def main():
         del eng
         report["delta_skip_cost"] = out
         print(json.dumps({"delta_skip_cost": out}))
+
+    # ---- (f) dense mode, the float and sign wires, the float simulation ----
+    @phase("f_wires_dense")
+    def _f():
+        rgb, _ = stream.batch(7000, CAPACITY)
+        out = report["f_wires_dense"] = {}
+        try:
+            wires_dense_phase(dev, params, cfg_s, dataclasses.replace(cfg_s, frontend=fcfg_g),
+                              small, rgb, scene_pool, out)
+        finally:
+            print(json.dumps({"f_wires_dense": out}))
 
     report["kernels"] = [kernels.get(n, {"name": n}) for n in KERNELS]
     keys = ("name", "route", "source", "symbol", "replaces", "redesigned", "launches",

@@ -75,14 +75,28 @@ def dequantize(codes: torch.Tensor, scale: torch.Tensor, zero: torch.Tensor) -> 
     return codes.to(torch.float32) * scale + zero
 
 
-def sign_encode(out_v: torch.Tensor, v_ref: float) -> torch.Tensor:
-    """The ADC-less comparator: one bit per vector, ``out_v >= V_R``."""
-    return out_v >= v_ref
-
-
 #: reconstruction magnitude of a sign-only readout (the event meter's
 #: mean-signal calibration)
 SIGN_V_MAG = 0.1
+
+
+def sign_scale_zero(bias: torch.Tensor | float = 0.0, v_mag: float = SIGN_V_MAG
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The static ``(scale, zero)`` metadata of the sign wire:
+    ``dequantize(bit, scale, zero) = ±v_mag + bias`` for bit in {0, 1}.
+    Each constant is rounded to float32 once, filled on the bias's device
+    (no host-to-device copy), as :func:`readout_scale_zero` does."""
+    dev = bias.device if isinstance(bias, torch.Tensor) else None
+    scale = torch.full((), 2.0 * v_mag, dtype=torch.float32, device=dev)
+    mag = torch.full((), v_mag, dtype=torch.float32, device=dev)
+    if isinstance(bias, torch.Tensor):
+        return scale, bias.to(torch.float32) - mag
+    return scale, torch.full((), bias, dtype=torch.float32, device=dev) - mag
+
+
+def sign_encode(out_v: torch.Tensor, v_ref: float) -> torch.Tensor:
+    """The ADC-less comparator: one bit per vector, ``out_v >= V_R``."""
+    return out_v >= v_ref
 
 
 def sign_code_points(v_ref: float, spec: ADCSpec = ADCSpec(),

@@ -57,23 +57,28 @@ def frontend_frame_events(
     n_vectors: int,
     n_selected_patches,
     n_converted_patches,
+    readout: str = "adc",
 ) -> EventCounts:
-    """The events one compact frontend frame executes on the ADC readout
-    (the sign readout is not ported yet). The ``0·count`` terms broadcast
-    the per-frame constants to the batch shape."""
+    """The events one compact frontend frame executes. ``readout="adc"``
+    converts every (patch, vector) output at the edge ADC; ``"sign"``
+    fires one comparator instead: the same count, as ``sign_comparisons``.
+    The ``0·count`` terms broadcast the per-frame constants to the batch
+    shape."""
+    if readout not in ("adc", "sign"):
+        raise ValueError(f"unknown readout mode {readout!r}")
     n2 = pixels_per_patch
     m = n_vectors
     converted_px = n_converted_patches * n2
     conversions = n_converted_patches * m
     return EventCounts(
-        adc_conversions=conversions,
+        adc_conversions=conversions if readout == "adc" else 0.0 * conversions,
         dac_loads=0.0 * n_converted_patches + float(m * n2),
         cap_charges=converted_px * m,
         cds_samples=0.0 * n_converted_patches + 2.0 * n_pixels,
         pixel_dumps=n_pixels - n_selected_patches * n2,
         pwm_pixel_frames=converted_px,
         opamp_patch_frames=1.0 * n_converted_patches,
-        sign_comparisons=0.0 * conversions,
+        sign_comparisons=conversions if readout == "sign" else 0.0 * conversions,
         dac_reprograms=0.0 * n_converted_patches,
         backend_macs=0.0 * n_converted_patches,
     )

@@ -4,7 +4,8 @@
 A patch whose content has not changed since it was last projected keeps
 its feature as charge on the summing caps, so of the k selected patches
 only the *stale* ones are re-projected and converted; the rest are served
-from a per-patch :class:`FeatureCache` of ADC codes.
+from a per-patch :class:`FeatureCache` of the wire's payload (ADC codes,
+float32 readouts or sign bits).
 
 * :func:`select_stale` picks exactly j patches to recompute (static
   shape): stale patches (energy moved by ``delta_threshold``, never
@@ -24,6 +25,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.core import adc as adc_mod
 from repro_torch.core import power as power_mod
 
 
@@ -31,7 +33,7 @@ class FeatureCache(NamedTuple):
     """Held per-patch features over the full grid; leading dims are the
     batch/slot dims of the frames."""
 
-    features: torch.Tensor   # (..., P, M) ADC codes (the wire format)
+    features: torch.Tensor   # (..., P, M) the wire's payload: codes, f32 or bool
     energy: torch.Tensor     # (..., P) f32 — energy at last recompute
     age: torch.Tensor        # (..., P) int32 — frames since last recompute
     valid: torch.Tensor      # (..., P) bool — entry has ever been computed
@@ -175,9 +177,26 @@ def held_gain(cache: FeatureCache, indices: torch.Tensor, summer) -> torch.Tenso
 
 
 def gated_frame_events(n_pixels: float, pixels_per_patch: int, n_vectors: int,
-                       n_selected, n_stale) -> power_mod.EventCounts:
+                       n_selected, n_stale, readout: str = "adc") -> power_mod.EventCounts:
     """The events one gated frame executes: only the ``n_stale``
-    recomputed patches pay for projection and conversion (holds are free)."""
+    recomputed patches pay for projection and conversion (ADC, or one
+    comparator each with ``readout="sign"``); holds are free."""
     return power_mod.frontend_frame_events(
         n_pixels=n_pixels, pixels_per_patch=pixels_per_patch, n_vectors=n_vectors,
-        n_selected_patches=n_selected, n_converted_patches=n_stale)
+        n_selected_patches=n_selected, n_converted_patches=n_stale, readout=readout)
+
+
+def held_features(cache: FeatureCache, indices: torch.Tensor, summer,
+                  scale: torch.Tensor | None = None,
+                  zero: torch.Tensor | None = None) -> torch.Tensor:
+    """Serve the (..., k) selection from held charge as floats: gather the
+    rows, dequantise them (a code or sign cache needs the static ``(scale,
+    zero)`` metadata; a float cache ignores it) and apply each entry's
+    droop through :func:`held_gain`."""
+    feats = take_rows(cache.features, indices)
+    if not feats.is_floating_point():
+        if scale is None or zero is None:
+            raise ValueError("code-format cache: held_features needs the (scale, zero) "
+                             "metadata from repro_torch.core.adc.readout_scale_zero")
+        feats = adc_mod.dequantize(feats, scale, zero)
+    return feats * held_gain(cache, indices, summer)[..., None]

@@ -427,20 +427,62 @@ def ip2_project_sparse(
     return out.reshape(*lead, k, m)
 
 
-def ip2_codes_fn(spec: proj_mod.PatchSpec, adc):
-    """Frontend ``ProjectFn`` whose output is the wire format: int codes
-    straight from the kernel's fused ADC epilogue (``emits_codes``). With
-    ``row_counts`` (``supports_row_counts``) it runs the ragged kernel on
-    the gathered rows, and rows past a slot's count come back zero."""
+def fused_adc_conversions(n_rows, spec: proj_mod.PatchSpec, adc=None):
+    """ADC conversions one projection call performs for ``n_rows`` real
+    rows: M per row when a fused ADC epilogue runs (``adc`` given), else 0
+    (the caller's own readout converts, and counts)."""
+    if adc is None:
+        return 0 * n_rows
+    return n_rows * spec.n_vectors
+
+
+def fused_sign_comparisons(n_rows, spec: proj_mod.PatchSpec):
+    """Comparator firings of one sign-readout projection call: one per
+    (real row, vector), priced as ``sign_comparisons``."""
+    return n_rows * spec.n_vectors
+
+
+def _adapter(spec: proj_mod.PatchSpec, programmed, **readout):
+    """A frontend ``ProjectFn`` over kernel 6 (no ``row_counts``) or the
+    ragged kernel 2 (with them: rows past a slot's count come back zero),
+    with the fused ``readout`` (``ip2_project``'s keywords). ``programmed``
+    (``ProgrammedWeights``) replaces the weights it is handed."""
 
     def fn(patches, weights, _spec, row_counts=None):
+        w = programmed if programmed is not None else weights
         if row_counts is None:
-            return ip2_project(patches, weights, _spec, adc=adc, codes=True)
-        return ip2_project_sparse(patches, weights, _identity_indices(patches), _spec,
-                                  adc=adc, codes=True, row_counts=row_counts)
+            return ip2_project(patches, w, _spec, **readout)
+        return ip2_project_sparse(patches, w, _identity_indices(patches), _spec,
+                                  row_counts=row_counts, **readout)
 
-    fn.emits_codes = True
     fn.supports_row_counts = True
+    return fn
+
+
+def ip2_project_fn(spec: proj_mod.PatchSpec, programmed=None):
+    """Frontend ``ProjectFn`` with no fused ADC: the analog output, for the
+    frontend's own readout (dense mode and the float wire)."""
+    fn = _adapter(spec, programmed, adc=None)
+    fn.frame_conversions = lambda n_rows: fused_adc_conversions(n_rows, spec)
+    return fn
+
+
+def ip2_codes_fn(spec: proj_mod.PatchSpec, adc, programmed=None):
+    """Frontend ``ProjectFn`` whose output is the wire format: int codes
+    straight from the kernel's fused ADC epilogue (``emits_codes``)."""
+    fn = _adapter(spec, programmed, adc=adc, codes=True)
+    fn.emits_codes = True
+    fn.frame_conversions = lambda n_rows: fused_adc_conversions(n_rows, spec, adc)
+    return fn
+
+
+def ip2_sign_fn(spec: proj_mod.PatchSpec, programmed=None):
+    """Frontend ``ProjectFn`` whose output is the 1-bit sign wire: bool
+    comparator bits from the kernel's ADC-less epilogue (``emits_sign``)."""
+    fn = _adapter(spec, programmed, readout="sign")
+    fn.emits_sign = True
+    fn.frame_conversions = lambda n_rows: fused_adc_conversions(n_rows, spec)
+    fn.frame_sign_comparisons = lambda n_rows: fused_sign_comparisons(n_rows, spec)
     return fn
 
 
@@ -466,6 +508,22 @@ def quant_matmul_pre(
     else:
         out = ref.quant_matmul_ref(flat, s_flat, w8, s_w)
     return out.to(out_dtype).reshape(*lead, n)
+
+
+def quant_matmul(
+    a: torch.Tensor,                # (..., K) float activations
+    w8: torch.Tensor,               # (K, N) int8 codes
+    s_w: torch.Tensor,              # (N,) scales
+    out_dtype: torch.dtype | None = None,
+) -> torch.Tensor:
+    """y = a @ dequant(w8): quantises ``a`` per row to int8 on the host
+    (``ref.quantize_activations_ref``), then :func:`quant_matmul_pre`.
+    Activations that already are codes call ``quant_matmul_pre``."""
+    k = w8.shape[0]
+    lead = a.shape[:-1]
+    a8, s_a = ref.quantize_activations_ref(a.reshape(-1, k))
+    out = quant_matmul_pre(a8, s_a, w8, s_w, out_dtype=out_dtype or a.dtype)
+    return out.reshape(*lead, w8.shape[1])
 
 
 def quantize_weights_int8(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

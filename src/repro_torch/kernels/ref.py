@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch._arith import div
 from repro_torch.core import adc as adc_mod
 
 
@@ -91,6 +92,15 @@ def quant_matmul_ref(a8: torch.Tensor, s_a: torch.Tensor, w8: torch.Tensor,
         acc = (acc + part * (1 << (8 * p))) & 0xFFFFFFFF
     acc = acc - ((acc >> 31) << 32)            # two's complement int32 value
     return acc.to(torch.float32) * s_a[:, None] * s_w[None, :]
+
+
+def quantize_activations_ref(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-row symmetric int8 activation quantisation: (..., K) float ->
+    ((..., K) int8 codes, (...,) float32 scales ``max|a| / 127``)."""
+    amax = torch.amax(torch.abs(a), dim=-1)
+    scale = div(torch.clamp_min(amax, 1e-12), 127.0)
+    a8 = torch.clamp(torch.round(a / scale[..., None]), -127, 127).to(torch.int8)
+    return a8, scale.to(torch.float32)
 
 
 def ip2_fused_embed_ref(table: torch.Tensor, counts: torch.Tensor,

@@ -1,12 +1,16 @@
 """IP2-ViT: the paper's backend, a patch-token transformer classifier fed by
-the analog frontend, on the compact path.
+the analog frontend.
 
-``vit_forward_compact`` runs exactly the k active tokens (positional
-embeddings looked up by patch index) and returns the attention each token
-received, scattered back onto the patch grid: the next frame's saccade
-signal. With ``quant_embed`` the int8 ADC codes feed the w8a8 embed kernel;
-with ``fused_embed`` one kernel gathers, projects, converts and embeds. A
-temporal cache gates the frontend, and a backend cache gates the encoder
+``vit_forward`` runs the dense (..., P) token grid with the deselected
+patches zeroed and masked out of attention; ``vit_forward_compact`` runs
+exactly the k active tokens (positional embeddings looked up by patch
+index). For the same selection the two give the same logits. The compact
+forward returns the attention each token received, scattered back onto
+the patch grid: the next frame's saccade signal. Its wire is the int8 ADC
+codes, the float STE readout or the sign bits; with ``quant_embed`` the
+codes feed the w8a8 embed kernel; with ``fused_embed`` one kernel
+gathers, projects, converts and embeds. A temporal cache gates the
+frontend, and a backend cache gates the encoder
 (``models/backend_delta.py``).
 """
 
@@ -143,11 +147,14 @@ def _encoder(params: dict, x: torch.Tensor, cfg: ViTConfig,
 
 def _embed_tokens(params: dict, cf: CompactFeatures, cfg: ViTConfig) -> torch.Tensor:
     """The backend's first matmul, the one place the wire is dequantised.
-    With ``quant_embed`` the codes feed the w8a8 kernel and the affine
-    distributes: ((c·s + z)⊙g) @ W = g⊙(s·(c @ W8)·s_w + z @ dequant(W8))."""
-    if cfg.quant_embed:
+    With ``quant_embed`` integer codes feed the w8a8 kernel and the affine
+    distributes: ((c·s + z)⊙g) @ W = g⊙(s·(c @ W8)·s_w + z @ dequant(W8)).
+    Sign bits (their own affine) and float payloads take the generic
+    dequant, never the kernel."""
+    feats = cf.features
+    if cfg.quant_embed and feats.dtype != torch.bool and not feats.is_floating_point():
         w8, s_w = _embed_q(params)
-        y = ops.quant_matmul_pre(cf.features, cf.scale, w8, s_w)
+        y = ops.quant_matmul_pre(feats, cf.scale, w8, s_w)
         return (y + ops.fused_embed_zero_term(cf.zero, w8, s_w)) * cf.gain[..., None]
     return dequantize_features(cf) @ params["embed"]
 
@@ -163,7 +170,7 @@ def _saliency(received, indices, valid, n_patches):
 
 
 def _forward_compact_fused(params, rgb, cfg: ViTConfig, indices, mask,
-                           project_fn, precomputed, cache, k_cap, stale_cap):
+                           project_fn, precomputed, cache, wire, k_cap, stale_cap):
     """The fused compact path: one kernel gathers, projects, converts and
     embeds; the affine and gain algebra is exactly ``_embed_tokens``'."""
     fe_cfg = cfg.frontend
@@ -171,6 +178,13 @@ def _forward_compact_fused(params, rgb, cfg: ViTConfig, indices, mask,
         raise ValueError("fused_embed requires quant_embed=True")
     if not fe_cfg.analog:
         raise ValueError("fused_embed requires an analog frontend")
+    if wire == "float":
+        raise ValueError("fused_embed has no float wire: codes are consumed in-kernel "
+                         "and never materialized — use fused_embed=False for the STE "
+                         "float view")
+    if wire == "sign":
+        raise ValueError("fused_embed has no sign wire: it converts through the edge "
+                         "ADC in-kernel — use fused_embed=False with wire='sign'")
     if project_fn is not None:
         raise ValueError("fused_embed IS the projector; a project_fn cannot "
                          "be substituted into it — use fused_embed=False")
@@ -207,6 +221,7 @@ def vit_forward_compact(params: dict, rgb: torch.Tensor, cfg: ViTConfig,
                         indices: torch.Tensor | None = None,
                         mask: torch.Tensor | None = None,
                         project_fn=None, precomputed=None, cache=None,
+                        wire: str | None = None,
                         k_cap: torch.Tensor | None = None,
                         stale_cap: torch.Tensor | None = None,
                         sign_mode: torch.Tensor | None = None,
@@ -217,6 +232,8 @@ def vit_forward_compact(params: dict, rgb: torch.Tensor, cfg: ViTConfig,
     aux ``indices`` (B, k), ``valid`` (B, k), ``saliency`` (B, P),
     ``energy`` (B, P) and ``events`` (EventCounts of (B,) tensors).
 
+    ``wire`` is the frontend's payload: ``"codes"``, ``"float"`` or
+    ``"sign"`` (``None``: codes when analog, float otherwise).
     ``cache`` (a FeatureCache) turns on the temporal gate and adds
     ``aux["cache"]`` and ``aux["n_stale"]``; ``k_cap`` / ``stale_cap`` are
     the governor's per-slot knobs. ``sign_mode`` (B,) bool is its sign
@@ -240,13 +257,17 @@ def vit_forward_compact(params: dict, rgb: torch.Tensor, cfg: ViTConfig,
                              "degradation needs the staged code wire — use "
                              "fused_embed=False in a sign-tier governed engine")
         return _forward_compact_fused(params, rgb, cfg, indices, mask, project_fn,
-                                      precomputed, cache, k_cap, stale_cap)
+                                      precomputed, cache, wire, k_cap, stale_cap)
     out = apply_frontend(params["ip2"], rgb, cfg.frontend, mask=mask,
                          indices=indices, mode="compact", project_fn=project_fn,
-                         precomputed=precomputed, cache=cache, k_cap=k_cap,
+                         precomputed=precomputed, cache=cache, wire=wire, k_cap=k_cap,
                          stale_cap=stale_cap)
     cf, new_cache = out if cache is not None else (out, None)
     if sign_mode is not None:
+        if cf.features.is_floating_point():
+            raise ValueError("sign_mode degrades the int8 code wire; the float wire has "
+                             "no codes to degrade — it is the STE training view, not a "
+                             "served payload")
         c_thresh, c_pos, c_neg = adc_mod.sign_code_points(cfg.frontend.patch.summer.v_ref,
                                                           cfg.frontend.adc)
         dt, dev = cf.features.dtype, cf.features.device
@@ -302,3 +323,28 @@ def vit_forward_compact(params: dict, rgb: torch.Tensor, cfg: ViTConfig,
     if new_bcache is not None:
         aux["backend_cache"] = new_bcache
     return logits, aux
+
+
+def vit_forward(params: dict, rgb: torch.Tensor, cfg: ViTConfig,
+                mask: torch.Tensor | None = None, return_aux: bool = False):
+    """Dense path: rgb (B, H, W, 3) -> logits (B, n_classes) over the
+    zero-masked (B, P) token grid, attention keys restricted to the mask.
+    With ``return_aux`` also ``{"mask", "saliency"}``: the attention each
+    patch received, 0 off the mask."""
+    feats, mask = apply_frontend(params["ip2"], rgb, cfg.frontend, mask=mask)
+    x = feats @ params["embed"] + params["pos"][None]
+    logits, received = _encoder(params, x, cfg, mask)
+    if not return_aux:
+        return logits
+    saliency = torch.where(mask, received, torch.zeros_like(received))
+    return logits, {"mask": mask, "saliency": saliency}
+
+
+def vit_loss(params: dict, rgb: torch.Tensor, labels: torch.Tensor, cfg: ViTConfig):
+    """Mean cross-entropy and accuracy of the dense forward."""
+    logits = vit_forward(params, rgb, cfg)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[:, None])[:, 0]
+    loss = torch.mean(logz - gold)
+    acc = torch.mean((torch.argmax(logits, -1) == labels).to(torch.float32))
+    return loss, acc

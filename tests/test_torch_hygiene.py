@@ -107,6 +107,37 @@ def test_named_tuple_fields_match_reference(ref_t, port_t):
     assert port_t._fields == ref_t._fields
 
 
+@pytest.mark.parametrize("wire", ["codes", "float", "sign"])
+def test_wire_payloads_keep_the_reference_tuples(wire):
+    """The payloads of ``CompactFeatures`` and ``FeatureCache`` vary in dtype
+    with the wire; the tuples keep the reference's fields, and each payload
+    the reference's dtype."""
+    import jax.numpy as jnp
+
+    kw = dict(image_h=32, image_w=32, active_fraction=0.25)
+    jc = repro.core.frontend.FrontendConfig(
+        patch=repro.core.projection.PatchSpec(8, 8, n_vectors=8), **kw)
+    tc = repro_torch.core.frontend.FrontendConfig(
+        patch=repro_torch.core.projection.PatchSpec(8, 8, n_vectors=8), **kw)
+    rng = np.random.default_rng(0)
+    a = rng.normal(size=(8, 192)).astype(np.float32) * 3.2
+    rgb = rng.uniform(size=(1, 32, 32, 3)).astype(np.float32)
+    dt = {"codes": (None, None), "float": (jnp.float32, torch.float32),
+          "sign": (jnp.bool_, torch.bool)}[wire]
+    jcf, jcache = repro.core.frontend.apply_frontend(
+        {"a_rgb": jnp.asarray(a), "bias": jnp.zeros(8)}, jnp.asarray(rgb), jc,
+        mode="compact", wire=wire,
+        cache=repro.core.temporal.init_feature_cache(jc, (1,), dtype=dt[0]))
+    tcf, tcache = repro_torch.core.frontend.apply_frontend(
+        {"a_rgb": torch.from_numpy(a), "bias": torch.zeros(8)}, torch.from_numpy(rgb), tc,
+        mode="compact", wire=wire,
+        cache=repro_torch.core.temporal.init_feature_cache(tc, (1,), dtype=dt[1]))
+    assert type(tcf)._fields == type(jcf)._fields
+    assert type(tcache)._fields == type(jcache)._fields
+    for t, j in ((tcf.features, jcf.features), (tcache.features, jcache.features)):
+        assert t.numpy().dtype == np.asarray(j).dtype
+
+
 def test_entry_points_need_cuda_when_device_is_none(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = repro_torch.models.vit.ViTConfig()
@@ -137,6 +168,10 @@ def test_cpu_tensors_never_reach_the_cuda_build(monkeypatch):
     ops.ip2_fused_embed(x, w, idx, spec, adc, w8, s_w)
     ops.ip2_project_sparse(x, w, idx, spec, adc=adc, codes=True)
     ops.ip2_project_sparse(x, w, idx, spec, adc=adc, codes=True, row_counts=torch.tensor([1, 3]))
+    for fn in (ops.ip2_project_fn(spec), ops.ip2_sign_fn(spec), ops.ip2_codes_fn(spec, adc)):
+        fn(x, w, spec)
+        fn(x, w, spec, row_counts=torch.tensor([1, 3]))
+    ops.quant_matmul(torch.randn((2, 8)), w8, s_w)
     attn = {n: torch.zeros((8, 2, 4)) for n in ("wq", "wk", "wv")}
     attn.update({n: torch.zeros((2, 4)) for n in ("bq", "bk", "bv")}, wo=torch.zeros((2, 4, 8)))
     ops.delta_attention(attn, torch.rand((2, 3, 8)), torch.ones((2, 3), dtype=torch.bool),

@@ -173,7 +173,7 @@ def test_gated_frontend_clip_teacher_forced(route):
         jcf, jnew = jfront(jnp.asarray(rgb), jnp.asarray(idx), jcache,
                            jnp.asarray(k_cap), jnp.asarray(stale_cap))
         tcf, tnew = t_fe.apply_frontend(
-            tparams, _t(rgb), tc, indices=_t(idx), cache=_cache_to_torch(jcache),
+            tparams, _t(rgb), tc, mode="compact", indices=_t(idx), cache=_cache_to_torch(jcache),
             k_cap=_t(k_cap), stale_cap=_t(stale_cap), **kw_t)
         assert tcf.features.dtype == torch.int8
         flips += _flip_rows(tcf.features.numpy(), np.asarray(jcf.features))
@@ -201,10 +201,10 @@ def test_gated_frontend_errors():
     params = {"a_rgb": torch.zeros(32, 768), "bias": torch.zeros(32)}
     rgb = torch.zeros((1, 64, 64, 3))
     with pytest.raises(ValueError, match="stale_cap"):
-        t_fe.apply_frontend(params, rgb, tc, stale_cap=torch.tensor([1]))
+        t_fe.apply_frontend(params, rgb, tc, mode="compact", stale_cap=torch.tensor([1]))
     with pytest.raises(ValueError, match="k_cap"):
-        t_fe.apply_frontend(params, rgb, tc, mask=torch.ones((1, 16), dtype=torch.bool),
-                            k_cap=torch.tensor([2]))
+        t_fe.apply_frontend(params, rgb, tc, mode="compact",
+                            mask=torch.ones((1, 16), dtype=torch.bool), k_cap=torch.tensor([2]))
     bad = t_tm.init_feature_cache(tc, (1,), dtype=torch.float32)
     with pytest.raises(ValueError, match="dtype"):
-        t_fe.apply_frontend(params, rgb, tc, cache=bad)
+        t_fe.apply_frontend(params, rgb, tc, mode="compact", cache=bad)
