@@ -108,6 +108,24 @@ one CUDA device. Phases, any failure exits non-zero:
          the two compact forwards. (Phase c times kernel 6's no-ADC readout
          at the dense shape, 4096 x 1024 x 192, beside its bound and
          ``torch.matmul``.)
+  (g)    conv-in-pixel mode, QTH attention and the paper's figures
+         (``conv_phase``, then the engines): ``ops.ip2_conv`` on 4 seeded
+         1080 x 1920 frames (the 2 Mpix sensor at 1080p) at K 8, C 16 and
+         strides 8 and 4, float, 8-bit code and sign readouts through kernel
+         6, each against its plain route (float within 1e-5; codes and bits
+         within 1 LSB on at most 1 % of rows), a 64 x 64 crop against the
+         Python-loop oracle, ``conv_frame_events`` per frame, and kernel 6's
+         times at both conv shapes beside the gather's, the bound and
+         ``torch.matmul``. Then ``ViTConfig(qth=True)`` at the width of (b)
+         in the staged engine (kernels 6 and 5 every tick) and the gated one
+         (kernel 2 every tick, kernel 5 on computed ticks, delta_attention
+         never: qth excludes it), 12 ticks of churn each with the counts
+         reset before and read after, logits finite, held slots frozen; card
+         against CPU on a small input (1e-4 on slots whose codes agree); the
+         QTH weights' factor-2 flips card against CPU; tick times beside
+         the softmax engines of (c). Last the paper's figures from the port
+         (sensor-model outputs, no device work) and the quickstart example
+         on the card.
 
 Prints the kernel table as one JSON line, the card's name and power limit
 (nvidia-smi), and last ``{"ok": true, "device": {...}}``. With ``--out DIR``
@@ -116,9 +134,11 @@ written to ``DIR/chip_smoke.json``.
 """
 
 import argparse
+import contextlib
 import ctypes
 import dataclasses
 import hashlib
+import io
 import json
 import subprocess
 import sys
@@ -161,36 +181,65 @@ def _time_ms(fn, n=30, warm=5):
     return a.elapsed_time(b) / n
 
 
-def _device_ms(fn, kernel=None, n=30, warm=5, tries=3):
+PREROLL_LOST = []   # per _device_ms window: pre-roll fills lost (None: the mark too)
+
+
+def _device_ms(fn, kernel=None, n=30, warm=5, tries=4):
     """Device time per call from the profiler's CUDA events over ``n``
     calls: for a ``kernel`` (one launch per call), the mean duration of the
     events whose name holds it; else every device event's duration, summed
     and divided by ``n``. Host work between the calls does not count, as it
-    does in ``_time_ms``. The profiler now and then drops an event or a
-    whole window on that machine, so a window with more than two of a
-    kernel's events missing, or with none at all, is profiled again, up to
-    ``tries`` times."""
+    does in ``_time_ms``.
+
+    Three faults of the profiler on the H100 shape the window. It loses the
+    first device events of a window, most often none to 6 but now and then
+    dozens; its device timestamps can sit hundreds of microseconds off its
+    host ones, so a host-side range does not select device events; and now
+    and then it drops more of a window. So each window opens with at least
+    32 one-element fills over at least 2 ms, then ATen's ``spin_kernel``
+    (``torch.cuda._sleep``) and a synchronise as a mark on the device's own
+    clock, and only the device events that start after the mark count
+    (``PREROLL_LOST`` gets the fills each window lost, None where it lost
+    the mark too). A window that lost its mark is profiled again. A kernel
+    window must hold exactly ``n`` of the kernel's events; a window of all
+    events counts once the window before it held as many. Else it is
+    profiled again, up to ``tries`` windows."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warm):
         fn()
+    pad = torch.empty(1, device="cuda")
     torch.cuda.synchronize()
     seen = []
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fills, t_end = 0, time.perf_counter() + 2e-3
+            while fills < 32 or time.perf_counter() < t_end:
+                pad.zero_()
+                fills += 1
+            torch.cuda._sleep(1)
+            torch.cuda.synchronize()
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
-        evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+        evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        mark = [e.time_range for e in evs if "spin_kernel" in e.name]
+        if len(mark) != 1:
+            PREROLL_LOST.append(None)
+            seen.append(None)
+            continue
+        PREROLL_LOST.append(fills - sum(1 for e in evs if e.time_range.start < mark[0].start))
+        evs = [e for e in evs if e.time_range.start >= mark[0].end
                and (kernel is None or kernel in e.name)]
         seen.append(len(evs))
         us = sum(e.time_range.elapsed_us() for e in evs)
-        if kernel is None and evs:
+        if kernel is not None and len(evs) == n:
             return us / 1e3 / n
-        if kernel is not None and n - 2 <= len(evs) <= n:
-            return us / 1e3 / len(evs)
-    raise AssertionError(f"{kernel or 'device'} events per window of {n} calls: {seen}")
+        if kernel is None and evs and seen[-2:] == [len(evs)] * 2:
+            return us / 1e3 / n
+    raise AssertionError(f"{kernel or 'device'} events per window of {n} calls "
+                         f"(None: the window lost its mark): {seen}")
 
 
 def _sha(t):
@@ -425,6 +474,108 @@ def wires_dense_phase(dev, params, cfg, cfg_g, small, rgb, pool, out, ticks=12):
                     for name, f_ in fwd.items()}
 
 
+def conv_phase(dev, out, n_frames=4, h=1080, w=1920, crop=64, seed=18):
+    """Phase g's conv half: ``ops.ip2_conv`` (the plain im2col gather, then
+    kernel 6) on ``n_frames`` seeded h x w frames of pixel voltages at
+    ``ConvSpec(8, stride, 16)`` for strides 8 and 4, with the float (no
+    ADC), 8-bit code (with a bias) and sign readouts, the launch counts
+    reset just before and read just after. Each against the plain route on
+    the card (``extract_windows`` + ``ref.ip2_project_ref``): float within
+    1e-5, codes and bits within 1 LSB on at most 1 % of rows; on a crop x
+    crop corner also against ``ref.ip2_conv_ref``; ``extract_windows(f, 8,
+    8)`` bitwise ``extract_patches(f, 8, 8)``. Then ``conv_frame_events``
+    per frame beside the windows it prices, and the times: kernel 6 at each
+    conv shape (``ms``, ``device_ms``), the gather's device ms, the whole
+    wrapper, the plain route, the bound and the ``torch.matmul`` yardstick.
+    Fills ``out`` as it goes."""
+    import numpy as np
+    import torch
+    from repro_torch.core import projection as proj
+    from repro_torch.core.adc import ADCSpec
+    from repro_torch.core.power import EnergyMeter, conv_frame_events
+    from repro_torch.kernels import ops, ref
+
+    rng = np.random.default_rng(seed)
+    frames = torch.from_numpy(rng.uniform(size=(n_frames, h, w)).astype(np.float32)).to(dev)
+    wts = torch.from_numpy((rng.normal(size=(16, 64)) * 3.0).astype(np.float32)).to(dev)
+    bias = torch.from_numpy((rng.normal(size=(16,)) * 0.1).astype(np.float32)).to(dev)
+    zero = torch.zeros(16, device=dev)
+    adc = ADCSpec(bits=8)
+    kws = {"float": {}, "codes": {"adc": adc, "codes": True, "bias": bias},
+           "sign": {"readout": "sign"}}
+    out.update(frames=[n_frames, h, w], seed=seed)
+    assert torch.equal(proj.extract_windows(frames, 8, 8), proj.extract_patches(frames, 8, 8)), \
+        "extract_windows(f, 8, 8) != extract_patches(f, 8, 8)"
+    meter = EnergyMeter()
+    for stride in (8, 4):
+        conv = proj.ConvSpec(kernel=8, stride=stride, n_channels=16)
+        spec = conv.patch_spec()
+        gh, gw = conv.out_grid(h, w)
+        rows = n_frames * gh * gw
+        w_t = ops._dac_weights(wts, spec).T.contiguous()
+        params = {r: ops.kernel_params_from_spec(spec, kw.get("adc"), kw.get("codes", False),
+                                                 kw.get("readout", "adc"))
+                  for r, kw in kws.items()}
+        # the path through the kernel, counted
+        ops.reset_launches()
+        got = {r: ops.ip2_conv(frames, wts, conv, **kw) for r, kw in kws.items()}
+        torch.cuda.synchronize()
+        launches = dict(ops.LAUNCHES)
+        res = out[f"stride{stride}"] = {"grid": [gh, gw], "rows": rows, "launches": launches}
+        assert launches["ip2_project"] == 3 and sum(launches.values()) == 3, launches
+        windows = proj.extract_windows(frames, 8, stride).reshape(-1, 64)
+        for r, kw in kws.items():
+            g = got[r]
+            assert g.shape == (n_frames, gh * gw, 16), (r, tuple(g.shape))
+            g = g.reshape(rows, 16)
+            want = ref.ip2_project_ref(windows, w_t, bias if r == "codes" else zero, params[r])
+            if r == "float":
+                err = float((g - want).abs().max())
+                res[r] = {"max_abs_err": err}
+                assert err <= 1e-5, f"stride {stride} float readout off by {err}"
+                continue
+            d = (g.int() - want.int()).abs()
+            moved = int((d.amax(-1) > 0).sum())
+            res[r] = {"dtype": str(g.dtype), "rows_moved": moved, "max_lsb": int(d.max())}
+            assert g.dtype == (torch.bool if r == "sign" else torch.int8), (r, g.dtype)
+            assert int(d.max()) <= 1 and moved <= rows // 100, (stride, r, res[r])
+            # the Python-loop oracle on a crop of the first frame
+            c = frames[0, :crop, :crop]
+            o = ref.ip2_conv_ref(c, w_t, bias if r == "codes" else zero, conv, params[r])
+            kc = ops.ip2_conv(c, wts, conv, **kw)
+            dc = (kc.int() - o.int()).abs()
+            assert int(dc.max()) <= 1 and int((dc.amax(-1) > 0).sum()) <= max(
+                1, kc.shape[0] // 100), f"stride {stride} {r}: crop vs ip2_conv_ref"
+        c = frames[0, :crop, :crop]
+        e = float((ops.ip2_conv(c, wts, conv) - ref.ip2_conv_ref(
+            c, w_t, zero, conv, params["float"])).abs().max())
+        assert e <= 1e-5, f"stride {stride} float: crop vs ip2_conv_ref off by {e}"
+        # what the sensor would spend on one such frame (the paper's model)
+        ev = {name: conv_frame_events(float(h * w), 64, 16, float(gh * gw), **kw)
+              for name, kw in (("adc", {}), ("sign", {"readout": "sign"}),
+                               ("adc_reprogram", {"reprogram": True}))}
+        res["events_per_frame"] = {"windows": gh * gw, **{
+            n: {"adc_conversions": e.adc_conversions, "sign_comparisons": e.sign_comparisons,
+                "cap_charges": e.cap_charges, "dac_reprograms": e.dac_reprograms,
+                "model_mw_at_30hz": meter.power_mw(e, 30.0)} for n, e in ev.items()}}
+        # times: kernel 6 alone on the gathered windows, the gather, the
+        # wrapper, the plain route and the yardstick
+        p = params["codes"]
+        kern = lambda: ops._ip2_project_cuda(windows, w_t, bias, p)     # noqa: E731
+        lib = lambda: torch.matmul(windows, w_t)                        # noqa: E731
+        bound_ms, bound_by = _bound(rows * 64 * 4 + 64 * 16 * 4 + 16 * 4 + rows * 16,
+                                    2.0 * rows * 64 * 16 / FP32_FLOPS)
+        res["times"] = {
+            "kernel_ms": _time_ms(kern),
+            "kernel_device_ms": _device_ms(kern, kernel="ip2_project_kernel"),
+            "im2col_device_ms": _device_ms(lambda: proj.extract_windows(frames, 8, stride)),
+            "ip2_conv_ms": _time_ms(lambda: ops.ip2_conv(frames, wts, conv, **kws["codes"])),
+            "plain_ms": _time_ms(lambda: ref.ip2_project_ref(windows, w_t, bias, p)),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": _time_ms(lib), "library_device_ms": _device_ms(lib)}
+        del windows
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", type=Path, default=None,
@@ -452,7 +603,11 @@ def main():
         from repro_torch.models import vit as vit_mod
         from repro_torch.models.vit import ViTConfig, init_vit, prepare_quant_embed, \
             vit_forward_compact
-        from repro_torch.core.power import EnergyMeter
+        from repro_torch.core.power import (AreaBudget, EnergyMeter, SensorConfig,
+                                            data_reduction, power_report)
+        from repro_torch.core.qth_attention import QTHSpec, qth_attention_weights
+        from repro_torch.core.throughput import rate_point
+        from repro_torch.examples import quickstart
         from repro_torch.serve import governor as gov_mod
         from repro_torch.serve.engine import SaccadeEngine
         from repro_torch.serve.governor import GovernorSpec
@@ -1579,6 +1734,144 @@ def main():
         finally:
             print(json.dumps({"f_wires_dense": out}))
 
+    def qth_path(out):
+        """ViTConfig(qth=True) at ip2-vit width: the staged and the gated
+        engine on the 12-tick churn schedule, launch counts reset before each
+        and read after; then card against CPU on a small input, the QTH
+        weights' factor-2 flips card against CPU, and tick times."""
+        cfg_sq = dataclasses.replace(cfg_s, qth=True)
+        cfg_gq = dataclasses.replace(cfg_g, qth=True)
+        budget = report.get("gated_path", {}).get("budget_mw", 2.0 * CAPACITY * floor_mw)
+        engs = {"staged": SaccadeEngine(cfg_sq, params, capacity=CAPACITY,
+                                        project_fn=ops.ip2_codes_fn(fcfg.patch, adc)),
+                "gated": SaccadeEngine(cfg_gq, params, capacity=CAPACITY, project_fn=pf_g,
+                                       temporal=True, backend_delta=True,
+                                       governor=GovernorSpec(budget_mw=budget,
+                                                             backend_eps=1e-3))}
+        for name, eng in engs.items():
+            per_tick = []
+
+            def on_tick(t, frames, outs, held, before, launched, eng=eng, per_tick=per_tick):
+                after = int_state(eng)
+                for s_ in held:
+                    for n in after:
+                        assert torch.equal(after[n][s_], before[n][s_]), \
+                            f"{name} tick {t}: held {n} moved"
+                for sid in frames:
+                    assert np.isfinite(outs[sid]).all(), f"{name} tick {t}: non-finite logits"
+                fed = [eng.slot_of(s_) for s_ in frames]
+                computed = (name == "staged"
+                            or bool((eng.state.events_last.backend_macs[fed] > 0).any()))
+                per_tick.append({"fed": len(fed), "computed": computed,
+                                 "launches": {n: c for n, c in launched.items() if c}})
+
+            ops.reset_launches()
+            drive(eng, on_tick)
+            torch.cuda.synchronize()
+            launches = dict(ops.LAUNCHES)
+            n_computed = sum(t["computed"] for t in per_tick)
+            out[name] = {"ticks": len(per_tick), "computed_ticks": n_computed,
+                         "launches": launches}
+            if name == "staged":
+                assert launches["ip2_project"] == len(schedule), launches
+                assert launches["quant_matmul"] == len(schedule), launches
+            else:
+                assert launches["ip2_ragged"] == len(schedule), launches
+                assert 0 < n_computed and launches["quant_matmul"] == n_computed, launches
+                assert launches["delta_attention"] == 0, "qth reached delta_attention"
+            assert all(t["launches"] for t in per_tick), f"{name}: a tick launched nothing"
+
+        # kernel route on the card against the plain route on the CPU, small
+        small_q = dataclasses.replace(small, qth=True)
+        p_cpu = prepare_quant_embed(init_vit(small_q, torch.Generator().manual_seed(1),
+                                             device="cpu"))
+        p_gpu = tree_to(p_cpu, dev)
+        rgb, _ = SceneStream(seed=3, image=64).batch(0, 8)
+        x_cpu = torch.from_numpy(rgb)
+        pf_s = ops.ip2_codes_fn(small_fe.patch, small_fe.adc)
+        cfs = [fe.apply_frontend(p["ip2"], x, small_fe, project_fn=pf_s, mode="compact")
+               for p, x in ((p_cpu, x_cpu), (p_gpu, x_cpu.to(dev)))]
+        agree = (cfs[1].features.cpu() == cfs[0].features).all(-1).all(-1)
+        l_cpu, a_cpu = vit_forward_compact(p_cpu, x_cpu, small_q, project_fn=pf_s)
+        l_gpu, a_gpu = vit_forward_compact(p_gpu, x_cpu.to(dev), small_q, project_fn=pf_s)
+        err = float((l_gpu.cpu() - l_cpu).abs()[agree].max())
+        out["small_card_vs_cpu"] = {"slots_agreeing": int(agree.sum()), "max_logit_err": err}
+        assert torch.equal(a_gpu["indices"].cpu(), a_cpu["indices"]), "qth: selection differs"
+        assert int(agree.sum()) >= 7 and err <= 1e-4, out["small_card_vs_cpu"]
+
+        # factor-2 flips of the QTH weights, card against CPU, on seeded
+        # scores at the serving attention shape (64 slots, 4 heads, 16 tokens)
+        g = torch.Generator().manual_seed(18)
+        flips = 0
+        for _ in range(8):
+            sc = torch.randn((CAPACITY, 4, k_tok, k_tok), generator=g) * 2.0
+            spec = QTHSpec(renormalize=False)
+            wc = qth_attention_weights(sc.to(dev), spec).cpu()
+            wp = qth_attention_weights(sc, spec)
+            diff = wc != wp
+            ratio = wc[diff] / wp[diff].clamp_min(1e-30)
+            assert bool(((ratio == 2) | (ratio == 0.5) | (wc[diff] == 0) | (wp[diff] == 0))
+                        .all()), "a QTH weight moved by other than a factor of 2"
+            flips += int(diff.sum())
+        out["flips_card_vs_cpu"] = {"calls": 8, "coefficients": 8 * CAPACITY * 4 * k_tok ** 2,
+                                    "flips": flips}
+
+        # tick times at 64 fed streams, beside the softmax engines of (c)
+        rgb_t, _ = stream.batch(5000, CAPACITY)
+        for name, eng in engs.items():
+            for sid in list(eng.stream_ids):
+                eng.evict(sid)
+            for i in range(CAPACITY):
+                eng.admit(f"t{i}")
+            per = []
+            for t in range(13):
+                frames = ({f"t{i}": rgb_t[i] for i in range(CAPACITY)} if name == "staged"
+                          else {f"t{i}": scene_pool[(i + t // 4) % len(scene_pool)]
+                                for i in range(CAPACITY)})
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                eng.step(frames)
+                per.append((time.perf_counter() - t0) * 1e3)
+            out[name]["tick_ms"] = float(np.mean(per[3:]))
+            out[name]["softmax_tick_ms_phase_c"] = report.get("engine", {}).get(
+                name, {}).get("tick_ms")
+
+    # ---- (g) conv-in-pixel on kernel 6, QTH attention in both engines, the
+    # paper's figures
+    @phase("g_conv_qth")
+    def _g():
+        out = report["g_conv_qth"] = {"conv": {}, "qth": {}}
+        try:
+            conv_phase(dev, out["conv"])
+            print(json.dumps({"g_conv": out["conv"]}))
+            qth_path(out["qth"])
+        finally:
+            print(json.dumps({"g_qth": out["qth"]}))
+        rep = power_report(SensorConfig())
+        figures = {
+            "note": "the paper's sensor model (SensorConfig 2 Mpix at 30 Hz), not device numbers",
+            "power_mw": rep.total_w * 1e3, "mw_per_mpix": rep.mw_per_mpix,
+            "data_reduction": data_reduction(SensorConfig()),
+            "data_reduction_vs_rgb": data_reduction(SensorConfig(), vs_rgb=True),
+            "frame_hz_1080p_c2_400": rate_point("1080p", 2, 32, 400).frame_hz,
+            "area_total_um2": AreaBudget().totals()["Total"]["total_um2"],
+            "pitch_um": AreaBudget().totals()["Total"]["pitch_um"]}
+        out["paper_figures"] = figures
+        print(json.dumps({"paper_figures": figures}))
+        # the quickstart example on the card: its projection line is kernel 6
+        n0 = ops.LAUNCHES["ip2_project"]
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            qs = quickstart.main([])
+        out["quickstart"] = {"stdout": buf.getvalue(), **{k: v for k, v in qs.items()
+                                                           if k != "compact_shape"}}
+        assert ops.LAUNCHES["ip2_project"] == n0 + 1, "the quickstart did not launch kernel 6"
+        assert qs["kernel_max_abs_diff"] <= 1e-5, qs
+
+    lost = [k for k in PREROLL_LOST if k is not None]
+    report["profiler_preroll_lost"] = {"windows": len(PREROLL_LOST), "max": max(lost, default=None),
+                                       "total": sum(lost), "marks_lost": PREROLL_LOST.count(None)}
+    print(json.dumps({"profiler_preroll_lost": report["profiler_preroll_lost"]}))
     report["kernels"] = [kernels.get(n, {"name": n}) for n in KERNELS]
     keys = ("name", "route", "source", "symbol", "replaces", "redesigned", "launches",
             "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",

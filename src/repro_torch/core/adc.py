@@ -10,6 +10,7 @@ agree bit for bit.
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import torch
 
@@ -39,6 +40,15 @@ class ADCSpec:
         if self.bits <= 16:
             return torch.int16
         return torch.int32
+
+
+class ADCCodes(NamedTuple):
+    """One frame's conversions in wire format: integer codes plus the
+    static affine metadata that dequantises them."""
+
+    codes: torch.Tensor   # (..., M) signed integer codes (code_dtype)
+    scale: torch.Tensor   # () float32, volts per LSB
+    zero: torch.Tensor    # (M,) or () float32, v_min + half·lsb - (V_R - b)
 
 
 def _code_grid(v: torch.Tensor, spec: ADCSpec) -> torch.Tensor:
@@ -73,6 +83,14 @@ def readout_scale_zero(
 def dequantize(codes: torch.Tensor, scale: torch.Tensor, zero: torch.Tensor) -> torch.Tensor:
     """codes -> float readout, the one affine allowed to leave code space."""
     return codes.to(torch.float32) * scale + zero
+
+
+def digital_codes(out_v: torch.Tensor, v_ref: float, bias: torch.Tensor | float = 0.0,
+                  spec: ADCSpec = ADCSpec()) -> ADCCodes:
+    """ADC conversion in wire format: codes + ``(scale, zero)`` such that
+    ``dequantize(*digital_codes(...)) == digital_readout(...)`` exactly."""
+    scale, zero = readout_scale_zero(v_ref, bias, spec)
+    return ADCCodes(encode(out_v, spec), scale, zero)
 
 
 #: reconstruction magnitude of a sign-only readout (the event meter's
@@ -117,6 +135,18 @@ def sign_code_points(v_ref: float, spec: ADCSpec = ADCSpec(),
     return c_thresh, c_pos, c_neg
 
 
+def adc_quantize(v: torch.Tensor, spec: ADCSpec = ADCSpec()) -> torch.Tensor:
+    """Uniform mid-rise ADC over [v_min, v_max] on the voltage grid (no
+    ``V_R - b`` subtraction), on the code grid of :func:`encode`, with an
+    exact-forward STE (``lin - lin.detach()`` adds exactly 0.0)."""
+    half = spec.levels // 2
+    q = (_code_grid(v, spec) + half) * spec.lsb + spec.v_min
+    if spec.ste:
+        lin = torch.clamp(v, spec.v_min, spec.v_max)
+        return q + (lin - lin.detach())
+    return q
+
+
 def digital_readout(
     out_v: torch.Tensor,
     v_ref: float,
@@ -125,8 +155,7 @@ def digital_readout(
 ) -> torch.Tensor:
     """ADC conversion followed by the digital ``V_R - b`` subtraction,
     defined as the dequantized codes plus an exact-forward STE residual."""
-    scale, zero = readout_scale_zero(v_ref, bias, spec)
-    deq = dequantize(encode(out_v, spec), scale, zero)
+    deq = dequantize(*digital_codes(out_v, v_ref, bias, spec))
     if spec.ste:
         lin = torch.clamp(out_v, spec.v_min, spec.v_max)
         return deq + (lin - lin.detach())

@@ -71,3 +71,8 @@ def antialias(frame: torch.Tensor, cutoff_nyquist: float = 0.5) -> torch.Tensor:
 
     out = conv_last(frame)                                          # along W
     return conv_last(out.transpose(-1, -2)).transpose(-1, -2)       # along H
+
+
+def downsample2(frame: torch.Tensor) -> torch.Tensor:
+    """The ½-resolution sensor option (1920x1080 RGB -> 960x540 Bayer)."""
+    return frame[..., ::2, ::2]

@@ -62,12 +62,42 @@ def quantize_weights(
 
     One DAC full-scale per output row by default; ``codes =
     round(weights / scale)`` are integers in [-L, L]."""
+    codes, scale = _dac_codes(weights, spec, per_output_scale)
+    w_q = codes * scale
+    return _ste(weights, w_q, spec.ste), scale
+
+
+def _dac_codes(weights: torch.Tensor, spec: QuantSpec,
+               per_output_scale: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """Float DAC codes in [-L, L] and the full-scale ``max|w| / L`` (per
+    output row, or one global)."""
     levels = spec.weight_levels
     if per_output_scale:
         amax = torch.amax(torch.abs(weights), dim=-1, keepdim=True)
     else:
         amax = torch.amax(torch.abs(weights))
     scale = div(torch.clamp_min(amax, 1e-12), levels)
-    codes = torch.clamp(torch.round(weights / scale), -levels, levels)
-    w_q = codes * scale
-    return _ste(weights, w_q, spec.ste), scale
+    return torch.clamp(torch.round(weights / scale), -levels, levels), scale
+
+
+def pwm_codes(pixels: torch.Tensor, spec: QuantSpec = QuantSpec()) -> torch.Tensor:
+    """Integer PWM codes (the counter values driving the pulse generator),
+    int32."""
+    n = spec.pwm_levels - 1
+    return torch.round(torch.clamp(pixels, 0.0, 1.0) * n).to(torch.int32)
+
+
+def weight_codes(weights: torch.Tensor, spec: QuantSpec = QuantSpec(),
+                 per_output_scale: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+    """Integer DAC codes (int8) + float scale, for the integer-domain path."""
+    codes, scale = _dac_codes(weights, spec, per_output_scale)
+    return codes.to(torch.int8), scale
+
+
+def analog_multiply(pixels: torch.Tensor, weights: torch.Tensor,
+                    spec: QuantSpec = QuantSpec()) -> torch.Tensor:
+    """The per-pixel charge ``Q_i = I(w_i) · t(P_i)``, both factors
+    quantised, before charge sharing (``switched_cap`` sums it)."""
+    p_q = pwm_quantize(pixels, spec)
+    w_q, _ = quantize_weights(weights, spec)
+    return w_q * p_q

@@ -357,6 +357,26 @@ def ip2_project(
     return out.reshape(*lead, m)
 
 
+def ip2_conv(
+    frame: torch.Tensor,            # (H, W) or (B, H, W) pixel voltages in [0,1]
+    weights,                        # (C, K²) float (pre-DAC) or ProgrammedWeights
+    conv: proj_mod.ConvSpec,
+    adc=None,
+    bias: torch.Tensor | None = None,
+    codes: bool = False,
+    readout: str = "adc",
+) -> torch.Tensor:
+    """Conv-in-pixel mode: the frame's strided K×K windows
+    (``extract_windows``, a plain PyTorch gather) are the patches and the C
+    output channels the vectors of :func:`ip2_project`, so on CUDA tensors
+    the projection kernel runs with its float, code or sign readout.
+    Returns (..., gh·gw, C) in row-major window order. What the weight DAC
+    costs per frame is priced by ``power.conv_frame_events``."""
+    windows = proj_mod.extract_windows(frame, conv.kernel, conv.stride)
+    return ip2_project(windows, weights, conv.patch_spec(), adc=adc, bias=bias,
+                       codes=codes, readout=readout)
+
+
 def _identity_indices(patches: torch.Tensor) -> torch.Tensor:
     """(..., j, N2) gathered patches -> (..., j) identity row indices."""
     j = patches.shape[-2]

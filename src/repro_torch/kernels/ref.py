@@ -35,6 +35,26 @@ def ip2_project_ref(patches: torch.Tensor, w_q: torch.Tensor,
     return adc_mod.digital_readout(out, params.v_ref, bias[None, :], spec)
 
 
+def ip2_conv_ref(frame: torch.Tensor, w_q: torch.Tensor, bias: torch.Tensor,
+                 conv, params) -> torch.Tensor:
+    """ops.ip2_conv's oracle: explicit Python-loop slicing of the strided
+    K×K windows (independent of ``projection.extract_windows``), then
+    :func:`ip2_project_ref`; (..., gh·gw, C) in row-major window order.
+    ``conv`` is a ``ConvSpec`` (geometry only), ``w_q`` (K², C) on the DAC
+    grid."""
+    k, s = conv.kernel, conv.stride
+    frames = frame if frame.ndim == 3 else frame[None]
+    b, h, w = frames.shape
+    gh = (h - k) // s + 1
+    gw = (w - k) // s + 1
+    wins = [frames[:, i * s:i * s + k, j * s:j * s + k].reshape(b, k * k)
+            for i in range(gh) for j in range(gw)]
+    windows = torch.stack(wins, dim=1)                    # (b, gh*gw, K²)
+    out = ip2_project_ref(windows.reshape(-1, k * k), w_q, bias, params)
+    out = out.reshape(b, gh * gw, -1)
+    return out if frame.ndim == 3 else out[0]
+
+
 def _zero_past_counts(out: torch.Tensor, counts: torch.Tensor, k: int) -> torch.Tensor:
     """(S·k, ...) rows at positions >= their slot's count set to 0."""
     live = (torch.arange(k, device=out.device)[None, :] < counts[:, None]).reshape(-1)

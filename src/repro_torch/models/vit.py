@@ -34,6 +34,7 @@ from repro_torch.core.frontend import (
     init_frontend_params,
     select_compact,
 )
+from repro_torch.core.qth_attention import QTHSpec, qth_attention_weights
 from repro_torch.kernels import ops
 from repro_torch.models import backend_delta as bdel
 from repro_torch.models.attention import init_attention
@@ -50,7 +51,7 @@ class ViTConfig:
     d_model: int = 128
     n_heads: int = 4
     d_ff: int = 256
-    qth: bool = False          # power-of-2 attention (not ported yet)
+    qth: bool = False          # Fig. 4 power-of-2 attention in the backend
     quant_embed: bool = False  # consume ADC codes via the w8a8 kernel
     fused_embed: bool = False  # one kernel: project + ADC + embed
     saliency_layers: str = "all"  # "all" (mean over layers) or "last"
@@ -96,10 +97,9 @@ def _embed_q(params: dict):
 def _encoder_attention(lp: dict, h: torch.Tensor, cfg: ViTConfig,
                        token_valid: torch.Tensor, need_probs: bool = True):
     """Bidirectional self-attention over the tokens: scores / sqrt(dh),
-    invalid keys masked to -1e30, softmax. Returns (out (B, S, d), probs
-    (B, H, S, S) or None)."""
-    if cfg.qth:
-        raise NotImplementedError("qth attention is not ported yet")
+    invalid keys masked to -1e30, softmax, or with ``cfg.qth`` the Fig. 4
+    power-of-2 coefficients. Returns (out (B, S, d), probs (B, H, S, S) or
+    None)."""
     dh = cfg.d_model // cfg.n_heads
     a = lp["attn"]
     q = torch.einsum("bsd,dhk->bshk", h, a["wq"]) + a["bq"]
@@ -107,9 +107,13 @@ def _encoder_attention(lp: dict, h: torch.Tensor, cfg: ViTConfig,
     v = torch.einsum("bsd,dhk->bshk", h, a["wv"]) + a["bv"]
     scores = torch.einsum("bqhk,bshk->bhqs", q, k) / torch.sqrt(
         torch.full((), dh, dtype=h.dtype, device=h.device))
-    scores = torch.where(token_valid[:, None, None, :], scores,
-                         torch.full((), NEG_INF, dtype=scores.dtype, device=scores.device))
-    probs = torch.softmax(scores, dim=-1)
+    if cfg.qth:
+        probs = qth_attention_weights(scores, QTHSpec(), key_valid=token_valid[:, None])
+    else:
+        scores = torch.where(token_valid[:, None, None, :], scores,
+                             torch.full((), NEG_INF, dtype=scores.dtype,
+                                        device=scores.device))
+        probs = torch.softmax(scores, dim=-1)
     o = torch.einsum("bhqs,bshk->bqhk", probs.to(v.dtype), v)
     out = torch.einsum("bshk,hkd->bsd", o, a["wo"])
     return out, (probs if need_probs else None)

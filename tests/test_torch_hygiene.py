@@ -19,10 +19,12 @@ import repro.core.projection
 import repro.core.pwm
 import repro.core.switched_cap
 import repro.core.temporal
+import repro.core.throughput
 import repro.models.backend_delta
 import repro.models.vit
 import repro.serve.engine
 import repro.serve.governor
+from repro.core.qth_attention import QTHSpec as RefQTHSpec
 from repro.kernels.ip2_project import IP2KernelParams as RefKernelParams
 import repro_torch.convert
 import repro_torch.core.adc
@@ -32,7 +34,9 @@ import repro_torch.core.power
 import repro_torch.core.projection
 import repro_torch.core.pwm
 import repro_torch.core.switched_cap
+import repro_torch.core.qth_attention
 import repro_torch.core.temporal
+import repro_torch.core.throughput
 import repro_torch.kernels.ops
 import repro_torch.models.backend_delta
 import repro_torch.models.vit
@@ -44,7 +48,8 @@ ROOT = Path(__file__).resolve().parents[1]
 
 def _port_files():
     return (sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-            + [ROOT / "chip_smoke.py", ROOT / "tools" / "fused_embed_variants.py"])
+            + [ROOT / "chip_smoke.py", ROOT / "tools" / "fused_embed_variants.py",
+               ROOT / "tools" / "profiler_windows.py"])
 
 
 def _imported_modules(path):
@@ -74,6 +79,11 @@ PAIRS = [
     (repro.models.vit.ViTConfig, repro_torch.models.vit.ViTConfig),
     (RefKernelParams, repro_torch.kernels.ops.IP2KernelParams),
     (repro.core.power.EnergyConstants, repro_torch.core.power.EnergyConstants),
+    (repro.core.projection.ConvSpec, repro_torch.core.projection.ConvSpec),
+    (RefQTHSpec, repro_torch.core.qth_attention.QTHSpec),
+    (repro.core.power.SensorConfig, repro_torch.core.power.SensorConfig),
+    (repro.core.power.AreaBudget, repro_torch.core.power.AreaBudget),
+    (repro.core.throughput.RatePoint, repro_torch.core.throughput.RatePoint),
 ]
 # GovernorSpec has a required field (budget_mw): compared on its fields
 # in tests/test_torch_governor.py
@@ -102,6 +112,8 @@ def test_config_fields_match_reference(ref_cls, port_cls):
     (repro.serve.governor.GovernorControls, repro_torch.serve.governor.GovernorControls),
     (repro.models.backend_delta.BackendCache, repro_torch.models.backend_delta.BackendCache),
     (repro.serve.engine.StreamState, repro_torch.serve.engine.StreamState),
+    (repro.core.power.PowerReport, repro_torch.core.power.PowerReport),
+    (repro.core.adc.ADCCodes, repro_torch.core.adc.ADCCodes),
 ], ids=lambda c: c.__name__)
 def test_named_tuple_fields_match_reference(ref_t, port_t):
     assert port_t._fields == ref_t._fields

@@ -499,3 +499,48 @@ def test_embed_kernels_reject_wide_codes(dev):
                              w8, s_w)
     assert ops.LAUNCHES["ip2_fused_embed"] == n0["ip2_fused_embed"]
     assert ops.LAUNCHES["quant_matmul"] == n0["quant_matmul"]
+
+
+@pytest.mark.parametrize("readout", ["float", "codes", "sign"])
+@pytest.mark.parametrize("stride", [8, 4])
+@pytest.mark.parametrize("size", ["small", "sensor"])
+def test_ip2_conv_kernel_vs_plain(dev, size, stride, readout):
+    """ops.ip2_conv launches kernel 6 over the conv windows (K 8, C 16) and
+    holds to its plain route (``extract_windows`` + ``ref.ip2_project_ref``)
+    on the same card: the float readout within 1e-5, codes and sign bits
+    within 1 LSB on at most 1 % of rows, or 2 rows on the small frames' 192
+    and 690 windows (as the other projection tests here). ``sensor`` is the
+    2 Mpix 1080p frame of chip_smoke.py's conv phase (one frame here)."""
+    h, w = (64, 96) if size == "small" else (1080, 1920)
+    g = torch.Generator().manual_seed(stride)
+    frame = torch.rand((1 if size == "sensor" else 2, h, w), generator=g).to(dev)
+    wts = (torch.randn((16, 64), generator=g) * 3.0).to(dev)
+    bias = (torch.randn((16,), generator=g) * 0.1).to(dev)
+    conv = proj.ConvSpec(kernel=8, stride=stride, n_channels=16)
+    adc = adc_mod.ADCSpec(bits=8)
+    kw = {"float": {}, "codes": {"adc": adc, "codes": True, "bias": bias},
+          "sign": {"readout": "sign"}}[readout]
+    n0 = ops.LAUNCHES["ip2_project"]
+    got = ops.ip2_conv(frame, wts, conv, **kw)
+    assert ops.LAUNCHES["ip2_project"] == n0 + 1
+    windows = proj.extract_windows(frame, 8, stride).reshape(-1, 64)
+    params = ops.kernel_params_from_spec(conv.patch_spec(), kw.get("adc"),
+                                         kw.get("codes", False), kw.get("readout", "adc"))
+    b = bias if readout == "codes" else torch.zeros(16, device=dev)
+    want = ref.ip2_project_ref(windows, ops._dac_weights(wts, conv.patch_spec()).T, b, params)
+    gh, gw = conv.out_grid(h, w)
+    assert got.shape == (frame.shape[0], gh * gw, 16)
+    got = got.reshape(-1, 16)
+    torch.cuda.synchronize()
+    if readout == "float":
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+        return
+    if readout == "sign":
+        assert got.dtype == torch.bool
+        moved = int((got != want.bool()).any(-1).sum())
+    else:
+        assert got.dtype == torch.int8
+        d = (got.int() - want.int()).abs()
+        assert int(d.max()) <= 1
+        moved = int((d.amax(-1) > 0).sum())
+    assert moved <= max(2, got.shape[0] // 100), f"{moved} of {got.shape[0]} rows moved"
