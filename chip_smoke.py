@@ -126,6 +126,37 @@ one CUDA device. Phases, any failure exits non-zero:
          the softmax engines of (c). Last the paper's figures from the port
          (sensor-model outputs, no device work) and the quickstart example
          on the card.
+  (h)    co-design training on the card (``train_phase``): the 100m preset
+         of ``repro_torch.examples.train_ip2_classifier`` at full width
+         (256x256 frames, 32x32 patches, M 400, 12 layers, d_model 768)
+         through ``Trainer`` for 12 steps at batch 64 with checkpoints
+         every 4 steps, then again failing at step 6 and resumed: final
+         parameters and AdamW state bitwise the uninterrupted run's, every
+         loss finite, no kernel launched by training; median step ms,
+         tokens/s, 6*N*D over step time as a share of the fp32 peak, peak
+         device memory. One cpu-small step on the card against the CPU
+         (gradients within 1e-4 of each leaf's largest |g|, updated
+         weights within 1e-5 plus what each element's gradient difference
+         moves AdamW's first step by; the card's AdamW on the CPU's
+         gradients within 1e-5). bench_accuracy's
+         arm B: its config trained 220 steps at batch 32, then on 6
+         held-out batches the dense oracle (> 0.5), the code wire on the
+         plain route, the staged kernel route (kernels 6 and 5: codes
+         within 1 LSB on at most 1 % of rows, accuracy within 0.05 of the
+         oracle) and the delta-gated serve at eps 0 over 4 drift frames
+         (kernels 2, 3 and 5: accuracy at least the code wire's - 0.08),
+         launch counts reset before each served route and read after it,
+         and every kernel result of each served route held against the
+         kernel's plain version on its inputs (codes within 1 LSB on at
+         most 1 % of live rows, attention within 1e-5, embed bitwise).
+         The 12-step 100m weights served on the staged kernel route
+         against the plain route on the CPU (codes within 1 LSB on at most
+         1 % of rows, logits within 1e-4 on slots whose codes agree), and
+         kernels 6 and 5 timed at that width (1024 x 1024 x 400; K 400).
+         The CNN baseline on the same batches: its held-out accuracy
+         beside the ViT's (printed, not gated). A 100m step is also broken
+         down: device time by kernel name, busy share, and the host clock
+         of autograd and of the AdamW update.
 
 Prints the kernel table as one JSON line, the card's name and power limit
 (nvidia-smi), and last ``{"ok": true, "device": {...}}``. With ``--out DIR``
@@ -140,6 +171,7 @@ import dataclasses
 import hashlib
 import io
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -148,11 +180,6 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM published peaks (dense): HBM bytes/s, fp32 CUDA-core FLOP/s,
-# int8 tensor-core OP/s
-HBM_BPS = 3.35e12
-FP32_FLOPS = 67e12
-INT8_OPS = 1979e12
 CAPACITY = 64
 # the kernel table's rows, numbered as in ROADMAP.md's kernel queue
 KERNELS = ("ip2_project_sparse", "ip2_ragged", "delta_attention", "ip2_fused_embed",
@@ -205,33 +232,16 @@ def _device_ms(fn, kernel=None, n=30, warm=5, tries=4):
     events counts once the window before it held as many. Else it is
     profiled again, up to ``tries`` windows."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     for _ in range(warm):
         fn()
-    pad = torch.empty(1, device="cuda")
     torch.cuda.synchronize()
     seen = []
     for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fills, t_end = 0, time.perf_counter() + 2e-3
-            while fills < 32 or time.perf_counter() < t_end:
-                pad.zero_()
-                fills += 1
-            torch.cuda._sleep(1)
-            torch.cuda.synchronize()
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-        evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        mark = [e.time_range for e in evs if "spin_kernel" in e.name]
-        if len(mark) != 1:
-            PREROLL_LOST.append(None)
+        evs = _marked_events(fn, n)
+        if evs is None:
             seen.append(None)
             continue
-        PREROLL_LOST.append(fills - sum(1 for e in evs if e.time_range.start < mark[0].start))
-        evs = [e for e in evs if e.time_range.start >= mark[0].end
-               and (kernel is None or kernel in e.name)]
+        evs = [e for e in evs if kernel is None or kernel in e.name]
         seen.append(len(evs))
         us = sum(e.time_range.elapsed_us() for e in evs)
         if kernel is not None and len(evs) == n:
@@ -242,13 +252,57 @@ def _device_ms(fn, kernel=None, n=30, warm=5, tries=4):
                          f"(None: the window lost its mark): {seen}")
 
 
+def _marked_events(fn, n):
+    """One profiler window of ``n`` calls of ``fn`` after the pre-roll and
+    the device-clock mark of ``_device_ms``: the CUDA events that start
+    after the mark, or None where the window lost its mark."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    pad = torch.empty(1, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fills, t_end = 0, time.perf_counter() + 2e-3
+        while fills < 32 or time.perf_counter() < t_end:
+            pad.zero_()
+            fills += 1
+        torch.cuda._sleep(1)
+        torch.cuda.synchronize()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    mark = [e.time_range for e in evs if "spin_kernel" in e.name]
+    if len(mark) != 1:
+        PREROLL_LOST.append(None)
+        return None
+    PREROLL_LOST.append(fills - sum(1 for e in evs if e.time_range.start < mark[0].start))
+    return [e for e in evs if e.time_range.start >= mark[0].end]
+
+
+def _device_by_name(fn, tries=4):
+    """Device time of one call of ``fn`` by kernel name, from a marked
+    profiler window: ``[(kernel name, ms, launches), ...]``, largest first."""
+    for _ in range(tries):
+        evs = _marked_events(fn, 1)
+        if evs:
+            by = {}
+            for e in evs:
+                ms, k = by.get(e.name, (0.0, 0))
+                by[e.name] = (ms + e.time_range.elapsed_us() / 1e3, k + 1)
+            return sorted(((n, ms, k) for n, (ms, k) in by.items()), key=lambda t: -t[1])
+    raise AssertionError("every profiler window of the step lost its mark")
+
+
 def _sha(t):
     return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()
 
 
-def _bound(n_bytes, t_ops):
-    t_bytes = n_bytes / HBM_BPS
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+def _bound(n_bytes, fp32_flops=0.0, int8_ops=0.0):
+    """(bound ms, "bytes" or "operations") from the port's H100 roofline."""
+    from repro_torch.roofline.analysis import kernel_bound
+    t, by = kernel_bound(n_bytes, fp32_flops, int8_ops)
+    return t * 1e3, by
 
 
 def _flip_rows(a, b, rows_per_call):
@@ -564,7 +618,7 @@ def conv_phase(dev, out, n_frames=4, h=1080, w=1920, crop=64, seed=18):
         kern = lambda: ops._ip2_project_cuda(windows, w_t, bias, p)     # noqa: E731
         lib = lambda: torch.matmul(windows, w_t)                        # noqa: E731
         bound_ms, bound_by = _bound(rows * 64 * 4 + 64 * 16 * 4 + 16 * 4 + rows * 16,
-                                    2.0 * rows * 64 * 16 / FP32_FLOPS)
+                                    fp32_flops=2.0 * rows * 64 * 16)
         res["times"] = {
             "kernel_ms": _time_ms(kern),
             "kernel_device_ms": _device_ms(kern, kernel="ip2_project_kernel"),
@@ -574,6 +628,506 @@ def conv_phase(dev, out, n_frames=4, h=1080, w=1920, crop=64, seed=18):
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": _time_ms(lib), "library_device_ms": _device_ms(lib)}
         del windows
+
+
+def _worst_grad_share(got, want, floor=1e-2, rounding=1e-6):
+    """The largest |got - want| of each leaf as a share of the leaf's
+    largest |want|, worst over the tree, and the leaves floored. A leaf
+    whose gradient is 0 in exact arithmetic (the attention key bias:
+    softmax is shift-invariant along the keys) holds only rounding noise:
+    a leaf whose largest |want| is below ``rounding`` of the tree's largest
+    is held against ``floor`` of the tree's largest instead."""
+    from repro_torch.convert import tree_flatten_with_paths
+    w = dict(tree_flatten_with_paths(want))
+    top = max(float(v.abs().max()) for v in w.values())
+    worst, floored = (0.0, None), {}
+    for path, g in tree_flatten_with_paths(got):
+        scale = float(w[path].abs().max())
+        if scale < rounding * top:
+            floored[path] = scale
+            scale = floor * top
+        worst = max(worst, (float((g.cpu() - w[path]).abs().max()) / scale, path),
+                    key=lambda t: t[0])
+    return worst, floored
+
+
+SERVED = ("_ip2_project_cuda", "_ip2_sparse_cuda", "_delta_attention_cuda",
+          "_quant_matmul_cuda")
+
+
+@contextlib.contextmanager
+def _recording(ops):
+    """While open, every call of the kernel wrappers in ``SERVED`` keeps a
+    copy of its arguments and of its result in ``calls[name]``, so what a
+    served route used can be held against the plain versions afterwards.
+    The wrappers and their launch counts are unchanged."""
+    import torch
+    calls = {n: [] for n in SERVED}
+    saved = {n: getattr(ops, n) for n in SERVED}
+
+    def copy(a):
+        return a.clone() if isinstance(a, torch.Tensor) else a
+
+    def recorder(name, fn):
+        def wrapped(*args):
+            out = fn(*args)
+            calls[name].append((tuple(copy(a) for a in args), out.clone()))
+            return out
+        return wrapped
+
+    for n, fn in saved.items():
+        setattr(ops, n, recorder(n, fn))
+    try:
+        yield calls
+    finally:
+        for n, fn in saved.items():
+            setattr(ops, n, fn)
+
+
+def _hold_served(calls):
+    """Every result a served route took from a kernel against the kernel's
+    plain version on the same inputs: codes (kernels 6 and 2) within 1 LSB
+    on at most 1 % of the live rows, kernel 2's rows past the counts zero,
+    attention (kernel 3) within 1e-5 with rows past the counts zero, the
+    w8a8 embed (kernel 5) bitwise. Returns what was held, by kernel."""
+    import torch
+    from repro_torch.kernels import ref
+    held = {}
+
+    def codes(name, pairs, live_rows, shapes):
+        d = max((int((g.int() - w.int()).abs().max()) for g, w in pairs), default=0)
+        flips = sum(int(((g.int() - w.int()).abs().amax(-1) > 0).sum()) for g, w in pairs)
+        held[name] = {"calls": len(pairs), "live_rows": live_rows, "max_abs_err": d,
+                      "flip_rows": flips, "shapes": sorted(shapes)}
+        assert d <= 1, f"{name} codes off their plain version by {d} LSB"
+        assert flips <= live_rows // 100, f"{name}: {flips} of {live_rows} rows moved"
+
+    pairs = [(got, ref.ip2_project_ref(*a)) for a, got in calls["_ip2_project_cuda"]]
+    codes("ip2_project", pairs, sum(g.shape[0] for g, _ in pairs),
+          {tuple(a[0].shape) + (a[1].shape[1],) for a, _ in calls["_ip2_project_cuda"]})
+    pairs, live_rows, shapes = [], 0, set()
+    for a, got in calls["_ip2_sparse_cuda"]:
+        table, counts, k = a[0], a[1], a[6]
+        shapes.add((table.shape[0], a[2].shape[1], a[3].shape[1]))
+        want = ref.ip2_project_sparse_ref(*a)
+        if counts is not None:
+            live = (torch.arange(k, device=got.device)[None, :]
+                    < counts[:, None]).reshape(-1)
+            assert not got[~live].any(), "ip2_ragged rows past the counts are not zero"
+            got, want = got[live], want[live]
+        pairs.append((got, want))
+        live_rows += got.shape[0]
+    codes("ip2_ragged", pairs, live_rows, shapes)
+    errs, shapes = [], set()
+    for a, got in calls["_delta_attention_cuda"]:
+        q, counts = a[0], a[4]
+        errs.append(float((got - ref.delta_attention_ref(*a)).abs().max()))
+        live = torch.arange(q.shape[1], device=q.device)[None, :] < counts.clamp(
+            0, q.shape[1])[:, None]
+        assert not got[~live].any(), "delta_attention rows past the counts are not zero"
+        shapes.add(tuple(q.shape))
+    held["delta_attention"] = {"calls": len(errs), "max_abs_err": max(errs, default=0.0),
+                               "shapes": sorted(shapes)}
+    assert held["delta_attention"]["max_abs_err"] <= 1e-5, held["delta_attention"]
+    same = [torch.equal(got, ref.quant_matmul_ref(*a)) for a, got in calls["_quant_matmul_cuda"]]
+    held["quant_matmul"] = {"calls": len(same), "bitwise": all(same), "shapes": sorted(
+        {tuple(a[0].shape) + (a[2].shape[1],) for a, _ in calls["_quant_matmul_cuda"]})}
+    assert all(same), "quant_matmul differs from its plain version"
+    return held
+
+
+def card_vs_cpu_step(dev, opt, seed=1):
+    """One step of the cpu-small preset on ``dev`` and on the CPU from the
+    same parameters and batch; returns what was held (phase h_train, 2)."""
+    import torch
+    from repro_torch.convert import tree_flatten_with_paths, tree_to
+    from repro_torch.data.pipeline import SceneStream
+    from repro_torch.examples.train_ip2_classifier import preset_config
+    from repro_torch.models.vit import init_vit, vit_loss
+    from repro_torch.optim import adamw_update, init_opt_state
+    from repro_torch.train.trainer import loss_and_grads
+
+    def leaves(tree):
+        return [x for _, x in tree_flatten_with_paths(tree)]
+
+    cfg_s = preset_config("cpu-small")
+    p_cpu = init_vit(cfg_s, torch.Generator().manual_seed(seed), device="cpu")
+    rgb, labels = SceneStream(image=cfg_s.frontend.image_h).batch(0, 32)
+    loss_s = lambda p, r, y: vit_loss(p, r, y, cfg_s)  # noqa: E731
+    got = []
+    for d in (torch.device("cpu"), dev):
+        params = tree_to(p_cpu, d)
+        loss, _, g = loss_and_grads(loss_s, params, torch.from_numpy(rgb).to(d),
+                                    torch.from_numpy(labels).to(d))
+        new, _, m = adamw_update(g, init_opt_state(params, opt), params, opt, opt.lr)
+        clip = min(1.0, opt.grad_clip / max(float(m["grad_norm"]), 1e-9))
+        got.append((float(loss), tree_to(g, "cpu"), tree_to(new, "cpu"), clip))
+    (l_c, g_c, n_c, c_c), (l_g, g_g, n_g, c_g) = got
+    (share, at), floored = _worst_grad_share(g_g, g_c)
+    # AdamW's first step moves a weight by lr * f(g), f(g) = g / (|g| + eps)
+    # (m / c1 = g, sqrt(v / c2) = |g|, g clipped by its global norm), plus
+    # the same decay on both sides. Where the two clipped gradients differ
+    # by dg, f differs by at most eps * dg / (a + eps)^2, a the smaller |g|
+    # of the two (0 where their signs differ): each weight is held at 1e-5
+    # plus lr times that, which is ~0 unless |g| is near eps
+    errs, slack, near = [], [], {}
+    for path, a, b, ga, gb in zip((p for p, _ in tree_flatten_with_paths(n_c)),
+                                  leaves(n_g), leaves(n_c), leaves(g_g), leaves(g_c)):
+        ga, gb = ga.double() * c_g, gb.double() * c_c
+        lo = torch.where(ga * gb > 0, torch.minimum(ga.abs(), gb.abs()), 0.0)
+        prop = opt.lr * opt.eps * (ga - gb).abs() / (lo + opt.eps) ** 2
+        e = (a.double() - b.double()).abs()
+        errs.append(float((e - prop).max()))
+        slack.append(float(prop.max()))
+        if bool((prop > 1e-5).any()):
+            near[path] = {"elements": int((prop > 1e-5).sum()),
+                          "max_abs_g_there": float(gb[prop > 1e-5].abs().max()),
+                          "max_param_err_there": float(e[prop > 1e-5].max())}
+    # the card's AdamW on the CPU's gradients: the same inputs, no slack
+    p_dev = tree_to(p_cpu, dev)
+    n_same = tree_to(adamw_update(tree_to(g_c, dev), init_opt_state(p_dev, opt), p_dev,
+                                  opt, opt.lr)[0], "cpu")
+    vs = {
+        "loss_card": l_g, "loss_cpu": l_c, "worst_grad_share": share, "at": at,
+        "grad_leaves_floored": floored,
+        "max_param_err_over_propagated": max(errs), "max_propagated": max(slack),
+        "elements": sum(x.numel() for x in leaves(n_c)), "near_eps": near,
+        "adamw_same_grads_max_err": max(float((a - b).abs().max()) for a, b in
+                                        zip(leaves(n_same), leaves(n_c)))}
+    print(json.dumps({"h_card_vs_cpu": vs}))
+    assert abs(l_g - l_c) <= 1e-5, vs
+    assert share <= 1e-4, vs
+    assert vs["max_param_err_over_propagated"] <= 1e-5, vs
+    assert vs["adamw_same_grads_max_err"] <= 1e-5, vs
+    return vs
+
+
+def train_phase(dev, out, ckpt_dir, big="100m", big_batch=64, big_steps=12, fail_at=6,
+                steps=220, batch=32, eval_batches=6, drift_frames=4, serve_frames=64):
+    """Phase h_train: co-design training on the card, then the trained
+    models served through the kernels. Fills ``out`` as it goes.
+
+    1. ``big`` (the 100m preset at full width) for ``big_steps`` steps of
+       ``Trainer`` at ``big_batch``, checkpoints every 4 steps under
+       ``ckpt_dir``; then the same run failing at ``fail_at`` and resumed:
+       final parameters and optimiser state bitwise the uninterrupted
+       run's. Training reaches no kernel (the reference's training reaches
+       no Pallas kernel either).
+    2. One step of the cpu-small preset on the card and on the CPU from the
+       same parameters and batch: gradients within 1e-4 of each leaf's
+       largest |g| (a leaf at rounding level floored, and named); updated
+       parameters within 1e-5 plus what each element's own gradient
+       difference moves AdamW's first step by (~0 unless |g| is near eps:
+       those are named); the card's AdamW on the CPU's gradients within
+       1e-5 everywhere.
+    3. bench_accuracy's arm B: its config trained ``steps`` steps at
+       ``batch``, then on held-out batches the dense oracle (> 0.5), the
+       code wire on the plain route, the staged kernel route (kernels 6
+       and 5: codes within 1 LSB on at most 1 % of rows, accuracy within
+       0.05 of the oracle) and the delta-gated serve at eps 0 (kernels 2,
+       3 and 5, ``drift_frames`` drift frames: accuracy at least the code
+       wire's - 0.08), launch counts reset before each served route and
+       read after it. Every result a served route took from a kernel is
+       held against the kernel's plain version on the same inputs (codes
+       within 1 LSB on at most 1 % of live rows, attention within 1e-5,
+       the embed bitwise, rows past the counts zero).
+    4. The ``big`` parameters served once on the staged kernel route on
+       the card against the plain route on the CPU: codes within 1 LSB on
+       at most 1 % of rows, logits within 1e-4 on slots whose codes agree,
+       each kernel result held as in 3; then kernels 6 and 5 timed at that width beside their bounds, their
+       plain versions and their library yardsticks.
+    5. The CNN baseline trained on the same batches; its held-out accuracy
+       is printed beside the ViT's, not gated."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from repro_torch.convert import tree_flatten_with_paths, tree_to
+    from repro_torch.core import frontend as fe
+    from repro_torch.core import saliency as sal
+    from repro_torch.core.frontend import FrontendConfig
+    from repro_torch.core.projection import PatchSpec
+    from repro_torch.core.switched_cap import SummerSpec
+    from repro_torch.core.temporal import TemporalSpec, init_feature_cache
+    from repro_torch.data.pipeline import SceneStream
+    from repro_torch.examples.train_ip2_classifier import preset_config
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.backend_delta import init_backend_cache
+    from repro_torch.models.cnn import cnn_loss, init_cnn
+    from repro_torch.models.vit import (ViTConfig, init_vit, prepare_quant_embed,
+                                        vit_forward_compact, vit_loss)
+    from repro_torch.optim import AdamWConfig, adamw_update, init_opt_state
+    from repro_torch.roofline.analysis import PEAK_FLOPS_FP32, model_flops
+    from repro_torch.train.trainer import (Trainer, TrainerConfig, loss_and_grads,
+                                           make_train_step)
+
+    opt = AdamWConfig(lr=2e-3, weight_decay=0.01)
+
+    def leaves(tree):
+        return [x for _, x in tree_flatten_with_paths(tree)]
+
+    def fed(batches):
+        return [{"rgb": torch.from_numpy(r).to(dev), "labels": torch.from_numpy(y).to(dev)}
+                for r, y in batches]
+
+    # ---- 1. the 100m preset through the Trainer, interrupted and resumed ----
+    cfg = preset_config(big)
+    loss_fn = lambda p, rgb, labels: vit_loss(p, rgb, labels, cfg)  # noqa: E731
+    step = make_train_step(loss_fn, opt)
+    t0 = time.perf_counter()
+    stream = SceneStream(image=cfg.frontend.image_h)
+    data = fed([stream.batch(s, big_batch) for s in range(big_steps)])
+    init = init_vit(cfg, torch.Generator().manual_seed(0), device="cpu")
+    big_out = out["train_100m"] = {"preset": big, "batch": big_batch, "steps": big_steps,
+                                   "setup_s": time.perf_counter() - t0}
+    n_params = sum(x.numel() for x in leaves(init))
+    tokens = big_batch * cfg.frontend.n_patches
+
+    def trainer(name, fail=None):
+        tcfg = TrainerConfig(total_steps=big_steps, ckpt_every=4, keep=2, log_every=1,
+                             ckpt_dir=str(ckpt_dir / name), fail_at_step=fail)
+        return Trainer(step, data.__getitem__, tcfg)
+
+    def fresh():
+        params = tree_to(init, dev)
+        return params, init_opt_state(params, opt)
+
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr_a = trainer("a")
+    p_a, o_a, h_a = tr_a.run(*fresh())
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    shutil.rmtree(ckpt_dir / "a", ignore_errors=True)
+    step_s = float(np.median(tr_a.step_times[2:]))
+    big_out.update(
+        n_params=n_params, tokens_per_step=tokens, run_s=run_s,
+        losses=[h["loss"] for h in h_a], step_ms=[t * 1e3 for t in tr_a.step_times],
+        step_ms_median=step_s * 1e3, tokens_per_s=tokens / step_s,
+        model_flops_per_step=model_flops(n_params, tokens, is_train=True),
+        fp32_peak_share=model_flops(n_params, tokens, is_train=True) / step_s / PEAK_FLOPS_FP32,
+        max_memory_allocated=peak, stragglers=tr_a.n_stragglers)
+    # where a step's time goes: the device's kernels by name, and the host
+    # clock of the whole step and of its two halves (autograd; AdamW)
+    b0 = data[0]
+    kernels = _device_by_name(lambda: step(p_a, o_a, b0))
+    grads = loss_and_grads(loss_fn, p_a, b0["rgb"], b0["labels"])[2]
+    dev_ms = sum(ms for _, ms, _ in kernels)
+    wall = _host_ms(lambda: step(p_a, o_a, b0), n=3, warm=1)
+    big_out["breakdown"] = {
+        "step_wall_ms": wall, "device_ms": dev_ms, "device_busy_share": dev_ms / wall,
+        "device_launches": sum(k for *_, k in kernels),
+        "gemm_ms": sum(ms for n, ms, _ in kernels if "gemm" in n.lower()),
+        "top_kernels": [(n[:90], ms, k) for n, ms, k in kernels[:10]],
+        "fwd_bwd_wall_ms": _host_ms(lambda: loss_and_grads(
+            loss_fn, p_a, b0["rgb"], b0["labels"]), n=3, warm=1),
+        "adamw_wall_ms": _host_ms(lambda: adamw_update(grads, o_a, p_a, opt, opt.lr),
+                                  n=3, warm=1)}
+    del grads
+    print(json.dumps({"h_train_100m": big_out}))
+    assert len(h_a) == big_steps and all(np.isfinite(h["loss"]) for h in h_a), h_a
+    tr_b = trainer("b", fail_at)
+    try:
+        tr_b.run(*fresh())
+        raise AssertionError("the injected failure did not fire")
+    except RuntimeError as e:
+        assert "injected failure" in str(e), e
+    tr_b.ckpt.wait()   # the commit in flight when the step failed
+    p_b, o_b, h_b = trainer("b").run(*fresh())
+    shutil.rmtree(ckpt_dir / "b", ignore_errors=True)
+    resumed = [h["step"] for h in h_b]
+    same = all(torch.equal(x, y) for x, y in zip(leaves((p_a, o_a)), leaves((p_b, o_b))))
+    big_out.update(resumed_steps=resumed, resumed_bitwise=same,
+                   resumed_losses=[h["loss"] for h in h_b], launches=dict(ops.LAUNCHES))
+    # resumed after the last commit before the failure (every 4 steps)
+    assert resumed == list(range((fail_at - 1) // 4 * 4 + 1, big_steps)), resumed
+    assert big_out["resumed_losses"] == [h["loss"] for h in h_a[resumed[0]:]], big_out
+    assert same, "the resumed run's parameters or optimiser state differ from the uninterrupted run"
+    assert sum(ops.LAUNCHES.values()) == 0, f"training launched a kernel: {ops.LAUNCHES}"
+
+    # ---- 2. one step on the card against the CPU ------------------------------
+    out["card_vs_cpu_step"] = card_vs_cpu_step(dev, opt)
+
+    # ---- 3. bench_accuracy's arm B: train, then serve through the kernels ----
+    fcfg_b = FrontendConfig(image_h=64, image_w=64, patch=PatchSpec(16, 16, n_vectors=32),
+                            active_fraction=0.25, aa_cutoff=0.5)
+    cfg_b = ViTConfig(frontend=fcfg_b)
+    s64 = SceneStream(image=64)
+
+    def train(loss_fn, params):
+        state = init_opt_state(params, opt)
+        st = make_train_step(loss_fn, opt)
+        losses = []
+        t0 = time.perf_counter()
+        for i in range(steps):
+            params, state, m = st(params, state, fed([s64.batch(i, batch)])[0])
+            losses.append(m["loss"])
+        losses = torch.stack(losses).cpu()
+        assert bool(torch.isfinite(losses).all()), "a training loss is not finite"
+        return params, {"steps": steps, "s": time.perf_counter() - t0,
+                        "first_loss": float(losses[0]), "last_loss": float(losses[-1])}
+
+    held = fed([s64.batch(100_000 + j, batch) for j in range(eval_batches)])
+
+    def acc(logits, b):
+        return float((logits.argmax(-1) == b["labels"]).float().mean())
+
+    ops.reset_launches()
+    params, arm = train(lambda p, r, y: vit_loss(p, r, y, cfg_b),
+                        init_vit(cfg_b, torch.Generator().manual_seed(0), device=dev))
+    assert sum(ops.LAUNCHES.values()) == 0, f"training launched a kernel: {ops.LAUNCHES}"
+    with torch.no_grad():
+        arm["dense_oracle_acc"] = float(np.mean(
+            [float(vit_loss(params, b["rgb"], b["labels"], cfg_b)[1]) for b in held]))
+        arm["code_wire_plain_acc"] = float(np.mean(
+            [acc(vit_forward_compact(params, b["rgb"], cfg_b, wire="codes")[0], b)
+             for b in held]))
+        # the staged kernel route: kernel 6's codes adapter, kernel 5's embed
+        cfg_k = dataclasses.replace(cfg_b, quant_embed=True)
+        pq = prepare_quant_embed(params)
+        pf = ops.ip2_codes_fn(fcfg_b.patch, fcfg_b.adc)
+        ops.reset_launches()
+        with _recording(ops) as calls:
+            arm["code_wire_kernel_acc"] = float(np.mean(
+                [acc(vit_forward_compact(pq, b["rgb"], cfg_k, project_fn=pf)[0], b)
+                 for b in held]))
+        torch.cuda.synchronize()
+        arm["kernel_route_launches"] = {n: c for n, c in ops.LAUNCHES.items() if c}
+        arm["kernel_route_held"] = _hold_served(calls)
+        moved = rows = 0
+        for b in held:
+            kc = fe.apply_frontend(params["ip2"], b["rgb"], fcfg_b, mode="compact",
+                                   project_fn=pf).features
+            pc = fe.apply_frontend(params["ip2"], b["rgb"], fcfg_b, mode="compact").features
+            d = (kc.int() - pc.int()).abs().reshape(-1, kc.shape[-1])
+            assert int(d.max()) <= 1, f"codes differ by {int(d.max())} LSB"
+            moved, rows = moved + int((d.amax(-1) > 0).sum()), rows + d.shape[0]
+        arm["code_rows_moved"], arm["code_rows"] = moved, rows
+        # the delta-gated serve at eps 0 (bench_accuracy._eval_delta): the
+        # gated codes adapter (kernel 2 at the stale counts), the ragged
+        # attention (kernel 3) and the code-wire embed (kernel 5)
+        fcfg_d = dataclasses.replace(
+            fcfg_b, patch=dataclasses.replace(
+                fcfg_b.patch, summer=SummerSpec(mode="passive", hold_time_s=0.0)),
+            temporal=TemporalSpec(delta_threshold=1e-3))
+        dcfg = dataclasses.replace(cfg_k, frontend=fcfg_d, delta_kernel=True,
+                                   saliency_layers="last")
+        pf_d = ops.ip2_codes_fn(fcfg_d.patch, fcfg_d.adc)
+        eps = torch.zeros((batch,), dtype=torch.float32, device=dev)
+        ops.reset_launches()
+        accs = []
+        with _recording(ops) as calls:
+            for j, b in enumerate(held):
+                tcache = init_feature_cache(fcfg_d, (batch,), device=dev)
+                bc = init_backend_cache(dcfg, fcfg_d.n_active, (batch,),
+                                        dtype=fcfg_d.adc.code_dtype, device=dev)
+                rgb_np = s64.batch(100_000 + j, batch)[0]
+                for t in range(drift_frames):
+                    frame = torch.from_numpy(np.clip(rgb_np * (1.0 + 0.005 * t), 0.0, 1.0)
+                                             .astype(np.float32)).to(dev)
+                    logits, aux = vit_forward_compact(pq, frame, dcfg, project_fn=pf_d,
+                                                      cache=tcache, backend_cache=bc,
+                                                      backend_eps=eps)
+                    tcache, bc = aux["cache"], aux["backend_cache"]
+                    accs.append(acc(logits, b))
+        torch.cuda.synchronize()
+        arm["delta_eps0_acc"] = float(np.mean(accs))
+        arm["delta_launches"] = {n: c for n, c in ops.LAUNCHES.items() if c}
+        arm["delta_held"] = _hold_served(calls)
+    out["arm_b"] = arm
+    print(json.dumps({"h_arm_b": arm}))
+    assert arm["dense_oracle_acc"] > 0.5, arm
+    assert moved <= rows // 100, arm
+    assert all(arm["kernel_route_launches"].get(n, 0) > 0
+               for n in ("ip2_project", "quant_matmul")), arm
+    assert abs(arm["code_wire_kernel_acc"] - arm["dense_oracle_acc"]) <= 0.05, arm
+    assert all(arm["delta_launches"].get(n, 0) > 0
+               for n in ("ip2_ragged", "delta_attention", "quant_matmul")), arm
+    assert arm["delta_eps0_acc"] >= arm["code_wire_plain_acc"] - 0.08, arm
+
+    # ---- 4. the trained 100m parameters: kernel route vs plain route ----------
+    cfg_q = dataclasses.replace(cfg, quant_embed=True)
+    pq_g = prepare_quant_embed(p_a)
+    pq_c = tree_to(pq_g, "cpu")
+    pf_q = ops.ip2_codes_fn(cfg.frontend.patch, cfg.frontend.adc)
+    x_c = torch.from_numpy(stream.batch(200_000, serve_frames)[0])
+    with torch.no_grad():
+        ops.reset_launches()
+        with _recording(ops) as calls:
+            l_g, a_g = vit_forward_compact(pq_g, x_c.to(dev), cfg_q, project_fn=pf_q)
+        torch.cuda.synchronize()
+        launched = {n: c for n, c in ops.LAUNCHES.items() if c}
+        held_100m = _hold_served(calls)
+        del calls
+        l_c, a_c = vit_forward_compact(pq_c, x_c, cfg_q, project_fn=pf_q)
+        codes = [fe.apply_frontend(p["ip2"], x, cfg.frontend, mode="compact",
+                                   project_fn=pf_q).features.cpu()
+                 for p, x in ((pq_g, x_c.to(dev)), (pq_c, x_c))]
+    d = (codes[0].int() - codes[1].int()).abs()
+    agree = (d == 0).all(-1).all(-1)
+    err = float((l_g.cpu() - l_c).abs()[agree].max()) if bool(agree.any()) else None
+    sv = out["serve_100m"] = {
+        "frames": serve_frames, "launches": launched, "max_code_diff": int(d.max()),
+        "rows_moved": int((d.reshape(-1, d.shape[-1]).amax(-1) > 0).sum()),
+        "rows": d.shape[0] * d.shape[1], "slots_agreeing": int(agree.sum()),
+        "max_logit_err_agreeing": err, "held": held_100m}
+    print(json.dumps({"h_serve_100m": sv}))
+    assert torch.equal(a_g["indices"].cpu(), a_c["indices"]), "the selection differs"
+    assert sv["max_code_diff"] <= 1 and sv["rows_moved"] <= sv["rows"] // 100, sv
+    assert launched.get("ip2_project", 0) > 0 and launched.get("quant_matmul", 0) > 0, sv
+    assert err is not None and err <= 1e-4, sv
+    assert bool(torch.isfinite(l_g).all()), "non-finite logits"
+    # kernels 6 and 5 at this width, shapes no other phase gives them:
+    # 1024 x 1024 x 400 (12.5 column tiles) and K = 400 (off the 64-k step)
+    x_g = x_c.to(dev)
+    patches, weights = fe.sensor_patches(pq_g["ip2"], x_g, cfg.frontend)
+    gathered = sal.gather_patches(patches, a_g["indices"]).reshape(
+        -1, patches.shape[-1]).contiguous()
+    w_t = ops._dac_weights(weights, cfg.frontend.patch).T.contiguous()
+    bias = torch.zeros(w_t.shape[1], device=dev)
+    p_codes = ops.kernel_params_from_spec(cfg.frontend.patch, cfg.frontend.adc, codes=True)
+    codes = ops._ip2_project_cuda(gathered, w_t, bias, p_codes)
+    w8, s_w = pq_g["embed_q"]
+    s_a = torch.full((codes.shape[0],), cfg.frontend.adc.lsb, device=dev)
+    rows, k_in, m, d = gathered.shape[0], gathered.shape[1], w_t.shape[1], w8.shape[1]
+    timed = {
+        "ip2_project": dict(
+            shape=[rows, k_in, m], symbol="ip2_project_kernel",
+            kernel=lambda: ops._ip2_project_cuda(gathered, w_t, bias, p_codes),
+            plain=lambda: ref.ip2_project_ref(gathered, w_t, bias, p_codes),
+            library=lambda: torch.matmul(gathered, w_t),
+            bound=_bound(rows * k_in * 4 + k_in * m * 4 + rows * m,
+                         fp32_flops=2.0 * rows * k_in * m)),
+        "quant_matmul": dict(
+            shape=[rows, m, d], symbol="quant_matmul_kernel",
+            kernel=lambda: ops._quant_matmul_cuda(codes, s_a, w8, s_w),
+            plain=lambda: ref.quant_matmul_ref(codes, s_a, w8, s_w),
+            library=lambda: torch._int_mm(codes, w8),
+            bound=_bound(rows * m + rows * 4 + m * d + d * 4 + rows * d * 4,
+                         int8_ops=2.0 * rows * m * d))}
+    d6 = (codes.int() - ref.ip2_project_ref(gathered, w_t, bias, p_codes).int()).abs()
+    assert int(d6.max()) <= 1 and int((d6.amax(-1) > 0).sum()) <= rows // 100, \
+        "kernel 6 at the 100m width against its plain version"
+    assert torch.equal(timed["quant_matmul"]["kernel"](), timed["quant_matmul"]["plain"]()), \
+        "kernel 5 at K 400 against its plain version"
+    sv["times"] = {name: {
+        "shape": t["shape"], "ms": _time_ms(t["kernel"]),
+        "device_ms": _device_ms(t["kernel"], kernel=t["symbol"]),
+        "plain_ms": _time_ms(t["plain"]), "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
+        "library_ms": _time_ms(t["library"]), "library_device_ms": _device_ms(t["library"])}
+        for name, t in timed.items()}
+    print(json.dumps({"h_kernels_100m": sv["times"]}))
+
+    # ---- 5. the CNN baseline on the same batches --------------------------------
+    cparams, cnn = train(cnn_loss, init_cnn(torch.Generator().manual_seed(0), device=dev))
+    with torch.no_grad():
+        cnn["held_out_acc"] = float(np.mean(
+            [float(cnn_loss(cparams, b["rgb"], b["labels"])[1]) for b in held]))
+    cnn["vit_dense_oracle_acc"] = arm["dense_oracle_acc"]
+    out["cnn"] = cnn
+    print(json.dumps({"h_cnn": cnn}))
 
 
 def main():
@@ -1297,7 +1851,7 @@ def main():
                                                          p_codes, k_tok),
                 library=lambda: torch.matmul(gathered, w_t),
                 bytes=r_rows * k_in * 4 + r_rows * 4 + k_in * m * 4 + r_rows * m,
-                t_ops=fp32_ops / FP32_FLOPS),
+                fp32=fp32_ops),
             "ip2_ragged": dict(
                 redesigned="PR 13",
                 replaces="src/repro/kernels/ip2_megakernel.py:122",
@@ -1311,7 +1865,7 @@ def main():
                 # the rows below the counts are read; every output row written
                 bytes=(rows2 * k_in * 4 + table2.numel() * 4 + CAPACITY * 4
                        + k_in * m * 4 + table2.numel() * m),
-                t_ops=2.0 * rows2 * k_in * m / FP32_FLOPS),
+                fp32=2.0 * rows2 * k_in * m),
             "delta_attention": dict(
                 redesigned="PR 14",
                 replaces="src/repro/kernels/vit_delta_attention.py:130",
@@ -1325,7 +1879,7 @@ def main():
                 # with any, the mask and counts; every output row written
                 bytes=(rows3 * h * dh * 4 + 2 * slots3 * k_tok * h * dh * 4
                        + CAPACITY * k_tok + CAPACITY * 4 + q3.numel() * 4),
-                t_ops=4.0 * rows3 * h * k_tok * dh / FP32_FLOPS),
+                fp32=4.0 * rows3 * h * k_tok * dh),
             "ip2_fused_embed": dict(
                 redesigned="PR 15",
                 replaces="src/repro/kernels/ip2_megakernel.py:251",
@@ -1341,7 +1895,7 @@ def main():
                 # the gathered rows this run's selection needs, read once
                 bytes=(r_rows * k_in * 4 + r_rows * 4 + CAPACITY * 4 + k_in * m * 4
                        + m * d + d * 4 + r_rows * d * 4),
-                t_ops=fp32_ops / FP32_FLOPS + int8_ops / INT8_OPS),
+                fp32=fp32_ops, int8=int8_ops),
             "quant_matmul": dict(
                 redesigned="PR 14",
                 replaces="src/repro/kernels/quant_matmul.py:55",
@@ -1351,7 +1905,7 @@ def main():
                 plain=lambda: ref.quant_matmul_ref(codes, s_a, w8, s_w),
                 library=lambda: torch._int_mm(codes, w8),
                 bytes=r_rows * m + r_rows * 4 + m * d + d * 4 + r_rows * d * 4,
-                t_ops=int8_ops / INT8_OPS),
+                int8=int8_ops),
             "ip2_project": dict(
                 redesigned="PR 13",
                 replaces="src/repro/kernels/ip2_project.py:138",
@@ -1361,7 +1915,7 @@ def main():
                 plain=lambda: ref.ip2_project_ref(gathered, w_t, zero_bias, p_codes),
                 library=lambda: torch.matmul(gathered, w_t),
                 bytes=r_rows * k_in * 4 + k_in * m * 4 + r_rows * m,
-                t_ops=fp32_ops / FP32_FLOPS),
+                fp32=fp32_ops),
         }
         report["timed_counts"] = {"ip2_ragged": cnt2.tolist(), "delta_attention": cnt3.tolist()}
         occupancy = getattr(_build.load("ip2_fused_embed"), "ip2_fused_embed_occupancy", None)
@@ -1380,7 +1934,7 @@ def main():
             plain_ms = _time_ms(row["plain"])
             lib_ms = _time_ms(row["library"]) if row["library"] else None
             lib_device_ms = _device_ms(row["library"]) if row["library"] else None
-            bound_ms, bound_by = _bound(row["bytes"], row["t_ops"])
+            bound_ms, bound_by = _bound(row["bytes"], row.get("fp32", 0.0), row.get("int8", 0.0))
             if row.get("staged"):
                 kernels.setdefault(name, {})["staged_device_ms"] = _device_ms(row["staged"])
             kernels.setdefault(name, {}).update(
@@ -1396,7 +1950,7 @@ def main():
         plain = lambda: ref.ip2_project_ref(flat_p, w_t, zero_bias, p_noadc)   # noqa: E731
         n_dense = flat_p.shape[0]
         bound_ms, bound_by = _bound(n_dense * k_in * 4 + k_in * m * 4 + m * 4 + n_dense * m * 4,
-                                    2.0 * n_dense * k_in * m / FP32_FLOPS)
+                                    fp32_flops=2.0 * n_dense * k_in * m)
         report["noadc_dense"] = {
             "shape": [n_dense, k_in, m], "max_abs_err": float((kern() - plain()).abs().max()),
             "ms": _time_ms(kern), "device_ms": _device_ms(kern, kernel="ip2_project_kernel"),
@@ -1867,6 +2421,17 @@ def main():
                                                            if k != "compact_shape"}}
         assert ops.LAUNCHES["ip2_project"] == n0 + 1, "the quickstart did not launch kernel 6"
         assert qs["kernel_max_abs_diff"] <= 1e-5, qs
+
+    # ---- (h) co-design training on the card, then the trained models served
+    # through kernels 6, 5, 2 and 3
+    @phase("h_train")
+    def _h():
+        out = report["h_train"] = {}
+        ckpt_dir = ROOT / "build" / "ckpt_h_train"
+        try:
+            train_phase(dev, out, ckpt_dir)
+        finally:
+            shutil.rmtree(ckpt_dir, ignore_errors=True)
 
     lost = [k for k in PREROLL_LOST if k is not None]
     report["profiler_preroll_lost"] = {"windows": len(PREROLL_LOST), "max": max(lost, default=None),

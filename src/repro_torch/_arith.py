@@ -18,6 +18,23 @@ def div(x: torch.Tensor, c: float) -> torch.Tensor:
     return x / torch.full((), c, dtype=x.dtype, device=x.device)
 
 
+def clip(x: torch.Tensor, lo: float | None = None, hi: float | None = None) -> torch.Tensor:
+    """``clip(x, lo, hi)`` with JAX's gradient at the rails.
+
+    ``jnp.clip`` is ``minimum(maximum(x, lo), hi)``, and JAX splits the
+    gradient of a tie between the two operands: 0.5 at ``x`` exactly on a
+    rail, where ``torch.clamp`` passes 1. ``torch.maximum`` /
+    ``torch.minimum`` against 0-dim bounds split it the same way and give
+    ``torch.clamp``'s forward bit for bit. The bounds are filled on
+    ``x``'s device (no host-to-device copy, no host sync). ``None`` leaves
+    that side open."""
+    if lo is not None:
+        x = torch.maximum(x, torch.full((), lo, dtype=x.dtype, device=x.device))
+    if hi is not None:
+        x = torch.minimum(x, torch.full((), hi, dtype=x.dtype, device=x.device))
+    return x
+
+
 _VECTORS: dict = {}
 
 

@@ -14,7 +14,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch._arith import div
+from repro_torch._arith import clip, div
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,7 +55,7 @@ def _code_grid(v: torch.Tensor, spec: ADCSpec) -> torch.Tensor:
     """Centered code values as float32: round half to even of
     ``(clip(v) - v_min) / lsb``, with a true division by the float32 LSB."""
     half = spec.levels // 2
-    clipped = torch.clamp(v, spec.v_min, spec.v_max)
+    clipped = clip(v, spec.v_min, spec.v_max)
     return torch.round(div(clipped - spec.v_min, spec.lsb)) - half
 
 
@@ -142,7 +142,7 @@ def adc_quantize(v: torch.Tensor, spec: ADCSpec = ADCSpec()) -> torch.Tensor:
     half = spec.levels // 2
     q = (_code_grid(v, spec) + half) * spec.lsb + spec.v_min
     if spec.ste:
-        lin = torch.clamp(v, spec.v_min, spec.v_max)
+        lin = clip(v, spec.v_min, spec.v_max)
         return q + (lin - lin.detach())
     return q
 
@@ -157,6 +157,6 @@ def digital_readout(
     defined as the dequantized codes plus an exact-forward STE residual."""
     deq = dequantize(*digital_codes(out_v, v_ref, bias, spec))
     if spec.ste:
-        lin = torch.clamp(out_v, spec.v_min, spec.v_max)
+        lin = clip(out_v, spec.v_min, spec.v_max)
         return deq + (lin - lin.detach())
     return deq

@@ -6,6 +6,8 @@ import dataclasses
 
 import torch
 
+from repro_torch._arith import clip
+
 
 @dataclasses.dataclass(frozen=True)
 class AnalogNLSpec:
@@ -16,9 +18,9 @@ class AnalogNLSpec:
 
 def analog_nonlinearity(v: torch.Tensor, spec: AnalogNLSpec = AnalogNLSpec()) -> torch.Tensor:
     if spec.kind == "none":
-        return torch.clamp(v, -spec.v_sat, spec.v_sat)
+        return clip(v, -spec.v_sat, spec.v_sat)
     if spec.kind == "relu":
-        return torch.clamp(v, 0.0, spec.v_sat)
+        return clip(v, 0.0, spec.v_sat)
     if spec.kind == "sigmoid":
         # torch.sigmoid is the overflow-safe form (no exp(-g·v) to inf)
         return torch.sigmoid(spec.sigmoid_gain * v) * spec.v_sat

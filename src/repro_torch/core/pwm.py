@@ -13,7 +13,7 @@ import dataclasses
 
 import torch
 
-from repro_torch._arith import div
+from repro_torch._arith import clip, div
 
 DEFAULT_PWM_BITS = 6
 DEFAULT_WEIGHT_BITS = 6
@@ -48,7 +48,7 @@ def pwm_quantize(pixels: torch.Tensor, spec: QuantSpec = QuantSpec()) -> torch.T
     """Pixel intensity in [0, 1] -> pulse width on the grid k / (2**bits - 1).
     Divides by n (the kernels multiply by 1/n; the two are kept apart)."""
     n = spec.pwm_levels - 1
-    clipped = torch.clamp(pixels, 0.0, 1.0)
+    clipped = clip(pixels, 0.0, 1.0)
     q = div(torch.round(clipped * n), n)
     return _ste(clipped, q, spec.ste)
 

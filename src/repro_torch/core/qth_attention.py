@@ -15,6 +15,8 @@ import dataclasses
 
 import torch
 
+from repro_torch._arith import clip
+
 NEG_INF = -1e30   # finite: an all-masked row softmaxes to uniform, not NaN
 
 
@@ -52,7 +54,7 @@ def qth_attention_weights(scores: torch.Tensor, spec: QTHSpec = QTHSpec(),
     q = pow2_quantize(p, spec)
     if spec.renormalize:
         denom = torch.sum(q, dim=-1, keepdim=True)
-        q = q / torch.clamp_min(denom, 2.0 ** spec.min_exp)
+        q = q / clip(denom, 2.0 ** spec.min_exp)
     return q
 
 

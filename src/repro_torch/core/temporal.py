@@ -25,6 +25,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch._device import resolve_device
 from repro_torch.core import adc as adc_mod
 from repro_torch.core import power as power_mod
 
@@ -73,7 +74,9 @@ class TemporalSpec:
 def init_feature_cache(cfg, batch_shape: tuple[int, ...] = (), dtype=None,
                        device=None) -> FeatureCache:
     """Empty (all-invalid) cache for a ``FrontendConfig`` over
-    ``batch_shape``; ``dtype`` defaults to the ADC code dtype."""
+    ``batch_shape`` on ``device`` (the GPU by default); ``dtype`` defaults
+    to the ADC code dtype."""
+    device = resolve_device(device)
     p, m = cfg.n_patches, cfg.patch.n_vectors
     dtype = cfg.adc.code_dtype if dtype is None else dtype
     return FeatureCache(

@@ -33,6 +33,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch._arith import div
+from repro_torch._device import resolve_device
 from repro_torch.core import power as power_mod
 from repro_torch.kernels import ops
 from repro_torch.models.layers import apply_mlp, rms_norm
@@ -55,8 +56,9 @@ class BackendCache(NamedTuple):
 
 def init_backend_cache(cfg, k: int, batch_shape: tuple = (), dtype=torch.int8,
                        device=None) -> BackendCache:
-    """Empty cache for a ``ViTConfig`` serving ``k`` tokens per frame;
-    ``dtype`` must be the wire payload's."""
+    """Empty cache for a ``ViTConfig`` serving ``k`` tokens per frame, on
+    ``device`` (the GPU by default); ``dtype`` must be the wire payload's."""
+    device = resolve_device(device)
     m = cfg.frontend.patch.n_vectors
 
     def z(shape, dt):

@@ -145,14 +145,14 @@ def test_stale_prefix_counts_and_wipe(served):
     np.testing.assert_array_equal(t_bd._stale_prefix_counts(_t(q)).numpy(),
                                   np.asarray(j_bd._stale_prefix_counts(jnp.asarray(q))))
     bc = t_bd.BackendCache(*(torch.ones_like(leaf) for leaf in t_bd.init_backend_cache(
-        tc, tc.frontend.n_active, (3,))))
+        tc, tc.frontend.n_active, (3,), device="cpu")))
     hit = torch.tensor([True, False, True])
     wiped = t_bd.wipe_rows(bc, hit)
     for before, after in zip(bc, wiped):
         assert after.dtype == before.dtype
         assert not after[0].any() and not after[2].any()
         assert torch.equal(after[1], before[1])
-    for a, b in zip(t_bd.init_backend_cache(tc, 4, (2,)),
+    for a, b in zip(t_bd.init_backend_cache(tc, 4, (2,), device="cpu"),
                     j_bd.init_backend_cache(jc, 4, (2,))):
         assert tuple(a.shape) == b.shape and a.dtype == _t(b).dtype
 
@@ -223,17 +223,17 @@ def test_vit_forward_compact_validation(served):
         t_vit.vit_forward_compact(tp, rgb, tc, backend_eps=torch.zeros(1))
     with pytest.raises(ValueError, match="dtype"):
         t_vit.vit_forward_compact(tp, rgb, tc, backend_cache=t_bd.init_backend_cache(
-            tc, k, (1,), dtype=torch.float32))
+            tc, k, (1,), dtype=torch.float32, device="cpu"))
     with pytest.raises(ValueError, match="rows"):
         t_vit.vit_forward_compact(tp, rgb, tc, backend_cache=t_bd.init_backend_cache(
-            tc, k + 1, (1,)))
+            tc, k + 1, (1,), device="cpu"))
     fused = dataclasses.replace(tc, fused_embed=True)
     with pytest.raises(ValueError, match="fused_embed"):
         t_vit.vit_forward_compact(tp, rgb, fused,
-                                  backend_cache=t_bd.init_backend_cache(tc, k, (1,)))
+                                  backend_cache=t_bd.init_backend_cache(tc, k, (1,), device="cpu"))
     with pytest.raises(ValueError, match="fused_embed"):
         t_vit.vit_forward_compact(tp, rgb, fused,
-                                  cache=t_tm.init_feature_cache(tc.frontend, (1,)))
+                                  cache=t_tm.init_feature_cache(tc.frontend, (1,), device="cpu"))
     with pytest.raises(ValueError, match="fused_embed"):
         t_vit.vit_forward_compact(tp, rgb, fused, sign_mode=torch.zeros(1, dtype=torch.bool))
 

@@ -95,7 +95,7 @@ def test_held_gain_droop(hold):
     fcfg = FrontendConfig(image_h=64, image_w=64, patch=PatchSpec(
         16, 16, n_vectors=8, summer=SummerSpec(mode="passive", hold_time_s=hold)))
     rng = np.random.default_rng(1)
-    cache = temporal_mod.init_feature_cache(fcfg, (3,))
+    cache = temporal_mod.init_feature_cache(fcfg, (3,), device="cpu")
     cache = cache._replace(age=torch.from_numpy(rng.integers(0, 40, (3, 16)).astype(np.int32)),
                            valid=torch.from_numpy(rng.random((3, 16)) < 0.7))
     idx = torch.from_numpy(rng.integers(0, 16, (3, 4)).astype(np.int32))

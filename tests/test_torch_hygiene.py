@@ -22,6 +22,8 @@ import repro.core.temporal
 import repro.core.throughput
 import repro.models.backend_delta
 import repro.models.vit
+import repro.optim.adamw
+import repro.train.trainer
 import repro.serve.engine
 import repro.serve.governor
 from repro.core.qth_attention import QTHSpec as RefQTHSpec
@@ -39,7 +41,12 @@ import repro_torch.core.temporal
 import repro_torch.core.throughput
 import repro_torch.kernels.ops
 import repro_torch.models.backend_delta
+import repro_torch.models.cnn
 import repro_torch.models.vit
+import repro_torch.optim.adamw
+import repro_torch.train.trainer
+from repro_torch.checkpoint.manager import CheckpointManager
+from repro_torch.examples import train_ip2_classifier
 import repro_torch.serve.engine
 import repro_torch.serve.governor
 
@@ -84,15 +91,22 @@ PAIRS = [
     (repro.core.power.SensorConfig, repro_torch.core.power.SensorConfig),
     (repro.core.power.AreaBudget, repro_torch.core.power.AreaBudget),
     (repro.core.throughput.RatePoint, repro_torch.core.throughput.RatePoint),
+    (repro.optim.adamw.AdamWConfig, repro_torch.optim.adamw.AdamWConfig),
+    (repro.train.trainer.TrainerConfig, repro_torch.train.trainer.TrainerConfig),
 ]
 # GovernorSpec has a required field (budget_mw): compared on its fields
 # in tests/test_torch_governor.py
 
 
 def _plain(v):
-    """A default reduced to comparable values (nested dataclasses by fields)."""
+    """A default reduced to comparable values (nested dataclasses by fields,
+    JAX's and PyTorch's dtypes by name)."""
     if dataclasses.is_dataclass(v):
         return {f.name: _plain(getattr(v, f.name)) for f in dataclasses.fields(v)}
+    if isinstance(v, torch.dtype):
+        return str(v).removeprefix("torch.")
+    if isinstance(v, type) and hasattr(v, "dtype"):   # jnp.float32 and the like
+        return np.dtype(v).name
     return v
 
 
@@ -143,14 +157,15 @@ def test_wire_payloads_keep_the_reference_tuples(wire):
     tcf, tcache = repro_torch.core.frontend.apply_frontend(
         {"a_rgb": torch.from_numpy(a), "bias": torch.zeros(8)}, torch.from_numpy(rgb), tc,
         mode="compact", wire=wire,
-        cache=repro_torch.core.temporal.init_feature_cache(tc, (1,), dtype=dt[1]))
+        cache=repro_torch.core.temporal.init_feature_cache(tc, (1,), dtype=dt[1],
+                                                           device="cpu"))
     assert type(tcf)._fields == type(jcf)._fields
     assert type(tcache)._fields == type(jcache)._fields
     for t, j in ((tcf.features, jcf.features), (tcache.features, jcache.features)):
         assert t.numpy().dtype == np.asarray(j).dtype
 
 
-def test_entry_points_need_cuda_when_device_is_none(monkeypatch):
+def test_entry_points_need_cuda_when_device_is_none(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = repro_torch.models.vit.ViTConfig()
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -159,6 +174,18 @@ def test_entry_points_need_cuda_when_device_is_none(monkeypatch):
         repro_torch.convert.params_from_numpy({"w": np.zeros(2, np.float32)})
     with pytest.raises(RuntimeError, match="CUDA"):
         repro_torch.serve.engine.SaccadeEngine(cfg, {}, capacity=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        repro_torch.models.cnn.init_cnn(torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        repro_torch.core.temporal.init_feature_cache(cfg.frontend, (1,))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        repro_torch.models.backend_delta.init_backend_cache(cfg, 4, (1,))
+    cm = CheckpointManager(str(tmp_path))
+    cm.save(0, {"w": torch.ones(2)}, blocking=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cm.restore({"w": torch.ones(2)})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_ip2_classifier.main(["--steps", "1", "--ckpt-dir", str(tmp_path / "ck")])
 
 
 def test_cpu_tensors_never_reach_the_cuda_build(monkeypatch):

@@ -205,6 +205,6 @@ def test_gated_frontend_errors():
     with pytest.raises(ValueError, match="k_cap"):
         t_fe.apply_frontend(params, rgb, tc, mode="compact",
                             mask=torch.ones((1, 16), dtype=torch.bool), k_cap=torch.tensor([2]))
-    bad = t_tm.init_feature_cache(tc, (1,), dtype=torch.float32)
+    bad = t_tm.init_feature_cache(tc, (1,), dtype=torch.float32, device="cpu")
     with pytest.raises(ValueError, match="dtype"):
         t_fe.apply_frontend(params, rgb, tc, mode="compact", cache=bad)

@@ -18,6 +18,7 @@ The JAX side runs its kernel adapters in interpret mode.
 """
 
 import dataclasses
+import functools
 import re
 from types import SimpleNamespace
 
@@ -389,7 +390,7 @@ def test_float_wire_is_the_dequantised_code_wire():
     cfs = {w: t_fe.apply_frontend(tp, rgb, tc, mode="compact", wire=w) for w in ("codes", "float")}
     assert torch.equal(t_fe.dequantize_features(cfs["float"]),
                        t_fe.dequantize_features(cfs["codes"]))
-    caches = {w: t_tm.init_feature_cache(tc, (3,), dtype=d)
+    caches = {w: t_tm.init_feature_cache(tc, (3,), dtype=d, device="cpu")
               for w, d in (("codes", None), ("float", torch.float32))}
     for t in range(2):
         x = _t(_frames(3, step=t))
@@ -517,7 +518,9 @@ def test_frontend_rejections_match_reference(name):
             bool=jnp.bool_, sign_fn=j_ops.ip2_sign_fn(jc.patch, interpret=True),
             codes_fn=j_ops.ip2_codes_fn(jc.patch, jc.adc, interpret=True)),
         "torch": SimpleNamespace(
-            fe=t_fe, tm=t_tm, cfg=tc, params=tp, rgb=_t(rgb), to=_t, bool=torch.bool,
+            fe=t_fe, tm=SimpleNamespace(init_feature_cache=functools.partial(
+                t_tm.init_feature_cache, device="cpu")),
+            cfg=tc, params=tp, rgb=_t(rgb), to=_t, bool=torch.bool,
             sign_fn=t_ops.ip2_sign_fn(tc.patch), codes_fn=t_ops.ip2_codes_fn(tc.patch, tc.adc)),
     }
     words = {}
@@ -629,8 +632,9 @@ def test_delta_backend_on_wire(vit_params, wire):
         jcache, jbc = ja["cache"], ja["backend_cache"]
     with pytest.raises(ValueError, match="backend cache dtype"):
         t_vit.vit_forward_compact(tp, _t(imgs), tc, indices=_t(idx), wire=wire,
-                                  cache=t_tm.init_feature_cache(tc.frontend, (2,), dtype=dt[1]),
-                                  backend_cache=t_bd.init_backend_cache(tc, k, (2,)))
+                                  cache=t_tm.init_feature_cache(tc.frontend, (2,), dtype=dt[1],
+                                                                 device="cpu"),
+                                  backend_cache=t_bd.init_backend_cache(tc, k, (2,), device="cpu"))
 
 
 # ---- vit_forward and vit_loss ----------------------------------------------------
