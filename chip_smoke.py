@@ -157,6 +157,38 @@ one CUDA device. Phases, any failure exits non-zero:
          beside the ViT's (printed, not gated). A 100m step is also broken
          down: device time by kernel name, busy share, and the host clock
          of autograd and of the AdamW update.
+  (i)    the fleet, then LM serving (``fleet_phase``, ``lm_phase``). A
+         ``SaccadeFleet`` of 4 hosts x 16 slots of (b)'s engine on the one
+         card, once on the staged route (kernels 6 + 5) and once gated
+         (the gate and delta backend of (b), a fleet governor at half the
+         mW an ungoverned fleet meters: kernels 2 + 3 + 5): 72 streams
+         submitted in the four priority classes for 64 slots, churn
+         between ticks, frame periods of 1, 2 and 4 ticks, 12 ticks by
+         ``step`` and 12 by ``step_rollout``, the launch counts reset
+         before each fleet call and read after it. Each host's logits
+         bitwise a standalone 16-slot engine's given the same admits,
+         frames and budget share (the rollout against the engines' step
+         loops); fleet -> host -> slot budgets summing to rel 1e-5; a
+         slack fleet budget bitwise an ungoverned fleet; logits within
+         1e-5 of one 64-slot engine on the streams whose codes agree (at
+         least 80 %); every kernel result of both routes against its plain
+         version (``_recording``, ``_hold_served``). Then, all 64 streams
+         fed, the fleet's and the 64-slot engine's tick split into
+         dispatch and fetch, and their device busy share. The LM part:
+         smollm-135m at full width and depth (30 layers, d_model 576, 9 Q
+         / 3 KV heads, vocab 49 152, tied embeddings) with seeded weights,
+         batch 8, a 128-token prompt from ``TokenStream``, 64 greedy
+         decode steps with each cache dtype: decode == forward within
+         2e-4 (float32 cache) and within ``LM_CACHE_REL_BOUND`` of the
+         logit scale (bf16, int8); prefill ms, decode ms per step,
+         tokens/s, peak memory, a decode step's busy share. The card
+         against the CPU at 2 of the 30 layers (1e-4). recurrentgemma (a
+         6-token window, wrapped), xlstm, the qwen3 MoE (dropless; at a
+         binding capacity the card drops the CPU's (token, expert)
+         pairs), whisper and pixtral with the IP2 frontend at their smoke
+         configs: decode == forward within 2e-4. No kernel launches in
+         the LM part: the LM stack reaches no Pallas kernel in the
+         reference either.
 
 Prints the kernel table as one JSON line, the card's name and power limit
 (nvidia-smi), and last ``{"ok": true, "device": {...}}``. With ``--out DIR``
@@ -187,6 +219,9 @@ KERNELS = ("ip2_project_sparse", "ip2_ragged", "delta_attention", "ip2_fused_emb
 # bound on the share of codes a 1-LSB move may touch between a projection
 # kernel and the plain projection (fp32 sums on an ADC rounding boundary)
 LSB_MOVES = {10: 0.001, 16: 0.01}
+# decode with a bf16 or int8 KV cache against the float32 forward, as a
+# share of the largest |logit|: the reference's own bound for its int8 cache
+LM_CACHE_REL_BOUND = 0.015
 
 
 def _fail(msg):
@@ -1128,6 +1163,479 @@ def train_phase(dev, out, ckpt_dir, big="100m", big_batch=64, big_steps=12, fail
     cnn["vit_dense_oracle_acc"] = arm["dense_oracle_acc"]
     out["cnn"] = cnn
     print(json.dumps({"h_cnn": cnn}))
+
+
+def _busy(fn):
+    """Device busy share of one call of ``fn``: the union of the device
+    intervals of a profiler window over the host's wall time of the call
+    (its synchronise included). The profiler loses some of a window's first
+    device events (see ``_device_ms``), so the share reads low, if at all."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy, cur = 0.0, None
+    for a, b in spans:                          # union of device intervals
+        if cur is None or a > cur[1]:
+            if cur is not None:
+                busy += cur[1] - cur[0]
+            cur = [a, b]
+        else:
+            cur[1] = max(cur[1], b)
+    if cur is not None:
+        busy += cur[1] - cur[0]
+    return {"busy_ms": busy / 1e3, "wall_ms": wall_ms,
+            "busy_share": busy / 1e3 / wall_ms if spans else None, "device_events": len(spans)}
+
+
+class _FleetTraffic:
+    """Deterministic fleet traffic: streams join in the four priority classes
+    in turn, each with a frame period of 1, 2 or 4 ticks (and a phase), and
+    leave a few at a time; each stream's scene changes every 4 ticks. The
+    fleet's admits and evicts are mirrored into per-host standalone engines
+    and one engine of the fleet's whole capacity, with the same priorities
+    and in the same order, so their slots line up."""
+
+    def __init__(self, fleet, pool, seed, mirrors=(), whole=None):
+        import numpy as np
+        from repro_torch.serve.fleet import PRIORITY_CLASSES
+        self.fleet, self.pool, self.mirrors, self.whole = fleet, pool, list(mirrors), whole
+        self.classes = list(PRIORITY_CLASSES)
+        self.rng = np.random.default_rng(seed)
+        self.period, self.phase = {}, {}
+        self.next_id = 0
+
+    def _twins(self, host):
+        """The engines that mirror ``host``: its standalone one, the whole one."""
+        return [e for e in ([self.mirrors[host]] if self.mirrors else []) + [self.whole]
+                if e is not None]
+
+    def join(self, n):
+        for _ in range(n):
+            i = self.next_id
+            sid = f"f{i}"
+            self.fleet.submit(sid, self.classes[i % len(self.classes)])
+            self.period[sid] = (1, 2, 4)[i % 3]
+            self.phase[sid] = i % self.period[sid]
+            self.next_id += 1
+
+    def churn(self, n_out):
+        """``n_out`` admitted streams leave (and one queued request is
+        cancelled, if any); as many new ones join."""
+        live = sorted(self.fleet.stream_ids)
+        for sid in self.rng.choice(live, size=min(n_out, len(live)), replace=False):
+            sid = str(sid)
+            twins = self._twins(self.fleet.host_of(sid))
+            self.fleet.evict(sid)
+            for eng in twins:
+                eng.evict(sid)
+            del self.period[sid], self.phase[sid]
+        queued = sorted(set(self.period) - set(self.fleet.stream_ids))
+        if queued:
+            self.fleet.evict(queued[0])
+            del self.period[queued[0]], self.phase[queued[0]]
+        self.join(n_out + (1 if queued else 0))
+
+    def drain(self):
+        """Admit the queues now, mirror the admits and the hosts' budgets."""
+        for sid in self.fleet.drain():
+            h = self.fleet.host_of(sid)
+            for eng in self._twins(h):
+                eng.admit(sid, priority=self.fleet.engines[h]._priority[sid])
+        for eng, mir in zip(self.fleet.engines, self.mirrors):
+            if eng.budget_mw is not None and mir.budget_mw != eng.budget_mw:
+                mir.set_budget_mw(eng.budget_mw)
+
+    def frames(self, t, every=False):
+        live = set(self.fleet.stream_ids)
+        return {sid: self.pool[(int(sid[1:]) + t // 4) % len(self.pool)]
+                for sid in self.period if sid in live
+                and (every or t % self.period[sid] == self.phase[sid])}
+
+
+def fleet_phase(dev, out, params, cfg_s, cfg_g, n_hosts=4, cap=16, ticks=12, seed=21,
+                time_ticks=10):
+    """Phase (i), the fleet half: ``n_hosts`` x ``cap`` slots of the engine of
+    (b) on the one card, on the staged route (kernels 6 + 5) and the gated
+    one (temporal gate, a fleet governor at half the ungoverned fleet's mW,
+    the delta backend with its ragged attention: kernels 2 + 3 + 5). Each
+    serves ``ticks`` ticks by ``step`` then ``ticks`` by ``step_rollout``
+    under churn, more streams than slots in four priority classes, frame
+    periods of 1, 2 and 4 ticks. Holds: every host's logits bitwise a
+    standalone engine's given the same admits, frames and (gated) budget
+    share, in step mode and against the rollout; fleet -> host -> slot
+    budgets summing to rel 1e-5; a slack fleet budget bitwise an ungoverned
+    fleet; logits within 1e-5 of one engine of the fleet's capacity on the
+    slots whose codes agree; every kernel result against its plain version.
+    Then full-feed tick times (dispatch, fetch) and the device busy share,
+    beside the whole-capacity engine's."""
+    import numpy as np
+    import torch
+    from repro_torch.data.pipeline import SceneStream
+    from repro_torch.kernels import ops
+    from repro_torch.serve.engine import SaccadeEngine
+    from repro_torch.serve.fleet import SaccadeFleet
+    from repro_torch.serve.governor import GovernorSpec
+
+    pool, _ = SceneStream(seed=seed, image=cfg_s.frontend.image_h).batch(0, 24)
+    routes = {
+        "staged": (cfg_s, {"project_fn": ops.ip2_codes_fn(cfg_s.frontend.patch,
+                                                           cfg_s.frontend.adc)}),
+        "gated": (cfg_g, {"project_fn": ops.ip2_codes_fn(cfg_g.frontend.patch,
+                                                          cfg_g.frontend.adc),
+                          "temporal": True, "backend_delta": True}),
+    }
+    k_tok = cfg_s.frontend.n_active
+    n_join = n_hosts * cap + cap // 2            # more streams than slots: queues wait
+    for route, (cfg, kw) in routes.items():
+        res = out[route] = {}
+        gov = None
+        if route == "gated":
+            # a slack fleet budget against an ungoverned fleet of the same
+            # shape (bitwise), which also meters the fleet mW the governed
+            # fleet gets half of
+            pair = {name: SaccadeFleet(cfg, params, n_hosts=n_hosts, capacity=cap,
+                                       governor=g, **kw)
+                    for name, g in (("slack", GovernorSpec(budget_mw=1e9)), ("ungoverned", None))}
+            traffic = {name: _FleetTraffic(fl, pool, seed) for name, fl in pair.items()}
+            fleet_mw = []
+            for t in range(6):
+                outs = {}
+                for name, tr in traffic.items():
+                    if t:
+                        tr.churn(3)
+                    else:
+                        tr.join(n_join)
+                    tr.drain()
+                    outs[name] = pair[name].step(tr.frames(t))
+                assert outs["slack"].keys() == outs["ungoverned"].keys()
+                for sid, v in outs["slack"].items():
+                    assert np.array_equal(v, outs["ungoverned"][sid]), \
+                        f"tick {t} {sid}: the slack fleet budget moved a logit"
+                fleet_mw.append(pair["ungoverned"].fleet_power_mw())
+            del pair, traffic
+            gov = GovernorSpec(budget_mw=0.5 * float(np.mean(fleet_mw)), backend_eps=1e-3)
+            res["ungoverned_fleet_mw"] = fleet_mw
+            res["budget_mw"] = gov.budget_mw
+
+        fleet = SaccadeFleet(cfg, params, n_hosts=n_hosts, capacity=cap, governor=gov, **kw)
+        mirrors = [SaccadeEngine(cfg, params, capacity=cap, governor=gov, **kw)
+                   for _ in range(n_hosts)]
+        whole = SaccadeEngine(cfg, params, capacity=n_hosts * cap, governor=gov, **kw)
+        tr = _FleetTraffic(fleet, pool, seed, mirrors, whole)
+        launches = dict.fromkeys(ops.LAUNCHES, 0)
+        host_ticks = 0
+        agree = {}                               # gated: cumulative per stream
+        worst_bit = {"compared": 0}
+        vs_whole = {"compared": 0, "skipped": 0, "max_logit_err": 0.0}
+        budgets = []
+
+        def fleet_call(fn):
+            ops.reset_launches()
+            r = fn()
+            for n, c in ops.LAUNCHES.items():
+                launches[n] += c
+            return r
+
+        def hold_bitwise(t, got, want):
+            assert got.keys() == want.keys(), f"tick {t}: fed streams differ"
+            for sid, v in got.items():
+                assert np.array_equal(v, want[sid]), \
+                    f"{route} tick {t} {sid}: the fleet's host and its standalone engine differ"
+                assert np.isfinite(v).all()
+                worst_bit["compared"] += 1
+
+        def check_budgets(t):
+            if gov is None:
+                return
+            hosts = []
+            for eng in fleet.engines:
+                slots = [eng.slot_of(s) for s in eng.stream_ids]
+                if slots:
+                    b = float(eng.state.controls.budget_mw[slots].sum())
+                    assert abs(b - eng.budget_mw) <= 1e-5 * eng.budget_mw, (t, b, eng.budget_mw)
+                    hosts.append(eng.budget_mw)
+            assert abs(sum(hosts) - gov.budget_mw) <= 1e-5 * gov.budget_mw, (t, hosts)
+            budgets.append(hosts)
+
+        with _recording(ops) as calls:
+            tr.join(n_join)
+            for t in range(ticks):
+                if t:
+                    tr.churn(3)
+                tr.drain()
+                assert t > 0 or fleet.queued > 0, "no stream waited in a queue"
+                frames = tr.frames(t)
+                n_call = len(calls["_ip2_project_cuda"])
+                got = fleet_call(lambda: fleet.step(frames))
+                host_ticks += len({fleet.host_of(s) for s in frames})
+                fleet_calls = calls["_ip2_project_cuda"][n_call:]
+                want = {}
+                for h, eng in enumerate(mirrors):
+                    fh = {s: f for s, f in frames.items() if fleet.host_of(s) == h}
+                    if fh:
+                        want.update(eng.step(fh))
+                hold_bitwise(t, got, want)
+                check_budgets(t)
+                n_call = len(calls["_ip2_project_cuda"])
+                w_out = whole.step(frames)
+                # the slots whose codes agree with the whole-capacity engine
+                if route == "staged":
+                    (w_args, w_codes), = calls["_ip2_project_cuda"][n_call:]
+                    fed_hosts = sorted({fleet.host_of(s) for s in frames})
+                    by_host = dict(zip(fed_hosts, (c for _, c in fleet_calls)))
+                    same = {}
+                    for sid in frames:
+                        h = fleet.host_of(sid)
+                        a = fleet.engines[h].slot_of(sid)
+                        b = whole.slot_of(sid)
+                        same[sid] = torch.equal(by_host[h][a * k_tok:(a + 1) * k_tok],
+                                                w_codes[b * k_tok:(b + 1) * k_tok])
+                else:
+                    w_st = whole.state
+                    same = {}
+                    for sid in frames:
+                        h_st = fleet.engines[fleet.host_of(sid)].state
+                        a = fleet.engines[fleet.host_of(sid)].slot_of(sid)
+                        b = whole.slot_of(sid)
+                        ok = torch.equal(h_st.cache.features[a], w_st.cache.features[b])
+                        for name in ("j_cap", "tier", "eps"):
+                            ok &= torch.equal(getattr(h_st.controls, name)[a],
+                                              getattr(w_st.controls, name)[b])
+                        same[sid] = agree[sid] = agree.get(sid, True) and bool(ok)
+                for sid, v in got.items():
+                    if same[sid]:
+                        e = float(np.abs(v - w_out[sid]).max())
+                        vs_whole["max_logit_err"] = max(vs_whole["max_logit_err"], e)
+                        vs_whole["compared"] += 1
+                        assert e <= 1e-5, f"{route} tick {t} {sid}: {e} off the whole engine"
+                    else:
+                        vs_whole["skipped"] += 1
+            # the rollout half: churn once at its boundary, then `ticks` ticks
+            # in one step_rollout per fed host, against the mirrors' step loops
+            tr.churn(3)
+            tr.drain()
+            sched = [tr.frames(t) for t in range(ticks, 2 * ticks)]
+            roll = fleet_call(lambda: fleet.step_rollout(sched))
+            host_ticks += ticks * len({fleet.host_of(s) for fr in sched for s in fr})
+            for t, frames in enumerate(sched):
+                want = {}
+                for h, eng in enumerate(mirrors):
+                    fh = {s: f for s, f in frames.items() if fleet.host_of(s) == h}
+                    if fh:
+                        want.update(eng.step(fh))
+                hold_bitwise(ticks + t, roll[t], want)
+            check_budgets(2 * ticks)
+            res["held"] = _hold_served(calls)
+        res.update({"launches": launches, "host_ticks": host_ticks,
+                    "bitwise_stream_ticks": worst_bit["compared"], "vs_whole_engine": vs_whole,
+                    "host_budgets_mw": budgets[-1] if budgets else None,
+                    "streams_joined": tr.next_id})
+        if route == "staged":
+            assert launches["ip2_project"] == host_ticks and launches["quant_matmul"] == host_ticks
+            assert launches["ip2_ragged"] == launches["delta_attention"] == 0
+        else:
+            assert launches["ip2_ragged"] == host_ticks, (launches, host_ticks)
+            assert launches["delta_attention"] > 0 and launches["quant_matmul"] > 0, launches
+            assert launches["ip2_project"] == 0
+        assert launches["ip2_fused_embed"] == launches["ip2_project_sparse"] == 0, launches
+        assert vs_whole["compared"] >= 0.8 * (vs_whole["compared"] + vs_whole["skipped"]), vs_whole
+        del mirrors
+
+        # full-feed tick times: every admitted stream fed, split into the
+        # non-blocking dispatch and the fetch; the same for the whole engine
+        frames = tr.frames(0, every=True)
+        timing = {}
+        for name, step in (("fleet", fleet.step), ("whole_engine", whole.step)):
+            for _ in range(3):
+                step(frames)
+            disp, fetch = [], []
+            for _ in range(time_ticks):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                h = step(frames, block=False)
+                t1 = time.perf_counter()
+                h.result()
+                disp.append((t1 - t0) * 1e3)
+                fetch.append((time.perf_counter() - t1) * 1e3)
+            timing[name] = {"streams": len(frames), "dispatch_ms": float(np.median(disp)),
+                            "fetch_ms": float(np.median(fetch)),
+                            "tick_ms": float(np.median(np.add(disp, fetch))),
+                            "dispatch_ms_all": disp, "fetch_ms_all": fetch,
+                            **_busy(lambda: step(frames))}
+        res["times"] = timing
+        del fleet, whole, tr
+        torch.cuda.empty_cache()
+    return out
+
+
+def lm_phase(dev, out, seed=0, batch=8, prompt_len=128, gen=64, cfg=None):
+    """Phase (i), the LM half: smollm-135m at full width and depth (30
+    layers, d_model 576, 9 Q / 3 KV heads, vocab 49 152, tied embeddings)
+    with seeded weights serves ``batch`` prompts of ``prompt_len`` tokens
+    from ``TokenStream`` and ``gen`` greedy decode steps with each cache
+    dtype: decode == forward within 2e-4 on the float32 cache and within
+    1.5 % of the logit scale (the reference's int8 criterion) on bf16 and
+    int8; prefill ms, decode ms per step, tokens/s, peak memory, one decode
+    step's device busy share. The card against the CPU at 2 of the 30
+    layers (1e-4). The other families at their smoke configs, decode ==
+    forward (2e-4): recurrentgemma with a 6-token window, xlstm, the
+    qwen3 MoE dropless (and at a binding capacity the card's dropped
+    (token, expert) pairs are the CPU's), whisper, pixtral with the IP2
+    frontend. No kernel launches in any of it. ``cfg`` replaces smollm-135m
+    (a smaller one rehearses the phase on the CPU)."""
+    import numpy as np
+    import torch
+    from repro_torch import models as M
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.convert import tree_flatten_with_paths, tree_to
+    from repro_torch.data.pipeline import DataConfig, TokenStream
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.serve.serve_step import make_decode_step, make_prefill_step
+
+    ops.reset_launches()
+    plan = M.DEFAULT_PLAN
+    cfg = cfg or get_config("smollm-135m")
+    t0 = time.perf_counter()
+    params = M.init_params(torch.Generator().manual_seed(seed), cfg, device=dev)
+    n_params = sum(x.numel() for _, x in tree_flatten_with_paths(params))
+    out["smollm"] = {"name": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model, "n_params": n_params,
+                     "param_count": cfg.param_count(), "init_s": time.perf_counter() - t0,
+                     "batch": batch, "prompt_len": prompt_len, "gen": gen, "caches": {}}
+    prompt = torch.from_numpy(TokenStream(DataConfig(
+        seed=seed + 1, vocab=cfg.vocab, seq_len=prompt_len, global_batch=batch)).batch(0)[
+        "tokens"]).to(dev)
+    prefill = make_prefill_step(cfg, plan)
+    decode = make_decode_step(cfg, plan)
+    sync = torch.cuda.synchronize
+    for name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16),
+                     ("int8", torch.int8)):
+        def fresh():
+            return M.init_decode_state(cfg, plan, batch, prompt_len + gen, cache_dtype=dt,
+                                       device=dev)
+        lg, st = prefill(params, {"tokens": prompt}, fresh())         # warm-up
+        decode(params, st, torch.argmax(lg, -1).to(torch.int32),
+               torch.full((), prompt_len, dtype=torch.int32, device=dev))
+        torch.cuda.reset_peak_memory_stats()
+        st = fresh()
+        sync()
+        t0 = time.perf_counter()
+        lg, st = prefill(params, {"tokens": prompt}, st)
+        sync()
+        t_pre = time.perf_counter() - t0
+        nxt = torch.argmax(lg, -1).to(torch.int32)
+        logits, toks = [lg], [nxt]
+        t0 = time.perf_counter()
+        for i in range(gen):
+            pos = torch.full((), prompt_len + i, dtype=torch.int32, device=dev)
+            nxt, lg, st = decode(params, st, nxt, pos)
+            logits.append(lg)
+            toks.append(nxt)
+        sync()
+        t_dec = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        pos = torch.full((), prompt_len + gen - 1, dtype=torch.int32, device=dev)
+        busy = _busy(lambda: decode(params, st, toks[-2], pos))
+        seq = torch.cat([prompt, torch.stack(toks[:gen], 1)], 1)
+        full, _ = M.forward(params, {"tokens": seq}, cfg)
+        errs = [float((logits[i] - full[:, prompt_len - 1 + i]).abs().max())
+                for i in range(gen + 1)]
+        scale = float(full.abs().max())
+        rec = out["smollm"]["caches"][name] = {
+            "prefill_ms": t_pre * 1e3, "decode_ms_per_step": t_dec * 1e3 / gen,
+            "decode_tokens_per_s": batch * gen / t_dec,
+            "prefill_tokens_per_s": batch * prompt_len / t_pre,
+            "peak_mem_bytes": peak, "decode_step_busy": busy,
+            "max_err_vs_forward": max(errs), "logit_scale": scale,
+            "rel_err_vs_forward": max(errs) / scale,
+            "first_tokens": seq[0, prompt_len:prompt_len + 8].tolist()}
+        assert all(np.isfinite(errs)), rec
+        if dt == torch.float32:
+            assert max(errs) <= 2e-4, f"smollm float32 cache: decode off forward by {max(errs)}"
+        else:
+            assert max(errs) / scale < LM_CACHE_REL_BOUND, \
+                f"smollm {name} cache: {max(errs)} of {scale}"
+        del st, logits, full
+
+    # the card against the CPU at 2 of the 30 layers, same weights
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    p_cpu = M.init_params(torch.Generator().manual_seed(seed + 2), cfg2, device="cpu")
+    p_gpu = tree_to(p_cpu, dev)
+    toks = prompt[:2, :32]
+    n = toks.shape[1]
+    lc, _ = M.forward(p_cpu, {"tokens": toks.cpu()}, cfg2)
+    lgpu, _ = M.forward(p_gpu, {"tokens": toks}, cfg2)
+    e_fwd = float((lgpu.cpu() - lc).abs().max())
+    lc1, sc = M.prefill(p_cpu, {"tokens": toks[:, :n - 4].cpu()}, cfg2, plan, M.init_decode_state(
+        cfg2, plan, 2, n, cache_dtype=torch.float32, device="cpu"))
+    lg1, sg = M.prefill(p_gpu, {"tokens": toks[:, :n - 4]}, cfg2, plan, M.init_decode_state(
+        cfg2, plan, 2, n, cache_dtype=torch.float32, device=dev))
+    e_dec = float((lg1.cpu() - lc1).abs().max())
+    for i in range(n - 4, n):
+        lc1, sc = M.decode_step(p_cpu, sc, toks[:, i].cpu(), torch.tensor(i), cfg2)
+        lg1, sg = M.decode_step(p_gpu, sg, toks[:, i], torch.full((), i, device=dev), cfg2)
+        e_dec = max(e_dec, float((lg1.cpu() - lc1).abs().max()))
+    out["smollm"]["card_vs_cpu_2_layers"] = {"forward_max_err": e_fwd, "decode_max_err": e_dec}
+    assert e_fwd <= 1e-4 and e_dec <= 1e-4, out["smollm"]["card_vs_cpu_2_layers"]
+    del params, p_gpu
+
+    # the other families at their smoke configs, decode == forward
+    fam = out["families"] = {}
+    g = np.random.default_rng(seed + 3)
+    cases = [("recurrentgemma-2b", {"local_window": 6}, 20, 10),
+             ("xlstm-1.3b", {}, 16, 8), ("qwen3-moe-235b-a22b", {}, 16, 8),
+             ("whisper-tiny", {}, 16, 8), ("pixtral-12b", {"vision_frontend": "ip2"}, 16, 8)]
+    for arch, repl, s, half in cases:
+        c = dataclasses.replace(smoke_config(arch), **repl)
+        p = M.init_params(torch.Generator().manual_seed(seed + 4), c, device=dev)
+        b = {"tokens": torch.from_numpy(g.integers(0, c.vocab, size=(2, s))).to(dev)}
+        if c.is_encoder_decoder:
+            b["frames"] = torch.from_numpy(
+                g.normal(size=(2, c.n_encoder_frames, c.d_model)).astype(np.float32)).to(dev)
+        if c.is_vlm:
+            edge = 2 * c.ip2_patch
+            b["images_rgb"] = torch.from_numpy(
+                g.uniform(size=(2, edge, edge, 3)).astype(np.float32)).to(dev)
+        full, aux = M.forward(p, b, c)
+        n_pre = full.shape[1] - s
+        st = M.init_decode_state(c, plan, 2, n_pre + s, cache_dtype=torch.float32, device=dev)
+        lg, st = M.prefill(p, dict(b, tokens=b["tokens"][:, :half]), c, plan, st)
+        errs = [float((lg - full[:, n_pre + half - 1]).abs().max())]
+        for t in range(half, s):
+            lg, st = M.decode_step(p, st, b["tokens"][:, t],
+                                   torch.full((), n_pre + t, dtype=torch.int32, device=dev), c)
+            errs.append(float((lg - full[:, n_pre + t]).abs().max()))
+        fam[arch] = {"decode_vs_forward_max_err": max(errs), "moe_aux": float(aux["moe_aux"]),
+                     "positions": n_pre + s}
+        assert max(errs) <= 2e-4, (arch, fam[arch])
+    # a binding capacity: the card drops the CPU's (token, expert) pairs
+    c = smoke_config("qwen3-moe-235b-a22b")
+    c = dataclasses.replace(c, moe=dataclasses.replace(c.moe, capacity_factor=0.5))
+    p_cpu = moe_mod.init_moe(torch.Generator().manual_seed(seed + 5), c)
+    h = torch.from_numpy(g.normal(size=(2, 16, c.d_model)).astype(np.float32))
+    dropped = {}
+    for d in ("cpu", dev):
+        p_d, h_d = tree_to(p_cpu, d), h.to(d)
+        _, _, ids = moe_mod.route(p_d, h_d.reshape(-1, c.d_model), c)
+        dp = moe_mod.dispatch(ids, c.moe.n_experts, moe_mod.capacity(c, 32))
+        dropped[str(d)] = sorted((int(a), int(e)) for a, e, k in zip(
+            dp["tok_of"].cpu(), dp["expert"].cpu(), dp["keep"].cpu()) if not k)
+        dropped[str(d) + "_out"] = moe_mod.apply_moe(p_d, h_d, c)[0].cpu()
+    e_moe = float((dropped[str(dev) + "_out"] - dropped["cpu_out"]).abs().max())
+    fam["moe_binding"] = {"dropped_pairs": len(dropped["cpu"]), "card_vs_cpu_max_err": e_moe}
+    assert dropped[str(dev)] == dropped["cpu"] and dropped["cpu"], "dropped pairs differ"
+    assert e_moe <= 1e-5, fam["moe_binding"]
+    out["launches"] = dict(ops.LAUNCHES)
+    assert not any(ops.LAUNCHES.values()), f"a kernel launched in the LM part: {ops.LAUNCHES}"
+    return out
 
 
 def main():
@@ -2152,9 +2660,6 @@ def main():
     # ---- (e) ticks per second: step, rollouts, the async return, ingest ----
     @phase("e_async_times")
     def _e():
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-
         out = {}
         for mode in ("staged", "gated"):
             eng = make_engine(mode)
@@ -2193,31 +2698,16 @@ def main():
                 rollout[t_len] = {"ticks_per_s": t_len / dt, "ms_per_tick": dt * 1e3 / t_len,
                                   "host_return_ms": (t1 - t0) * 1e3}
             ticks = [frames_at(t) for t in range(16)]
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                eng.step_rollout(ticks)
-                wall_us = (time.perf_counter() - t0) * 1e6
-            spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                           if e.device_type == DeviceType.CUDA)
-            busy, cur = 0.0, None
-            for a, b in spans:                         # union of device intervals
-                if cur is None or a > cur[1]:
-                    if cur is not None:
-                        busy += cur[1] - cur[0]
-                    cur = [a, b]
-                else:
-                    cur[1] = max(cur[1], b)
-            if cur is not None:
-                busy += cur[1] - cur[0]
+            busy = _busy(lambda: eng.step_rollout(ticks))
             out[mode] = {
                 "step_ticks_per_s": 1.0 / step_s, "step_ms": step_s * 1e3,
                 "step_nonblocking_return_ms": float(np.median(ret)),
                 "step_nonblocking_tick_ms": float(np.median(tick)),
                 "rollout": rollout,
-                "rollout16_device_busy_ms": busy / 1e3, "rollout16_wall_ms": wall_us / 1e3,
-                "rollout16_device_busy_share": busy / wall_us if spans else None,
-                "rollout16_device_events": len(spans),
+                "rollout16_device_busy_ms": busy["busy_ms"],
+                "rollout16_wall_ms": busy["wall_ms"],
+                "rollout16_device_busy_share": busy["busy_share"],
+                "rollout16_device_events": busy["device_events"],
             }
             del eng
         # the 64 fed frames (50 MB) alone: pageable against page-locked
@@ -2432,6 +2922,26 @@ def main():
             train_phase(dev, out, ckpt_dir)
         finally:
             shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    @phase("i_fleet_lm")
+    def _i():
+        out = report["i_fleet_lm"] = {"fleet": {}, "lm": {}}
+        t0 = time.perf_counter()
+        fleet_phase(dev, out["fleet"], params, cfg_s, cfg_g)
+        out["fleet_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        lm_phase(dev, out["lm"])
+        out["lm_s"] = time.perf_counter() - t0
+        fl = {r: {"launches": {n: c for n, c in v["launches"].items() if c},
+                  "host_ticks": v["host_ticks"], "vs_whole_engine": v["vs_whole_engine"],
+                  "held": {n: {k: x for k, x in h.items() if k != "shapes"}
+                           for n, h in v["held"].items()},
+                  "times": {n: {k: x for k, x in tm.items() if not k.endswith("_all")}
+                            for n, tm in v["times"].items()},
+                  **({"budget_mw": v["budget_mw"]} if "budget_mw" in v else {})}
+              for r, v in out["fleet"].items()}
+        print(json.dumps({"fleet": fl, "fleet_s": out["fleet_s"]}))
+        print(json.dumps({"lm": out["lm"], "lm_s": out["lm_s"]}))
 
     lost = [k for k in PREROLL_LOST if k is not None]
     report["profiler_preroll_lost"] = {"windows": len(PREROLL_LOST), "max": max(lost, default=None),

@@ -35,6 +35,15 @@ def clip(x: torch.Tensor, lo: float | None = None, hi: float | None = None) -> t
     return x
 
 
+def to_int32(x: torch.Tensor) -> torch.Tensor:
+    """``x.astype(int32)`` as JAX casts a float: saturating at the int32
+    range (``inf`` too), NaN to 0. PyTorch's cast wraps an out-of-range
+    value (3e10 becomes -2**31). Device ops only, no host sync."""
+    big = x >= 2147483648.0
+    y = torch.clamp(torch.nan_to_num(x, nan=0.0), -2147483648.0, 2147483520.0).to(torch.int32)
+    return torch.where(big, torch.full_like(y, 2147483647), y)
+
+
 _VECTORS: dict = {}
 
 

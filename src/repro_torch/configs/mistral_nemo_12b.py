@@ -1,0 +1,9 @@
+"""mistral-nemo-12b — dense GQA, 128k ctx [hf:mistralai/Mistral-Nemo-Base-2407]."""
+from repro_torch.configs.base import ATTN, ModelConfig
+
+CONFIG = ModelConfig(
+    name="mistral-nemo-12b", family="dense",
+    n_layers=40, d_model=5120, n_heads=32, n_kv_heads=8,
+    d_ff=14336, vocab=131072, head_dim=128,
+    block_pattern=(ATTN,), mlp_kind="swiglu", rope_theta=1_000_000.0,
+)

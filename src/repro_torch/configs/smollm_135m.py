@@ -1,0 +1,9 @@
+"""smollm-135m — llama-arch small [hf:HuggingFaceTB/SmolLM-135M]."""
+from repro_torch.configs.base import ATTN, ModelConfig
+
+CONFIG = ModelConfig(
+    name="smollm-135m", family="dense",
+    n_layers=30, d_model=576, n_heads=9, n_kv_heads=3,
+    d_ff=1536, vocab=49152, head_dim=64,
+    block_pattern=(ATTN,), mlp_kind="swiglu", tie_embeddings=True,
+)

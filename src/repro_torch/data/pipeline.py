@@ -1,13 +1,54 @@
-"""Procedural scenes for the saccade loop, generated with numpy.
+"""Deterministic data, generated with numpy.
 
-``SceneStream.batch(step, n)`` is a pure function of (seed, step): the same
-frames and labels as the reference's ``SceneStream`` for the same seed, so
-a run can be replayed anywhere without a data file.
+``TokenStream.batch(step)`` (synthetic LM tokens) and
+``SceneStream.batch(step, n)`` (procedural scenes for the saccade loop) are
+pure functions of (seed, step), bitwise the reference's for the same seed,
+so a run can be replayed anywhere without a data file.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    seed: int = 1234
+    vocab: int = 512
+    seq_len: int = 128
+    global_batch: int = 8
+
+
+class TokenStream:
+    """Synthetic token batches: a zipf unigram mixed with a fixed first-order
+    markov shift, so the loss has learnable structure. ``batch(step)`` is
+    pure; ``host_id`` / ``n_hosts`` take one host's rows of the global batch."""
+
+    def __init__(self, cfg: DataConfig):
+        self.cfg = cfg
+        root = np.random.default_rng(cfg.seed)
+        v = cfg.vocab
+        self.unigram = 1.0 / np.arange(1, v + 1)
+        self.unigram /= self.unigram.sum()
+        self.shift = root.integers(1, v, size=v)
+
+    def batch(self, step: int, host_id: int = 0, n_hosts: int = 1) -> dict:
+        cfg = self.cfg
+        per_host = cfg.global_batch // n_hosts
+        rng = np.random.default_rng((cfg.seed * 1_000_003 + step) * 65_537 + host_id)
+        first = rng.choice(cfg.vocab, size=(per_host, 1), p=self.unigram)
+        noise = rng.random((per_host, cfg.seq_len - 1))
+        toks = [first[:, 0]]
+        for t in range(cfg.seq_len - 1):
+            nxt = np.where(
+                noise[:, t] < 0.75,
+                self.shift[toks[-1]],                       # learnable transition
+                rng.choice(cfg.vocab, size=per_host, p=self.unigram),
+            )
+            toks.append(nxt)
+        return {"tokens": np.stack(toks, axis=1).astype(np.int32)}
 
 
 class SceneStream:

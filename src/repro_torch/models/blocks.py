@@ -1,0 +1,153 @@
+"""Per-kind block init / apply dispatch and decode-state init.
+
+A model is ``block_pattern`` tiled over n_layers; each pattern position
+has its own parameter stack (leading repeat dim), so heterogeneous
+patterns (RG-LRU / local attention, mLSTM / sLSTM) stack cleanly.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import (
+    ATTN,
+    LOCAL_ATTN,
+    MLSTM,
+    MOE,
+    RECURRENT,
+    SLSTM,
+    ModelConfig,
+)
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import xlstm as xlstm_mod
+from repro_torch.models.layers import ParallelPlan, apply_mlp, init_mlp, rms_norm
+
+
+def init_block(generator: torch.Generator, kind: str, cfg: ModelConfig,
+               plan: ParallelPlan, dtype: torch.dtype) -> dict:
+    d = cfg.d_model
+    p: dict = {"norm1": torch.ones((d,), dtype=dtype)}
+    if kind in (ATTN, LOCAL_ATTN, MOE):
+        p["attn"] = attn_mod.init_attention(generator, cfg, plan, dtype)
+        p["norm2"] = torch.ones((d,), dtype=dtype)
+        if kind == MOE:
+            p["moe"] = moe_mod.init_moe(generator, cfg, dtype)
+        else:
+            p["mlp"] = init_mlp(generator, d, cfg.d_ff, cfg.mlp_kind, dtype)
+    elif kind == RECURRENT:
+        p["rec"] = rglru_mod.init_rglru_block(generator, cfg, dtype)
+        p["norm2"] = torch.ones((d,), dtype=dtype)
+        p["mlp"] = init_mlp(generator, d, cfg.d_ff, cfg.mlp_kind, dtype)
+    elif kind == MLSTM:
+        p["mlstm"] = xlstm_mod.init_mlstm_block(generator, cfg, dtype)
+    elif kind == SLSTM:
+        p["slstm"] = xlstm_mod.init_slstm_block(generator, cfg, dtype)
+    else:
+        raise ValueError(kind)
+    return p
+
+
+def _cache_from_prefill(k: torch.Tensor, t: int, cache_dtype: torch.dtype) -> torch.Tensor:
+    """Lay prefill keys / values into the (possibly rolling) cache buffer so
+    decode's slot arithmetic (slot = pos % t) lines up."""
+    s = k.shape[1]
+    if s < t:
+        return torch.nn.functional.pad(k.to(cache_dtype), (0, 0, 0, 0, 0, t - s))
+    return torch.roll(k[:, -t:].to(cache_dtype), s % t, dims=1)
+
+
+def _scale_from_prefill(sc: torch.Tensor, t: int) -> torch.Tensor:
+    """Same layout for the (B, S, H) int8-cache scales (padding 1.0)."""
+    s = sc.shape[1]
+    if s < t:
+        return torch.nn.functional.pad(sc, (0, 0, 0, t - s), value=1.0)
+    return torch.roll(sc[:, -t:], s % t, dims=1)
+
+
+def apply_block(p: dict, kind: str, x: torch.Tensor, cfg: ModelConfig,
+                positions: torch.Tensor | None, state: dict | None, causal: bool = True,
+                decode_pos: torch.Tensor | None = None
+                ) -> tuple[torch.Tensor, dict | None, torch.Tensor]:
+    """One block over x (B, S, D) -> (x, new_state, aux). With a state and
+    S == 1 an attention block decodes at ``decode_pos``; with a state and
+    S > 1 it fills the cache from the prompt."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    new_state = state
+    if kind in (ATTN, LOCAL_ATTN, MOE):
+        window = cfg.local_window if kind == LOCAL_ATTN else None
+        h = rms_norm(x, p["norm1"], cfg.norm_eps)
+        if state is not None and x.shape[1] == 1:
+            scales = ({"k": state["k_scale"], "v": state["v_scale"]}
+                      if "k_scale" in state else None)
+            out, nk, nv, nsc = attn_mod.attention_decode(
+                p["attn"], h, state["k"], state["v"], decode_pos, cfg,
+                window=window, cache_scales=scales)
+            new_state = {"k": nk, "v": nv}
+            if nsc is not None:
+                new_state["k_scale"], new_state["v_scale"] = nsc["k"], nsc["v"]
+        else:
+            out, (k, v) = attn_mod.attention_forward(
+                p["attn"], h, cfg, positions, causal=causal, window=window)
+            if state is not None:
+                t = state["k"].shape[1]
+                if state["k"].dtype == torch.int8:
+                    k8, ks = attn_mod.quantize_kv(k)
+                    v8, vs = attn_mod.quantize_kv(v)
+                    new_state = {
+                        "k": _cache_from_prefill(k8, t, torch.int8),
+                        "v": _cache_from_prefill(v8, t, torch.int8),
+                        "k_scale": _scale_from_prefill(ks, t),
+                        "v_scale": _scale_from_prefill(vs, t),
+                    }
+                else:
+                    new_state = {
+                        "k": _cache_from_prefill(k, t, state["k"].dtype),
+                        "v": _cache_from_prefill(v, t, state["v"].dtype),
+                    }
+        x = x + out
+        h = rms_norm(x, p["norm2"], cfg.norm_eps)
+        if kind == MOE:
+            out, aux = moe_mod.apply_moe(p["moe"], h, cfg)
+        else:
+            out = apply_mlp(p["mlp"], h, cfg.mlp_kind)
+        x = x + out
+    elif kind == RECURRENT:
+        h = rms_norm(x, p["norm1"], cfg.norm_eps)
+        out, new_state = rglru_mod.recurrent_block_forward(p["rec"], h, state)
+        x = x + out
+        h = rms_norm(x, p["norm2"], cfg.norm_eps)
+        x = x + apply_mlp(p["mlp"], h, cfg.mlp_kind)
+    elif kind == MLSTM:
+        h = rms_norm(x, p["norm1"], cfg.norm_eps)
+        out, new_state = xlstm_mod.mlstm_block_forward(
+            p["mlstm"], h, state, chunk_size=cfg.xlstm_chunk)
+        x = x + out
+    elif kind == SLSTM:
+        h = rms_norm(x, p["norm1"], cfg.norm_eps)
+        out, new_state = xlstm_mod.slstm_forward(p["slstm"], h, state)
+        x = x + out
+    return x, new_state, aux
+
+
+def init_block_state(kind: str, cfg: ModelConfig, plan: ParallelPlan, batch: int,
+                     max_len: int, cache_dtype: torch.dtype = torch.bfloat16,
+                     device=None) -> dict:
+    if kind in (ATTN, MOE, LOCAL_ATTN):
+        window = cfg.local_window if kind == LOCAL_ATTN else None
+        k, v = attn_mod.make_cache(cfg, plan, batch, max_len, window=window,
+                                   dtype=cache_dtype, device=device)
+        st = {"k": k, "v": v}
+        if cache_dtype == torch.int8:
+            sc = attn_mod.make_cache_scales(cfg, plan, batch, max_len, window=window,
+                                            device=device)
+            st["k_scale"], st["v_scale"] = sc["k"], sc["v"]
+        return st
+    if kind == RECURRENT:
+        return rglru_mod.init_rglru_state(cfg, batch, device)
+    if kind == MLSTM:
+        return xlstm_mod.init_mlstm_state(cfg, batch, device)
+    if kind == SLSTM:
+        return xlstm_mod.init_slstm_state(cfg, batch, device)
+    raise ValueError(kind)

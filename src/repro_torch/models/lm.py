@@ -1,0 +1,310 @@
+"""Top-level models: causal LM, whisper-style enc-dec, VLM (+ IP2 frontend).
+
+  init_params(generator, cfg, plan, dtype, device)   -> params tree
+  forward(params, batch, cfg, plan)                  -> (logits, aux)
+  loss_fn(params, batch, cfg, plan)                  -> (loss, metrics)
+  init_decode_state(cfg, plan, B, max_len, ...)      -> state tree
+  prefill(params, batch, cfg, plan, state)           -> (logits_last, state)
+  decode_step(params, state, tokens, pos, cfg, plan) -> (logits, state)
+
+The trees keep the reference's layout: ``{"embed", "lm_head"?,
+"final_norm", "stacks": [one dict per pattern position, leaves with a
+leading repeat dim], "tail": [...]}``, plus ``encoder`` / ``enc_norm`` /
+``cross`` for enc-dec and ``vision_adapter`` / ``ip2`` for a VLM, so a
+reference tree carried across by ``convert.params_from_numpy`` runs here
+unchanged. Full repeats of ``block_pattern`` run as a Python loop over the
+stacked layers (the reference's ``lax.scan``; ``unroll_layers`` is then the
+same program, and ``remat`` changes nothing in a forward); remainder layers
+run after them. Decode takes ``pos`` as a 0-dim device tensor and makes no
+host read.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch._arith import div
+from repro_torch._device import resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.convert import tree_map, tree_to
+from repro_torch.models import blocks as blk
+from repro_torch.models.attention import attention_forward, init_attention
+from repro_torch.models.layers import DEFAULT_PLAN, ParallelPlan, dense_init, embed_init, rms_norm
+
+
+# ---------------------------------------------------------------------------
+# structure helpers
+# ---------------------------------------------------------------------------
+
+def _pattern_layout(cfg: ModelConfig) -> tuple[int, tuple[str, ...], tuple[str, ...]]:
+    """(n_repeats, pattern, tail_kinds)."""
+    pat = tuple(cfg.block_pattern)
+    n_rep = cfg.n_layers // len(pat)
+    tail = cfg.layer_kinds[n_rep * len(pat):]
+    return n_rep, pat, tuple(tail)
+
+
+def _stack(trees: list):
+    return tree_map(lambda *xs: torch.stack(xs), *trees) if trees else None
+
+
+def _layer(tree, i: int):
+    return tree_map(lambda a: a[i], tree)
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def _ip2_cfg(cfg: ModelConfig):
+    from repro_torch.core.frontend import FrontendConfig
+    from repro_torch.core.projection import PatchSpec
+
+    return FrontendConfig(
+        patch=PatchSpec(patch_h=cfg.ip2_patch, patch_w=cfg.ip2_patch,
+                        n_vectors=cfg.ip2_vectors))
+
+
+def init_params(generator: torch.Generator, cfg: ModelConfig,
+                plan: ParallelPlan = DEFAULT_PLAN, dtype: torch.dtype = torch.float32,
+                device=None) -> dict:
+    """Random parameters drawn on the CPU from ``generator``, in the
+    reference's order, then placed on ``device`` (the GPU by default)."""
+    dev = resolve_device(device)
+    n_rep, pat, tail = _pattern_layout(cfg)
+    p: dict = {}
+    if cfg.vocab:
+        p["embed"] = embed_init(generator, cfg.vocab, cfg.d_model, dtype)
+        if not cfg.tie_embeddings:
+            p["lm_head"] = embed_init(generator, cfg.vocab, cfg.d_model, dtype)
+    p["final_norm"] = torch.ones((cfg.d_model,), dtype=dtype)
+
+    layers = [blk.init_block(generator, kind, cfg, plan, dtype) for kind in cfg.layer_kinds]
+    p["stacks"] = [_stack([layers[r * len(pat) + pi] for r in range(n_rep)])
+                   for pi in range(len(pat))]
+    p["tail"] = layers[n_rep * len(pat):]
+
+    if cfg.is_encoder_decoder:
+        p["encoder"] = [blk.init_block(generator, "attn", cfg, plan, dtype)
+                        for _ in range(cfg.n_encoder_layers)]
+        p["enc_norm"] = torch.ones((cfg.d_model,), dtype=dtype)
+        # decoder cross-attention, one per decoder layer
+        p["cross"] = _stack([
+            {"norm": torch.ones((cfg.d_model,), dtype=dtype),
+             "attn": init_attention(generator, cfg, plan, dtype)}
+            for _ in range(cfg.n_layers)])
+    if cfg.is_vlm:
+        vis_in = cfg.ip2_vectors if cfg.vision_frontend == "ip2" else 1024
+        p["vision_adapter"] = dense_init(generator, vis_in, cfg.d_model, dtype)
+        if cfg.vision_frontend == "ip2":
+            from repro_torch.core.frontend import init_frontend_params
+
+            p["ip2"] = init_frontend_params(_ip2_cfg(cfg), generator)
+    return tree_to(p, dev)
+
+
+# ---------------------------------------------------------------------------
+# embedding of mixed inputs
+# ---------------------------------------------------------------------------
+
+def embed_inputs(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
+    """x (B, S, D). For a VLM the image tokens are prepended; for enc-dec
+    this embeds the decoder tokens only."""
+    x = params["embed"][batch["tokens"].long()] if cfg.vocab else None
+    if cfg.is_vlm:
+        if cfg.vision_frontend == "ip2":
+            from repro_torch.core.frontend import apply_frontend
+
+            vis, _ = apply_frontend(params["ip2"], batch["images_rgb"], _ip2_cfg(cfg))
+        else:
+            vis = batch["image_embeds"]                    # (B, n_img, 1024)
+        vis = vis.to(params["vision_adapter"].dtype) @ params["vision_adapter"]
+        x = vis if x is None else torch.cat([vis, x.to(vis.dtype)], dim=1)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+def _run_stacks(params, x, cfg, plan, states=None, causal=True, decode_pos=None):
+    """Pattern repeats in a loop, then the tail. ``states`` mirrors the
+    params layout: {"stacks": [stacked state per position], "tail": [...]}."""
+    n_rep, pat, tail = _pattern_layout(cfg)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    positions = torch.arange(x.shape[1], device=x.device) if decode_pos is None else None
+
+    ys = []
+    for r in range(n_rep):
+        new_states = []
+        for pi, kind in enumerate(pat):
+            st = None if states is None else _layer(states["stacks"][pi], r)
+            x, st_new, a = blk.apply_block(
+                _layer(params["stacks"][pi], r), kind, x, cfg, positions, st,
+                causal=causal, decode_pos=decode_pos)
+            new_states.append(st_new)
+            aux_total = aux_total + a
+        ys.append(new_states)
+
+    tail_states = []
+    for i, kind in enumerate(tail):
+        st = None if states is None else states["tail"][i]
+        x, st_new, a = blk.apply_block(
+            params["tail"][i], kind, x, cfg, positions, st,
+            causal=causal, decode_pos=decode_pos)
+        tail_states.append(st_new)
+        aux_total = aux_total + a
+
+    new = None
+    if states is not None:
+        stacks = ([_stack([y[pi] for y in ys]) for pi in range(len(pat))]
+                  if n_rep > 0 else None)
+        new = {"stacks": stacks, "tail": tail_states}
+    return x, new, aux_total
+
+
+def _encode(params, frames, cfg, plan):
+    """Whisper encoder over precomputed frame embeddings (stub frontend)."""
+    x = frames
+    pos = torch.arange(x.shape[1], device=x.device)
+    for p in params["encoder"]:
+        x, _, _ = blk.apply_block(p, "attn", x, cfg, pos, None, causal=False)
+    return rms_norm(x, params["enc_norm"], cfg.norm_eps)
+
+
+def _cross_attend(params_cross_i, x, enc_kv, cfg):
+    h = rms_norm(x, params_cross_i["norm"], cfg.norm_eps)
+    out, _ = attention_forward(
+        params_cross_i["attn"], h, cfg, torch.arange(x.shape[1], device=x.device),
+        causal=False, kv_override=enc_kv, use_rope=False)
+    return x + out
+
+
+def _decoder_layer(params, state, i: int, n_rep: int):
+    """Layer i of an enc-dec decoder: (params, state or None)."""
+    lp = _layer(params["stacks"][0], i) if i < n_rep else params["tail"][i - n_rep]
+    if state is None:
+        return lp, None
+    st = _layer(state["stacks"][0], i) if i < n_rep else state["tail"][i - n_rep]
+    return lp, st
+
+
+def _logits(params, x, cfg) -> torch.Tensor:
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    logits = torch.einsum("bsd,vd->bsv", x, head)
+    if cfg.logit_softcap:
+        c = cfg.logit_softcap
+        logits = c * torch.tanh(div(logits, c))
+    return logits
+
+
+def forward(params: dict, batch: dict, cfg: ModelConfig,
+            plan: ParallelPlan = DEFAULT_PLAN) -> tuple[torch.Tensor, dict]:
+    """Full-sequence forward -> (logits (B, S, V), {"moe_aux"})."""
+    x = embed_inputs(params, batch, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.is_encoder_decoder:
+        enc = _encode(params, batch["frames"], cfg, plan)
+        n_rep, _, _ = _pattern_layout(cfg)
+        pos = torch.arange(x.shape[1], device=x.device)
+        for i in range(cfg.n_layers):
+            lp, _ = _decoder_layer(params, None, i, n_rep)
+            x, _, _ = blk.apply_block(lp, "attn", x, cfg, pos, None, causal=True)
+            x = _cross_attend(_layer(params["cross"], i), x, enc, cfg)
+    else:
+        x, _, a = _run_stacks(params, x, cfg, plan)
+        aux = aux + a
+    return _logits(params, x, cfg), {"moe_aux": aux}
+
+
+def loss_fn(params: dict, batch: dict, cfg: ModelConfig,
+            plan: ParallelPlan = DEFAULT_PLAN) -> tuple[torch.Tensor, dict]:
+    """Next-token CE over the text tokens (image positions excluded) plus
+    the MoE aux loss. Forward only: the LM's gradients come with training."""
+    logits, aux = forward(params, batch, cfg, plan)
+    tokens = batch["tokens"].long()
+    n_prefix = logits.shape[1] - tokens.shape[1]   # image tokens prepended
+    tgt = tokens[:, 1:]
+    lg = logits[:, n_prefix:, :][:, :-1, :].to(torch.float32)
+    mask = batch.get("loss_mask")
+    mask = torch.ones(tgt.shape, dtype=torch.float32, device=lg.device) if mask is None \
+        else mask[:, 1:]
+    logz = torch.logsumexp(lg, dim=-1)
+    onehot = tgt[..., None] == torch.arange(lg.shape[-1], device=lg.device)
+    gold = torch.einsum("bsv,bsv->bs", lg, onehot.to(lg.dtype))
+    ce = torch.sum((logz - gold) * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+    loss = ce + aux["moe_aux"]
+    return loss, {"ce": ce, "moe_aux": aux["moe_aux"]}
+
+
+# ---------------------------------------------------------------------------
+# decode
+# ---------------------------------------------------------------------------
+
+def init_decode_state(cfg: ModelConfig, plan: ParallelPlan, batch: int, max_len: int,
+                      cache_dtype: torch.dtype = torch.bfloat16, device=None) -> dict:
+    """Caches and recurrent states for ``batch`` sequences of up to
+    ``max_len`` positions, on ``device`` (the GPU by default)."""
+    dev = resolve_device(device)
+    n_rep, pat, tail = _pattern_layout(cfg)
+
+    def stacked_state(kind):
+        one = blk.init_block_state(kind, cfg, plan, batch, max_len, cache_dtype, dev)
+        return tree_map(lambda a: a[None].expand(n_rep, *a.shape).clone(), one)
+
+    state = {
+        "stacks": [stacked_state(k) for k in pat],
+        "tail": [blk.init_block_state(k, cfg, plan, batch, max_len, cache_dtype, dev)
+                 for k in tail],
+    }
+    if cfg.is_encoder_decoder:
+        state["enc"] = torch.zeros((batch, cfg.n_encoder_frames, cfg.d_model),
+                                   dtype=torch.float32, device=dev)
+    return state
+
+
+def _run_decoder(params, x, cfg, state, enc, pos=None, decode_pos=None):
+    """The enc-dec decoder over x with its caches: self-attention block i
+    (prefill at ``pos`` or decode at ``decode_pos``) then cross-attention
+    to ``enc``. Returns (x, new state)."""
+    n_rep, _, _ = _pattern_layout(cfg)
+    new_stack, new_tail = [], list(state["tail"])
+    for i in range(cfg.n_layers):
+        lp, st = _decoder_layer(params, state, i, n_rep)
+        x, st_new, _ = blk.apply_block(lp, "attn", x, cfg, pos, st, causal=True,
+                                       decode_pos=decode_pos)
+        if i < n_rep:
+            new_stack.append(st_new)
+        else:
+            new_tail[i - n_rep] = st_new
+        x = _cross_attend(_layer(params["cross"], i), x, enc, cfg)
+    return x, dict(state, enc=enc, stacks=[_stack(new_stack)], tail=new_tail)
+
+
+def prefill(params: dict, batch: dict, cfg: ModelConfig, plan: ParallelPlan,
+            state: dict) -> tuple[torch.Tensor, dict]:
+    """Run the prompt through the model, filling caches and states.
+    Returns (last-position logits (B, V), state)."""
+    x = embed_inputs(params, batch, cfg)
+    if cfg.is_encoder_decoder:
+        enc = _encode(params, batch["frames"], cfg, plan)
+        pos = torch.arange(x.shape[1], device=x.device)
+        x, state = _run_decoder(params, x, cfg, state, enc, pos=pos)
+    else:
+        x, state, _ = _run_stacks(params, x, cfg, plan, states=state)
+    return _logits(params, x[:, -1:, :], cfg)[:, 0], state
+
+
+def decode_step(params: dict, state: dict, tokens: torch.Tensor, pos: torch.Tensor,
+                cfg: ModelConfig, plan: ParallelPlan = DEFAULT_PLAN
+                ) -> tuple[torch.Tensor, dict]:
+    """One token step: tokens (B,) integers, ``pos`` a 0-dim integer tensor
+    on the params' device (absolute position). Returns (logits (B, V),
+    new state)."""
+    x = params["embed"][tokens.long()][:, None, :]             # (B, 1, D)
+    if cfg.is_encoder_decoder:
+        x, new_states = _run_decoder(params, x, cfg, state, state["enc"], decode_pos=pos)
+    else:
+        x, new_states, _ = _run_stacks(params, x, cfg, plan, states=state, decode_pos=pos)
+    return _logits(params, x, cfg)[:, 0], new_states

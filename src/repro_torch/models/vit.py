@@ -37,8 +37,9 @@ from repro_torch.core.frontend import (
 from repro_torch.core.qth_attention import QTHSpec, qth_attention_weights
 from repro_torch.kernels import ops
 from repro_torch.models import backend_delta as bdel
+from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import init_attention
-from repro_torch.models.layers import apply_mlp, dense_init, init_mlp, rms_norm
+from repro_torch.models.layers import DEFAULT_PLAN, apply_mlp, dense_init, init_mlp, rms_norm
 
 NEG_INF = -1e30
 
@@ -60,12 +61,22 @@ class ViTConfig:
                                   # attention probabilities are not read
     norm_eps: float = 1e-5
 
+    def backbone_cfg(self) -> ModelConfig:
+        return ModelConfig(
+            name="ip2-vit-backbone", family="vision",
+            n_layers=self.n_layers, d_model=self.d_model,
+            n_heads=self.n_heads, n_kv_heads=self.n_heads,
+            d_ff=self.d_ff, vocab=0, head_dim=self.d_model // self.n_heads,
+            mlp_kind="gelu", qkv_bias=True, remat=False,
+        )
+
 
 def init_vit(cfg: ViTConfig, generator: torch.Generator, device=None) -> dict:
     """Random parameters in the reference's tree layout, drawn on the CPU
     from ``generator`` and placed on ``device`` (the GPU by default)."""
     dev = resolve_device(device)
-    d, h = cfg.d_model, cfg.n_heads
+    d = cfg.d_model
+    bb = cfg.backbone_cfg()
     p = {
         "ip2": init_frontend_params(cfg.frontend, generator),
         "embed": dense_init(generator, cfg.frontend.patch.n_vectors, d),
@@ -77,7 +88,7 @@ def init_vit(cfg: ViTConfig, generator: torch.Generator, device=None) -> dict:
     for _ in range(cfg.n_layers):
         p["layers"].append({
             "norm1": torch.ones((d,), dtype=torch.float32),
-            "attn": init_attention(generator, d, h, d // h),
+            "attn": init_attention(generator, bb, DEFAULT_PLAN),
             "norm2": torch.ones((d,), dtype=torch.float32),
             "mlp": init_mlp(generator, d, cfg.d_ff, "gelu"),
         })

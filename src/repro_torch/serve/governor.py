@@ -27,7 +27,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch._arith import const_vector, div
+from repro_torch._arith import const_vector, div, to_int32
 from repro_torch.core.power import EnergyMeter, EventCounts, frontend_frame_events
 
 
@@ -139,11 +139,12 @@ def control_update(spec: GovernorSpec, controls: GovernorControls,
 
     # 1. feedforward affordable allocation at the current tier; a true
     # division, as the reference's (PyTorch on CUDA would multiply by the
-    # reciprocal and could move the floor by one)
+    # reciprocal and could move the floor by one), and JAX's saturating
+    # cast (a budget of 1e8 mW affords more than 2**31 rows)
     k_eff_now = tier_k_eff(spec, controls.tier, k)
     fixed = fixed_power_mw(meter, n_pixels, pixels_per_patch, n_vectors, k_eff_now,
                            frame_hz)
-    afford = torch.floor(div(budget - fixed, slot_mw)).to(torch.int32)
+    afford = to_int32(torch.floor(div(budget - fixed, slot_mw)))
     target = torch.clamp(afford, spec.floor, j_max)
 
     # 2. slew-limited move with a deadband hold

@@ -1,13 +1,46 @@
-"""The IP2 closed saccade loop: frame t's patch selection comes from the
-backend's attention on frame t-1 (paper §1 "shifted attention")."""
+"""Serving steps: batched LM prefill and single-token decode with greedy
+or temperature sampling, and the IP2 closed saccade loop, where frame t's
+patch selection comes from the backend's attention on frame t-1 (paper §1
+"shifted attention")."""
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch._arith import div
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core import frontend as fe
 from repro_torch.core import saliency as sal
+from repro_torch.models import lm
+from repro_torch.models.layers import ParallelPlan
 from repro_torch.models.vit import vit_forward_compact
+
+
+def make_prefill_step(cfg: ModelConfig, plan: ParallelPlan):
+    """prefill_step(params, batch, state) -> (last-position logits, state)."""
+    def prefill_step(params, batch, state):
+        return lm.prefill(params, batch, cfg, plan, state)
+
+    return prefill_step
+
+
+def make_decode_step(cfg: ModelConfig, plan: ParallelPlan, temperature: float = 0.0):
+    """decode_one(params, state, tokens, pos, rng) -> (next tokens (B,) int32,
+    logits, state). Greedy (``temperature == 0``) takes the argmax, the
+    first index on ties as the reference's; otherwise one token per row is
+    drawn from softmax(logits / temperature) with ``rng``, a
+    ``torch.Generator`` on the logits' device (the reference's JAX key has
+    no counterpart, so its draws are not reproduced)."""
+    def decode_one(params, state, tokens, pos, rng=None):
+        logits, state = lm.decode_step(params, state, tokens, pos, cfg, plan)
+        if temperature > 0.0:
+            probs = torch.softmax(div(logits, temperature), dim=-1)
+            nxt = torch.multinomial(probs, 1, generator=rng)[:, 0]
+        else:
+            nxt = torch.argmax(logits, dim=-1)
+        return nxt.to(torch.int32), logits, state
+
+    return decode_one
 
 
 def make_bootstrap_indices(cfg):

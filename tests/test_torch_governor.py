@@ -208,3 +208,43 @@ def test_control_update_sign_tier_across_its_floor():
         np.testing.assert_array_equal(tn.tier.numpy(), np.asarray(jn.tier), f"up {tick}")
         jc, tc = jn, t_gov.GovernorControls(*(_t(x) for x in jn))
     assert not np.asarray(j_gov.tier_is_sign(js, jc.tier))[active].any()
+
+
+def test_control_update_at_budgets_past_the_int32_range():
+    """A slack budget of 1e8 mW and more affords more than 2**31 rows: the
+    reference's cast saturates there (and j_cap stays at j_max), so the
+    port's must too, where PyTorch's own cast would wrap to -2**31 and drop
+    j_cap to the floor."""
+    js, ts = _specs(budget_mw=1e9, backend_eps=1e-3)
+    jm, tm = j_pw.EnergyMeter(), t_pw.EnergyMeter()
+    rng = np.random.default_rng(1)
+    s = 8
+    j_cap, tier, eps = _controls(rng, s)
+    budget = np.array([1e6, 1e8, 1e9, 3e9, 1e12, 1e30, np.inf, 50.0], np.float32)
+    active = np.ones(s, bool)
+    ev = j_pw.frontend_frame_events(N_PIXELS, PPP, M, n_selected_patches=jnp.full(
+        (s,), float(K)), n_converted_patches=jnp.full((s,), 4.0))
+    jc = j_gov.GovernorControls(jnp.asarray(j_cap), jnp.asarray(tier), jnp.asarray(budget),
+                                jnp.asarray(eps))
+    tc = t_gov.GovernorControls(_t(j_cap), _t(tier), _t(budget), _t(eps))
+    t_ev = t_pw.EventCounts(*(_t(np.asarray(e)) for e in ev))
+    for _ in range(J_MAX):   # the slew climbs one row a tick
+        jn = j_gov.control_update(js, jc, ev, jnp.asarray(active), jm, HZ, N_PIXELS, PPP, M,
+                                  J_MAX, K)
+        tn = t_gov.control_update(ts, tc, t_ev, _t(active), tm, HZ, N_PIXELS, PPP, M,
+                                  J_MAX, K)
+        np.testing.assert_array_equal(tn.j_cap.numpy(), np.asarray(jn.j_cap))
+        np.testing.assert_array_equal(tn.tier.numpy(), np.asarray(jn.tier))
+        jc, tc = jn, t_gov.GovernorControls(*(_t(np.asarray(x)) for x in jn))
+    # the finite budgets climb to j_max; at inf the deadband holds j_cap
+    assert (np.asarray(jn.j_cap)[:6] == J_MAX).all()
+
+
+def test_to_int32_saturates_like_jax():
+    from repro_torch._arith import to_int32
+
+    x = np.array([0.0, -0.5, 2.9, -2.9, 2147483520.0, 2147483648.0, 3e10, -3e10,
+                  -2147483648.0, np.inf, -np.inf, np.nan], np.float32)
+    got = to_int32(_t(x))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jnp.asarray(x).astype(jnp.int32)))

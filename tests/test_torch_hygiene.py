@@ -11,6 +11,8 @@ import numpy as np
 import pytest
 import torch
 
+import repro.configs
+import repro.configs.base
 import repro.core.adc
 import repro.core.analog_nl
 import repro.core.frontend
@@ -20,7 +22,9 @@ import repro.core.pwm
 import repro.core.switched_cap
 import repro.core.temporal
 import repro.core.throughput
+import repro.data.pipeline
 import repro.models.backend_delta
+import repro.models.layers
 import repro.models.vit
 import repro.optim.adamw
 import repro.train.trainer
@@ -28,6 +32,8 @@ import repro.serve.engine
 import repro.serve.governor
 from repro.core.qth_attention import QTHSpec as RefQTHSpec
 from repro.kernels.ip2_project import IP2KernelParams as RefKernelParams
+import repro_torch.configs
+import repro_torch.configs.base
 import repro_torch.convert
 import repro_torch.core.adc
 import repro_torch.core.analog_nl
@@ -39,15 +45,19 @@ import repro_torch.core.switched_cap
 import repro_torch.core.qth_attention
 import repro_torch.core.temporal
 import repro_torch.core.throughput
+import repro_torch.data.pipeline
 import repro_torch.kernels.ops
 import repro_torch.models.backend_delta
 import repro_torch.models.cnn
+import repro_torch.models.layers
+import repro_torch.models.lm
 import repro_torch.models.vit
 import repro_torch.optim.adamw
 import repro_torch.train.trainer
 from repro_torch.checkpoint.manager import CheckpointManager
-from repro_torch.examples import train_ip2_classifier
+from repro_torch.examples import serve_lm, train_ip2_classifier
 import repro_torch.serve.engine
+import repro_torch.serve.fleet
 import repro_torch.serve.governor
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -93,6 +103,11 @@ PAIRS = [
     (repro.core.throughput.RatePoint, repro_torch.core.throughput.RatePoint),
     (repro.optim.adamw.AdamWConfig, repro_torch.optim.adamw.AdamWConfig),
     (repro.train.trainer.TrainerConfig, repro_torch.train.trainer.TrainerConfig),
+    (repro.configs.base.MoEConfig, repro_torch.configs.base.MoEConfig),
+    (repro.configs.base.ModelConfig, repro_torch.configs.base.ModelConfig),
+    (repro.configs.base.ShapeConfig, repro_torch.configs.base.ShapeConfig),
+    (repro.models.layers.ParallelPlan, repro_torch.models.layers.ParallelPlan),
+    (repro.data.pipeline.DataConfig, repro_torch.data.pipeline.DataConfig),
 ]
 # GovernorSpec has a required field (budget_mw): compared on its fields
 # in tests/test_torch_governor.py
@@ -116,6 +131,35 @@ def test_config_fields_match_reference(ref_cls, port_cls):
     assert [f.name for f in pf] == [f.name for f in rf]
     for a, b in zip(rf, pf):
         assert _plain(b.default) == _plain(a.default), a.name
+
+
+@pytest.mark.parametrize("arch", sorted(repro.configs.all_configs()))
+def test_registered_configs_match_reference_field_for_field(arch):
+    ref, port = repro.configs.get_config(arch), repro_torch.configs.get_config(arch)
+    assert type(port).__module__.startswith("repro_torch.")
+    assert [f.name for f in dataclasses.fields(port)] == [f.name for f in dataclasses.fields(ref)]
+    for f in dataclasses.fields(ref):
+        assert _plain(getattr(port, f.name)) == _plain(getattr(ref, f.name)), (arch, f.name)
+    assert repro_torch.configs.registry.get_config.__module__ == "repro_torch.configs.registry"
+
+
+def test_init_vit_tree_is_the_reference_tree():
+    """The ViT builds its attention through the reference's
+    ``init_attention(generator, cfg, plan, dtype)``: the tree keeps the
+    reference's keys, shapes and dtypes."""
+    import jax
+
+    from repro.checkpoint.manager import _flatten_with_paths
+
+    kw = dict(n_layers=2, d_model=48, n_heads=3, d_ff=96)
+    ref = repro.models.vit.init_vit(jax.random.PRNGKey(0), repro.models.vit.ViTConfig(**kw))
+    port = repro_torch.models.vit.init_vit(repro_torch.models.vit.ViTConfig(**kw),
+                                           torch.Generator().manual_seed(0), device="cpu")
+    paths, leaves, _ = _flatten_with_paths(ref)
+    want = [(p, np.shape(x), np.asarray(x).dtype.name) for p, x in zip(paths, leaves)]
+    got = [(p, tuple(x.shape), str(x.dtype).removeprefix("torch."))
+           for p, x in repro_torch.convert.tree_flatten_with_paths(port)]
+    assert got == want
 
 
 @pytest.mark.parametrize("ref_t,port_t", [
@@ -186,6 +230,16 @@ def test_entry_points_need_cuda_when_device_is_none(monkeypatch, tmp_path):
         cm.restore({"w": torch.ones(2)})
     with pytest.raises(RuntimeError, match="CUDA"):
         train_ip2_classifier.main(["--steps", "1", "--ckpt-dir", str(tmp_path / "ck")])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        repro_torch.serve.fleet.SaccadeFleet(cfg, {}, n_hosts=2, capacity=1)
+    lm_cfg = repro_torch.configs.smoke_config("smollm-135m")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        repro_torch.models.lm.init_params(torch.Generator().manual_seed(0), lm_cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        repro_torch.models.lm.init_decode_state(lm_cfg, repro_torch.models.layers.DEFAULT_PLAN,
+                                                1, 8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve_lm.main(["--gen", "2", "--prompt-len", "2"])
 
 
 def test_cpu_tensors_never_reach_the_cuda_build(monkeypatch):
