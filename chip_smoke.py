@@ -189,6 +189,35 @@ one CUDA device. Phases, any failure exits non-zero:
          configs: decode == forward within 2e-4. No kernel launches in
          the LM part: the LM stack reaches no Pallas kernel in the
          reference either.
+  (j)    the gated step forms, LM training and the caches at long context
+         (``gated_steps_phase``, ``lm_train_phase``, ``long_context_phase``).
+         j1: ``make_saccade_step``'s ``step_temporal_backend`` and
+         ``step_temporal`` at the width of (b), 64 streams, 12 frames of
+         scenes that change every 4 frames, the staged kernel route (gate
+         j = 8 of 16, delta backend with kernel 3, no governor), launch
+         counts reset before each form and read after: kernels 2 / 3 / 5
+         launched 1 / 5 / 1 times a frame (1 / 0 / 1 for step_temporal).
+         Each form against a ``SaccadeEngine`` of its mode with every slot
+         fed every tick: logits within 1e-5, next indices, n_stale and the
+         caches' integer leaves equal; every kernel result held against its
+         plain version (``_hold_served``); a small input card vs CPU within
+         1e-4 on slots whose codes agree; ms per frame. j2: smollm-135m
+         training at full width and depth from seeded weights, batch 8 x
+         seq 512 ``TokenStream`` tokens, bf16 compute, AdamW, 12 steps of
+         ``Trainer`` with remat off, "nothing" and "dots": losses finite
+         and falling, step ms, tokens/s, peak memory, one step's device
+         time, busy share and launches; interrupted at step 6 and resumed
+         bitwise; a float32 gradient card vs CPU at 2 layers (1e-4 of each
+         leaf's largest |g|); microbatches 4 vs 1 (loss rel 1e-5, gradients
+         1e-5 of each leaf's largest); no kernel launched. j3: smollm
+         decode at batch 8 with bf16 and int8 caches of 8192 prefilled
+         positions (decode == forward within ``LM_CACHE_REL_BOUND``) and of
+         32 768 seeded positions: decode ms per step, peak memory above the
+         resident state and bytes allocated per step (at most
+         ``CACHE_ALLOC_BOUND`` times the caches' elements at bf16 width);
+         the cache contraction on one layer against float32 (within the
+         worst case of a float32 sum of its terms);
+         ``_write_slot`` alone.
 
 Prints the kernel table as one JSON line, the card's name and power limit
 (nvidia-smi), and last ``{"ok": true, "device": {...}}``. With ``--out DIR``
@@ -1638,6 +1667,467 @@ def lm_phase(dev, out, seed=0, batch=8, prompt_len=128, gen=64, cfg=None):
     return out
 
 
+def gated_steps_phase(dev, out, params, cfg_g, capacity=CAPACITY, frames=12, seed=9):
+    """Phase (j1): the gated forms of ``make_saccade_step`` at the width of
+    ``cfg_g`` on the staged kernel route (``ops.ip2_codes_fn``), ``capacity``
+    streams, ``frames`` frames of ``SceneStream`` scenes that change every 4
+    frames, every stream fed every frame, no governor.
+
+    ``step_temporal_backend`` and ``step_temporal`` each against a
+    ``SaccadeEngine`` of the same mode (``temporal=True``, with and without
+    ``backend_delta``) fed every slot every tick, which is one
+    ``make_saccade_step`` frame per slot: logits within 1e-5, next indices,
+    ``n_stale`` and the caches' integer leaves equal (bitwise or not is
+    reported). Launch counts are reset before each form's frames and read
+    after them: ``ip2_ragged`` and ``quant_matmul`` once a frame,
+    ``delta_attention`` on every layer but the last (never without the
+    backend cache); the backend computes both of its regimes every frame
+    and selects on the device, so a frame whose backend MACs are all zero
+    launches the same kernels (the computed frames are counted). Every
+    kernel result of the forms is held against its plain version on its
+    own inputs (``_recording``, ``_hold_served``). Then both forms on a
+    small input on the card against the CPU: 1e-4 on the slots whose codes
+    agree. Fills ``out``; ms per frame by the host clock to a synchronise."""
+    import numpy as np
+    import torch
+    from repro_torch.convert import tree_to
+    from repro_torch.core.frontend import FrontendConfig
+    from repro_torch.core.projection import PatchSpec
+    from repro_torch.core.switched_cap import SummerSpec
+    from repro_torch.core.temporal import TemporalSpec, init_feature_cache
+    from repro_torch.data.pipeline import SceneStream
+    from repro_torch.kernels import ops
+    from repro_torch.models.backend_delta import init_backend_cache
+    from repro_torch.models.vit import ViTConfig, init_vit, prepare_quant_embed
+    from repro_torch.serve.engine import SaccadeEngine
+    from repro_torch.serve.serve_step import make_bootstrap_indices, make_saccade_step
+
+    fcfg = cfg_g.frontend
+    k = fcfg.n_active
+    pool, _ = SceneStream(seed=seed, image=fcfg.image_h).batch(0, 24)
+    clip = [np.stack([pool[(i + t // 4) % len(pool)] for i in range(capacity)])
+            for t in range(frames)]
+
+    def run_form(cfg, p, backend, device, n_frames, record=None):
+        """The form's frames on ``device``: per frame (logits, next indices,
+        n_stale, cache, bcache, backend MACs, launches, ms)."""
+        pf = ops.ip2_codes_fn(cfg.frontend.patch, cfg.frontend.adc)
+        step = make_saccade_step(cfg, project_fn=pf, temporal=True, backend=backend)
+        params_d = p["params"]
+        rgb0 = torch.from_numpy(p["clip"][0]).to(device)
+        n = rgb0.shape[0]
+        idx = make_bootstrap_indices(cfg)(params_d, rgb0)
+        cache = init_feature_cache(cfg.frontend, (n,), device=device)
+        state = [cache]
+        if backend:
+            state.append(init_backend_cache(cfg, cfg.frontend.n_active, (n,),
+                                            dtype=cfg.frontend.adc.code_dtype, device=device))
+        rows = []
+        for t in range(n_frames):
+            rgb = torch.from_numpy(p["clip"][t]).to(device)
+            pre = dict(ops.LAUNCHES)
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, nxt, aux, *state = step(params_d, rgb, idx, *state)
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            rows.append({"logits": logits, "next": nxt, "n_stale": aux["n_stale"],
+                         "state": list(state), "macs": aux["events"].backend_macs,
+                         "launched": {m: ops.LAUNCHES[m] - pre[m] for m in pre}, "ms": ms})
+            idx = nxt
+        return rows
+
+    def int_leaves(st):
+        return {f"{type(x).__name__}.{name}": v for x in st
+                for name, v in zip(x._fields, x)
+                if not v.is_floating_point()}
+
+    big = {"params": params, "clip": clip}
+    for backend in (True, False):
+        form = "step_temporal_backend" if backend else "step_temporal"
+        rec = out[form] = {}
+        with _recording(ops) as calls:
+            ops.reset_launches()
+            rows = run_form(cfg_g, big, backend, dev, frames)
+            launches = dict(ops.LAUNCHES)
+        rec["held"] = _hold_served(calls)
+        del calls
+        # both regimes of the delta backend run every frame (a device-side
+        # select picks one), so every frame launches the same kernels;
+        # a computed frame is one whose backend MACs are not all zero
+        per_frame = {"ip2_ragged": 1, "quant_matmul": 1,
+                     "delta_attention": cfg_g.n_layers - 1 if backend else 0}
+        computed = [bool((r["macs"] > 0).any()) for r in rows] if backend else [True] * frames
+        rec.update(frames=frames, streams=capacity, launches=launches,
+                   computed_frames=sum(computed),
+                   ms_per_frame=[r["ms"] for r in rows],
+                   ms_per_frame_median=float(np.median([r["ms"] for r in rows[2:]])),
+                   mean_n_stale=[float(r["n_stale"].float().mean()) for r in rows])
+        for r in rows:
+            assert all(r["launched"][m] == v for m, v in per_frame.items()), r["launched"]
+        assert all(launches[m] == frames * v for m, v in per_frame.items()), launches
+        assert all(launches[n] == 0 for n in ("ip2_project", "ip2_fused_embed",
+                                               "ip2_project_sparse")), launches
+        assert sum(computed) > 0 and all(torch.isfinite(r["logits"]).all() for r in rows)
+
+        # the engine of the same mode, every slot fed every tick
+        eng = SaccadeEngine(cfg_g, params, capacity=capacity,
+                            project_fn=ops.ip2_codes_fn(cfg_g.frontend.patch,
+                                                        cfg_g.frontend.adc),
+                            temporal=True, backend_delta=backend, device=dev)
+        sids = [f"s{i}" for i in range(capacity)]
+        for s in sids:
+            eng.admit(s)
+        worst, bitwise = 0.0, True
+        for t, r in enumerate(rows):
+            got = eng.step({s: clip[t][i] for i, s in enumerate(sids)})
+            lg = torch.from_numpy(np.stack([got[s] for s in sids]))
+            e = float((lg - r["logits"].cpu()).abs().max())
+            worst, bitwise = max(worst, e), bitwise and e == 0.0
+            assert e <= 1e-5, f"{form} frame {t}: engine off by {e}"
+            st = eng.state
+            assert torch.equal(st.indices, r["next"]), f"{form} frame {t}: indices differ"
+            assert torch.equal(st.cache.n_stale, r["n_stale"]), f"{form} frame {t}: n_stale"
+            eng_st = [st.cache] + ([st.bcache] if backend else [])
+            a, b = int_leaves(eng_st), int_leaves(r["state"])
+            assert a.keys() == b.keys()
+            for name in a:
+                assert torch.equal(a[name], b[name]), f"{form} frame {t}: {name} differs"
+            bitwise = bitwise and all(torch.equal(x, y) for s1, s2 in zip(eng_st, r["state"])
+                                      for x, y in zip(s1, s2))
+        rec["vs_engine"] = {"max_logit_err": worst, "bitwise": bitwise}
+        del eng, rows
+
+    # a small input: the kernel route on the card, the plain route on the CPU
+    sfe = FrontendConfig(image_h=64, image_w=64, active_fraction=0.25,
+                         patch=PatchSpec(16, 16, n_vectors=32,
+                                         summer=SummerSpec(mode="passive", hold_time_s=0.0)),
+                         temporal=TemporalSpec(delta_threshold=1e-3, recompute_budget=2))
+    scfg = ViTConfig(frontend=sfe, n_layers=2, d_model=64, n_heads=4, d_ff=128,
+                     quant_embed=True, saliency_layers="last", delta_kernel=True)
+    p_cpu = prepare_quant_embed(init_vit(scfg, torch.Generator().manual_seed(1), device="cpu"))
+    spool, _ = SceneStream(seed=4, image=64).batch(0, 10)
+    sclip = [np.stack([spool[(i + t // 2) % 10] for i in range(8)]) for t in range(6)]
+    small = out["card_vs_cpu_small"] = {}
+    for backend in (True, False):
+        on_cpu, on_card = (run_form(scfg, {"params": tree_to(p_cpu, d), "clip": sclip},
+                                    backend, d, len(sclip))
+                           for d in (torch.device("cpu"), dev))
+        agree, worst = torch.ones(8, dtype=torch.bool), 0.0
+        for t, (a, b) in enumerate(zip(on_card, on_cpu)):
+            agree &= (a["state"][0].features.cpu() == b["state"][0].features).all(-1).all(-1)
+            e = float((a["logits"].cpu() - b["logits"]).abs()[agree].max())
+            worst = max(worst, e)
+            assert e <= 1e-4, f"small input frame {t}: card off the CPU by {e}"
+        small["backend" if backend else "temporal"] = {
+            "slots_agreeing": int(agree.sum()), "max_logit_err": worst}
+        assert int(agree.sum()) >= 6, f"only {int(agree.sum())} of 8 slots kept equal codes"
+    return out
+
+
+def lm_train_phase(dev, out, ckpt_dir, cfg=None, batch=8, seq=512, steps=12, fail_at=6,
+                   seed=0, small_batch=2, small_seq=64):
+    """Phase (j2): LM training of smollm-135m at full width and depth (30
+    layers, d_model 576, 9 Q / 3 KV heads, vocab 49 152, tied embeddings,
+    as ``get_config`` gives it; ``cfg`` replaces it to rehearse on the CPU)
+    from seeded weights on ``TokenStream`` batches of ``batch`` x ``seq``,
+    bf16 compute on float32 masters, AdamW (lr 1e-3, 2 warm-up steps)
+    through ``Trainer``.
+
+    ``steps`` steps with remat off, ``"nothing"`` and ``"dots"``: every loss
+    finite, the last below the first; per policy the median step ms,
+    tokens/s, peak memory, and one step's device time, busy share and
+    device kernel launches. The ``"nothing"`` run checkpoints every 4
+    steps; the same run failing at ``fail_at`` and resumed equals it
+    bitwise (parameters and AdamW state). One float32 gradient at 2 of the
+    layers on the card against the CPU (each leaf within 1e-4 of its
+    largest |g|), and ``microbatches=4`` against 1 in float32 on the card
+    (loss rel 1e-5, gradients within 1e-5 of each leaf's largest). No
+    kernel launches (the reference's training reaches none)."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from repro_torch import models as M
+    from repro_torch.configs import get_config
+    from repro_torch.convert import tree_flatten_with_paths, tree_to
+    from repro_torch.data.pipeline import DataConfig, TokenStream
+    from repro_torch.examples.train_lm import token_batches
+    from repro_torch.kernels import ops
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.train.train_step import make_grads_fn, make_train_step
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    def leaves(tree):
+        return [x for _, x in tree_flatten_with_paths(tree)]
+
+    plan = M.DEFAULT_PLAN
+    cfg = cfg or get_config("smollm-135m")
+    opt = AdamWConfig(lr=1e-3)
+    init = M.init_params(torch.Generator().manual_seed(seed), cfg, device="cpu")
+    n_params = sum(x.numel() for x in leaves(init))
+    stream = TokenStream(DataConfig(seed=seed + 1, vocab=cfg.vocab, seq_len=seq,
+                                    global_batch=batch))
+    host = token_batches(cfg, stream, batch, "cpu")
+    data = [{k: v.to(dev) for k, v in host(s).items()} for s in range(steps)]
+    tokens = batch * seq
+    out.update(name=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model, vocab=cfg.vocab,
+               n_params=n_params, batch=batch, seq=seq, steps=steps, policies={})
+    ops.reset_launches()
+
+    def trainer(c, name, every, fail=None):
+        tcfg = TrainerConfig(total_steps=steps, ckpt_every=every, keep=2, log_every=1,
+                             ckpt_dir=str(ckpt_dir / name), fail_at_step=fail)
+        step = make_train_step(c, plan, opt, compute_dtype=torch.bfloat16, warmup=2,
+                               total_steps=steps)
+        return step, Trainer(step, data.__getitem__, tcfg)
+
+    def fresh():
+        params = tree_to(init, dev)
+        return params, init_opt_state(params, opt)
+
+    final = {}
+    for name, remat, policy in (("off", False, "nothing"), ("nothing", True, "nothing"),
+                                ("dots", True, "dots")):
+        c = dataclasses.replace(cfg, remat=remat, remat_policy=policy)
+        step, tr = trainer(c, name, 4 if name == "nothing" else steps)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        p, o, hist = tr.run(*fresh())
+        run_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        if name == "nothing":
+            final["a"] = (p, o, hist)
+        shutil.rmtree(ckpt_dir / name, ignore_errors=True)
+        step_s = float(np.median(tr.step_times[2:]))
+        kernels = _device_by_name(lambda: step(p, o, data[0]))
+        dev_ms = sum(ms for _, ms, _ in kernels)
+        wall = _host_ms(lambda: step(p, o, data[0]), n=3, warm=1)
+        losses = [h["loss"] for h in hist]
+        rec = out["policies"][name] = {
+            "remat": remat, "remat_policy": policy, "run_s": run_s, "losses": losses,
+            "step_ms": [t * 1e3 for t in tr.step_times], "step_ms_median": step_s * 1e3,
+            "tokens_per_s": tokens / step_s, "max_memory_allocated": peak,
+            "step_wall_ms": wall, "device_ms": dev_ms, "device_busy_share": dev_ms / wall,
+            "device_launches": sum(n for *_, n in kernels),
+            "gemm_ms": sum(ms for n, ms, _ in kernels if "gemm" in n.lower()),
+            "top_kernels": [(n[:90], ms, k) for n, ms, k in kernels[:8]]}
+        print(json.dumps({"j_train_" + name: {k: v for k, v in rec.items()
+                                              if k != "top_kernels"}}))
+        assert len(losses) == steps and all(np.isfinite(losses)), losses
+        assert losses[-1] < losses[0], f"remat {name}: the loss did not drop: {losses}"
+        del p, o
+    # interrupted at fail_at and resumed: bitwise the uninterrupted "nothing" run
+    c = dataclasses.replace(cfg, remat=True, remat_policy="nothing")
+    _, tr_b = trainer(c, "b", 4, fail_at)
+    try:
+        tr_b.run(*fresh())
+        raise AssertionError("the injected failure did not fire")
+    except RuntimeError as e:
+        assert "injected failure" in str(e), e
+    tr_b.ckpt.wait()
+    p_b, o_b, h_b = trainer(c, "b", 4)[1].run(*fresh())
+    shutil.rmtree(ckpt_dir / "b", ignore_errors=True)
+    p_a, o_a, h_a = final.pop("a")
+    resumed = [h["step"] for h in h_b]
+    same = all(torch.equal(x, y) for x, y in zip(leaves((p_a, o_a)), leaves((p_b, o_b))))
+    out["resume"] = {"resumed_steps": resumed, "bitwise": same,
+                     "losses_equal": [h["loss"] for h in h_b]
+                     == [h["loss"] for h in h_a[resumed[0]:]]}
+    assert resumed == list(range((fail_at - 1) // 4 * 4 + 1, steps)), resumed
+    assert same and out["resume"]["losses_equal"], out["resume"]
+    del p_a, o_a, p_b, o_b
+
+    # one float32 gradient at 2 of the layers, card against CPU
+    c2 = dataclasses.replace(cfg, n_layers=2, remat=False)
+    p2 = M.init_params(torch.Generator().manual_seed(seed + 2), c2, device="cpu")
+    b2 = {"tokens": data[0]["tokens"][:small_batch, :small_seq].cpu()}
+    grads = make_grads_fn(c2, plan, opt, torch.float32)
+    l_cpu, _, g_cpu = grads(p2, b2)
+    l_gpu, _, g_gpu = grads(tree_to(p2, dev), tree_to(b2, dev))
+    (share, at), floored = _worst_grad_share(tree_to(g_gpu, "cpu"), g_cpu)
+    out["card_vs_cpu_2_layers"] = {"loss_card": float(l_gpu), "loss_cpu": float(l_cpu),
+                                   "worst_grad_share": share, "at": at,
+                                   "floored": floored}
+    assert abs(float(l_gpu) - float(l_cpu)) <= 1e-5 * abs(float(l_cpu)), out
+    assert share <= 1e-4, out["card_vs_cpu_2_layers"]
+
+    # microbatches=4 against 1, float32, full depth, on the card
+    c = dataclasses.replace(cfg, remat=True, remat_policy="nothing")
+    params = tree_to(init, dev)
+    one = make_grads_fn(c, plan, opt, torch.float32)(params, data[0])
+    four = make_grads_fn(c, plan, opt, torch.float32, 4)(params, data[0])
+    loss_rel = abs(float(four[0]) - float(one[0])) / abs(float(one[0]))
+    worst = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                for a, b in zip(leaves(four[2]), leaves(one[2])))
+    out["microbatches_4_vs_1"] = {"loss_rel": loss_rel, "worst_grad_share": worst,
+                                  "metrics": sorted(four[1])}
+    assert loss_rel <= 1e-5 and worst <= 1e-5, out["microbatches_4_vs_1"]
+    out["launches"] = dict(ops.LAUNCHES)
+    assert not any(ops.LAUNCHES.values()), f"LM training launched a kernel: {ops.LAUNCHES}"
+    return out
+
+
+# a decode step's bytes allocated (``torch.cuda.memory_stats``), as a
+# multiple of the caches' elements at bf16 width: ~2.2 (bf16) / ~2.4
+# (int8) with the storage-dtype contraction, ~6.2 with the float32 copy of
+# each cache per product the port had before (PERF.md section 5)
+CACHE_ALLOC_BOUND = 3.0
+
+
+def long_context_phase(dev, out, cfg=None, batch=8, context=8192, gen=8, long=32768,
+                       seed=0, repeats=2, hold_storage=True):
+    """Phase (j3): smollm-135m's decode over long caches, bf16 and int8.
+
+    1. ``batch`` sequences prefilled with ``context`` seeded tokens, then
+       ``gen`` greedy decode steps: decode == forward (the forward's last
+       ``gen`` + 1 positions) within ``LM_CACHE_REL_BOUND`` of the logit
+       scale.
+    2. At ``context`` and at ``long`` positions (caches of seeded values,
+       no prefill), ``repeats`` runs of ``gen`` steps each: decode ms per
+       step (host clock to a synchronise), the peak device memory of a
+       step above what is resident and the bytes a step allocates
+       (``allocated_bytes``), held at ``CACHE_ALLOC_BOUND`` times the
+       caches' elements at bf16 width; the bytes a step must move
+       (weights, both caches read once) beside those of the cache copies
+       that ``_write_slot`` makes (each cache read and written once).
+    3. ``attention._contract_cache`` (the card's ``bmm`` per kv head) on
+       layer 0's stored long cache, scores and values, against the
+       float32 einsum of the same values, each element within what two
+       float32 sums of its K terms may be off by (2 K u sum|a c|, u =
+       2^-24): on the card the bf16 GEMM's error grows with the number
+       of positions (within 1e-5 of the largest value at 1000, 1.9e-4
+       at 32 768), so a bound on the largest value alone does not hold.
+    4. ``_write_slot`` alone on one layer's cache at ``long``: ms and its
+       bytes.
+
+    ``tools/long_context_decode.py`` runs this phase on another tree of
+    the port (an earlier contraction, for one) with ``hold_storage=False``:
+    steps 1, 2 and 4 without the allocation bound, no step 3."""
+    import numpy as np
+    import torch
+    from repro_torch import models as M
+    from repro_torch.configs import get_config
+    from repro_torch.convert import tree_flatten_with_paths
+    from repro_torch.models import attention as attn
+    from repro_torch.models import lm as lm_mod
+
+    plan = M.DEFAULT_PLAN
+    cfg = cfg or get_config("smollm-135m")
+    params = M.init_params(torch.Generator().manual_seed(seed), cfg, device=dev)
+    w_bytes = sum(x.numel() * x.element_size() for _, x in tree_flatten_with_paths(params))
+    g = np.random.default_rng(seed + 7)
+    prompt = torch.from_numpy(g.integers(0, cfg.vocab, size=(batch, context))).to(dev)
+    out.update(batch=batch, context=context, long=long, gen=gen, weight_bytes=w_bytes,
+               caches={})
+    sync = torch.cuda.synchronize
+
+    def decode_run(st, first, start, n):
+        """``n`` greedy steps from ``st``: (logits list, ms per step, peak
+        above resident, bytes allocated per step)."""
+        nxt, logits = first, []
+        sync()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        a0 = torch.cuda.memory_stats()["allocated_bytes.all.allocated"]
+        t0 = time.perf_counter()
+        for i in range(n):
+            pos = torch.full((), start + i, dtype=torch.int32, device=dev)
+            lg, st = M.decode_step(params, st, nxt, pos, cfg, plan)
+            nxt = torch.argmax(lg, -1).to(torch.int32)
+            logits.append(lg)
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3 / n
+        alloc = (torch.cuda.memory_stats()["allocated_bytes.all.allocated"] - a0) / n
+        return logits, ms, torch.cuda.max_memory_allocated() - base, alloc
+
+    def sizes(st):
+        """(bytes of the state, the caches' elements at bf16 width)."""
+        leaves = [x for _, x in tree_flatten_with_paths(st)]
+        return (sum(x.numel() * x.element_size() for x in leaves),
+                2 * sum(x.numel() for x in leaves if x.dtype in (torch.bfloat16, torch.int8)))
+
+    def timed(rec, st, first, start):
+        """``repeats`` decode runs from ``st`` into ``rec``; bytes held."""
+        n_bytes, bf16_width = sizes(st)
+        rec.update(cache_bytes=n_bytes, bytes_to_move=w_bytes + n_bytes,
+                   write_slot_copy_bytes=2 * n_bytes, decode_ms_per_step=[],
+                   peak_above_resident=[], allocated_bytes_per_step=[])
+        for _ in range(repeats):
+            with torch.no_grad():
+                _, ms, peak, alloc = decode_run(st, first, start, gen)
+            rec["decode_ms_per_step"].append(ms)
+            rec["peak_above_resident"].append(peak)
+            rec["allocated_bytes_per_step"].append(alloc)
+        rec["allocated_per_bf16_cache_byte"] = max(rec["allocated_bytes_per_step"]) / bf16_width
+        assert not hold_storage or rec["allocated_per_bf16_cache_byte"] <= CACHE_ALLOC_BOUND, rec
+
+    for name, dt in (("bfloat16", torch.bfloat16), ("int8", torch.int8)):
+        rec = out["caches"][name] = {}
+        st0 = M.init_decode_state(cfg, plan, batch, context + gen, cache_dtype=dt, device=dev)
+        with torch.no_grad():
+            lg0, st0 = M.prefill(params, {"tokens": prompt}, cfg, plan, st0)
+        first = torch.argmax(lg0, -1).to(torch.int32)
+        with torch.no_grad():
+            steps_lg = decode_run(st0, first, context, gen)[0]
+        # decode == forward over the decoded tokens
+        toks = [first] + [torch.argmax(x, -1).to(torch.int32) for x in steps_lg[:-1]]
+        seq = torch.cat([prompt, torch.stack(toks, 1)], 1)
+        with torch.no_grad():
+            x, _, _ = lm_mod._run_stacks(params, lm_mod.embed_inputs(params, {"tokens": seq},
+                                                                      cfg), cfg, plan)
+            full = lm_mod._logits(params, x[:, context - 1:], cfg)
+        scale = float(full.abs().max())
+        err = max(float((a - full[:, i]).abs().max()) for i, a in enumerate([lg0] + steps_lg))
+        rec["rel_err_vs_forward"] = err / scale
+        assert err / scale < LM_CACHE_REL_BOUND, (name, err, scale)
+        del full, x, steps_lg
+        timed(rec, st0, first, context)
+        del st0
+
+        # a long cache of seeded values, no prefill: time and memory only
+        st = M.init_decode_state(cfg, plan, batch, long, cache_dtype=dt, device=dev)
+        gen_t = torch.Generator(device=dev).manual_seed(seed + 11)
+        for _, leaf in tree_flatten_with_paths(st):
+            if leaf.dtype == torch.int8:
+                leaf.copy_(torch.randint(-127, 128, leaf.shape, generator=gen_t, device=dev))
+            elif leaf.is_floating_point():
+                leaf.copy_(torch.rand(leaf.shape, generator=gen_t, device=dev) * 0.02)
+        long_rec = rec[f"at_{long}"] = {}
+        timed(long_rec, st, first, long - gen)
+        ck, cv = st["stacks"][0]["k"][0], st["stacks"][0]["v"][0]
+        if hold_storage:   # the contraction on one layer's stored cache against float32
+            b, t, hkv, dh = ck.shape
+            grp = cfg.n_heads // hkv
+            qg = torch.randn((b, hkv, grp, dh), generator=gen_t, device=dev)
+            wts = torch.softmax(torch.randn((b, hkv, grp, t), generator=gen_t, device=dev), -1)
+            held = {}
+            for spec, a, c in (("bngd,btnd->bngt", qg, ck), ("bngt,btnd->bngd", wts, cv)):
+                with torch.no_grad():
+                    got = attn._contract_cache(spec, a, c)
+                    ab, cf = a.to(torch.bfloat16).to(torch.float32), c.to(torch.float32)
+                    want = torch.einsum(spec, ab, cf)
+                    # a float32 sum of K terms: off by at most K u sum|terms| each
+                    bound = 2 * a.shape[-1] * 2.0**-24 * torch.einsum(spec, ab.abs(), cf.abs())
+                    err = (got - want).abs()
+                held[spec] = {"rel_max": float(err.max()) / float(want.abs().max()),
+                              "share_of_f32_sum_bound": float((err / bound).max())}
+                del got, ab, cf, want, bound, err
+            long_rec["contract_cache_vs_float32"] = held
+            assert all(h["share_of_f32_sum_bound"] <= 1 for h in held.values()), held
+        # _write_slot alone on one layer's key cache
+        new = ck[:, :1].clone()
+        slot = torch.full((), long - 1, dtype=torch.int32, device=dev)
+        long_rec["write_slot_one_cache_ms"] = _time_ms(lambda: attn._write_slot(ck, new, slot))
+        long_rec["write_slot_one_cache_bytes"] = 2 * ck.numel() * ck.element_size()
+        print(json.dumps({"j_long_context_" + name: rec}))
+        del st, ck, cv
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", type=Path, default=None,
@@ -2942,6 +3432,33 @@ def main():
               for r, v in out["fleet"].items()}
         print(json.dumps({"fleet": fl, "fleet_s": out["fleet_s"]}))
         print(json.dumps({"lm": out["lm"], "lm_s": out["lm_s"]}))
+
+    # ---- (j) the gated step forms, LM training, the caches at long context
+    @phase("j1_gated_steps")
+    def _j1():
+        out = report["j1_gated_steps"] = {}
+        try:
+            gated_steps_phase(dev, out, params, cfg_g)
+        finally:
+            print(json.dumps({"j1_gated_steps": {
+                f: {k: v for k, v in r.items() if k != "held"} if isinstance(r, dict) else r
+                for f, r in out.items()}}))
+
+    @phase("j2_lm_train")
+    def _j2():
+        out = report["j2_lm_train"] = {}
+        ckpt_dir = ROOT / "build" / "ckpt_j_train"
+        try:
+            lm_train_phase(dev, out, ckpt_dir)
+        finally:
+            shutil.rmtree(ckpt_dir, ignore_errors=True)
+            print(json.dumps({"j2_lm_train": {k: v for k, v in out.items()
+                                              if k != "policies"}}))
+
+    @phase("j3_long_context")
+    def _j3():
+        out = report["j3_long_context"] = {}
+        long_context_phase(dev, out)
 
     lost = [k for k in PREROLL_LOST if k is not None]
     report["profiler_preroll_lost"] = {"windows": len(PREROLL_LOST), "max": max(lost, default=None),

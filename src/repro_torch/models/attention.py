@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch._arith import div
+from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import DEFAULT_PLAN, ParallelPlan, apply_rope, dense_init, inv_sqrt
 
@@ -106,10 +107,22 @@ def _expand_kv(kv: torch.Tensor, n_q_heads: int) -> torch.Tensor:
     return kv[:, :, :, None, :].expand(b, t, hkv, g, dh).reshape(b, t, n_q_heads, dh)
 
 
+def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum("bsd,dhk->bshk", x, w) as one ``aten.mm`` (``einsum`` makes
+    it a ``bmm`` of batch 1): a weight product without batch dims, which
+    ``remat_policy="dots"`` keeps as the reference's policy keeps it."""
+    return (x @ w.reshape(w.shape[0], -1)).reshape(*x.shape[:-1], *w.shape[1:])
+
+
+def _unproject(o: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum("bshk,hkd->bsd", o, w) as one ``aten.mm`` (see :func:`_project`)."""
+    return o.flatten(-2) @ w.reshape(-1, w.shape[-1])
+
+
 def _qkv(p: dict, x: torch.Tensor, src: torch.Tensor):
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", src, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", src, p["wv"])
+    q = _project(x, p["wq"])
+    k = _project(src, p["wk"])
+    v = _project(src, p["wv"])
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     return q, k, v
@@ -132,7 +145,7 @@ def attention_forward(p: dict, x: torch.Tensor, cfg: ModelConfig, positions: tor
     hq = q.shape[2]
     out = _flash_attend(q, _expand_kv(k, hq), _expand_kv(v, hq), causal=causal,
                         window=window, chunk=chunk)
-    out = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    out = _unproject(out, p["wo"])
     return out, (k, v)
 
 
@@ -150,19 +163,55 @@ def quantize_kv(kv: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def _dequant_operand(cache: torch.Tensor, scales: dict | None, which: str):
-    """Matrix to contract against + per-(B, T, H) scale to fold in (or None)."""
+    """Matrix to contract against + per-(B, T, H) scale to fold in (or None).
+    An int8 cache stays int8 here: :func:`_contract_cache` widens it."""
     if cache.dtype == torch.int8:
-        return cache.to(torch.bfloat16), scales[which]
+        return cache, scales[which]
     return cache, None
 
 
-def _contract(spec: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """einsum of ``a`` (rounded to ``b``'s storage dtype first, as the
-    reference casts it) and ``b`` with float32 accumulation. Both operands
-    are upcast: bf16 products are exact in float32, so only the order of
-    the sums can differ from the reference's ``preferred_element_type``.
-    This materialises a float32 copy of a bf16 cache."""
-    return torch.einsum(spec, a.to(b.dtype).to(torch.float32), b.to(torch.float32))
+# positions per float32 block of the CPU contraction of a bf16 / int8 cache
+CPU_CACHE_BLOCK = 512
+
+
+def _contract_cache(spec: str, a: torch.Tensor, cache: torch.Tensor) -> torch.Tensor:
+    """einsum(spec, a, cache) over a cache (B, T, Hkv, dh) in its storage
+    dtype with float32 results, the reference's ``preferred_element_type``
+    contraction. ``spec`` is ``"bngd,btnd->bngt"`` (scores, ``a`` the
+    grouped queries) or ``"bngt,btnd->bngd"`` (``a`` the weights).
+
+    A float32 cache contracts as it is. A bf16 cache, or an int8 one
+    (whose codes bf16 holds exactly; the reference widens it to bf16 too),
+    meets ``a`` rounded to bf16, with float32 sums; no float32 copy of the
+    cache is made. The mechanism is chosen by device:
+
+    * CUDA: one ``torch.bmm(..., out_dtype=torch.float32)`` per stored kv
+      head on a strided view of the cache (cuBLAS reads the bf16 cache in
+      place and accumulates in float32); an int8 cache is first widened to
+      one bf16 copy, the operand the reference makes.
+    * CPU (``bmm`` has no ``out_dtype`` there): the positions in blocks of
+      ``CPU_CACHE_BLOCK``, each widened to float32 (bf16 products are exact
+      in float32), so the float32 transient is one block.
+    """
+    if cache.dtype == torch.float32:
+        return torch.einsum(spec, a.to(torch.float32), cache)
+    scores = spec == "bngd,btnd->bngt"
+    a = a.to(torch.bfloat16)
+    if cache.is_cuda:
+        mat = cache.to(torch.bfloat16)
+        outs = []
+        for n in range(mat.shape[2]):
+            m = mat[:, :, n, :]                                # (B, T, dh) strided
+            outs.append(torch.bmm(a[:, n], m.transpose(1, 2) if scores else m,
+                                  out_dtype=torch.float32))
+        return torch.stack(outs, dim=1)
+    a32 = a.to(torch.float32)
+    parts = []
+    for lo in range(0, cache.shape[1], CPU_CACHE_BLOCK):
+        blk = cache[:, lo:lo + CPU_CACHE_BLOCK].to(torch.float32)
+        parts.append(torch.einsum(spec, a32 if scores else a32[..., lo:lo + blk.shape[1]],
+                                  blk))
+    return torch.cat(parts, dim=-1) if scores else torch.stack(parts).sum(0)
 
 
 def _write_slot(cache: torch.Tensor, new: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
@@ -207,7 +256,7 @@ def attention_decode(p: dict, x: torch.Tensor, cache_k: torch.Tensor, cache_v: t
     dh = q.shape[-1]
     qg = (q[:, 0] * inv_sqrt(dh, x.device).to(q.dtype)).reshape(b, hkv, g, dh)
     k_mat, k_scale = _dequant_operand(new_k, cache_scales, "k")
-    sc = _contract("bngd,btnd->bngt", qg, k_mat)
+    sc = _contract_cache("bngd,btnd->bngt", qg, k_mat)
     if k_scale is not None:                      # int8 cache: fold scale in
         sc = sc * k_scale.permute(0, 2, 1)[:, :, None, :]
 
@@ -224,9 +273,9 @@ def attention_decode(p: dict, x: torch.Tensor, cache_k: torch.Tensor, cache_v: t
     v_mat, v_scale = _dequant_operand(new_v, cache_scales, "v")
     if v_scale is not None:                      # fold v scale into weights
         w = w * v_scale.permute(0, 2, 1)[:, :, None, :]
-    out = _contract("bngt,btnd->bngd", w, v_mat)
+    out = _contract_cache("bngt,btnd->bngd", w, v_mat)
     out = out.reshape(b, 1, hq, dh).to(x.dtype)
-    out = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    out = _unproject(out, p["wo"])
     return out, new_k, new_v, cache_scales
 
 
@@ -237,6 +286,8 @@ def _cache_len(max_len: int, window: int | None) -> int:
 def make_cache(cfg: ModelConfig, plan: ParallelPlan, batch: int, max_len: int,
                window: int | None = None, dtype: torch.dtype = torch.bfloat16,
                device=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Zero (k, v) caches on ``device`` (the GPU by default)."""
+    device = resolve_device(device)
     _, hkv = head_geometry(cfg, plan)
     shape = (batch, _cache_len(max_len, window), hkv, cfg.head_dim)
     return (torch.zeros(shape, dtype=dtype, device=device),
@@ -245,6 +296,8 @@ def make_cache(cfg: ModelConfig, plan: ParallelPlan, batch: int, max_len: int,
 
 def make_cache_scales(cfg: ModelConfig, plan: ParallelPlan, batch: int, max_len: int,
                       window: int | None = None, device=None) -> dict:
+    """Unit int8-cache scales on ``device`` (the GPU by default)."""
+    device = resolve_device(device)
     _, hkv = head_geometry(cfg, plan)
     z = torch.ones((batch, _cache_len(max_len, window), hkv), dtype=torch.float32,
                    device=device)

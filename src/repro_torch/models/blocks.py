@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch._device import resolve_device
 from repro_torch.configs.base import (
     ATTN,
     LOCAL_ATTN,
@@ -134,6 +135,9 @@ def apply_block(p: dict, kind: str, x: torch.Tensor, cfg: ModelConfig,
 def init_block_state(kind: str, cfg: ModelConfig, plan: ParallelPlan, batch: int,
                      max_len: int, cache_dtype: torch.dtype = torch.bfloat16,
                      device=None) -> dict:
+    """One block's decode cache or recurrent state on ``device`` (the GPU
+    by default)."""
+    device = resolve_device(device)
     if kind in (ATTN, MOE, LOCAL_ATTN):
         window = cfg.local_window if kind == LOCAL_ATTN else None
         k, v = attn_mod.make_cache(cfg, plan, batch, max_len, window=window,

@@ -14,12 +14,17 @@ leading repeat dim], "tail": [...]}``, plus ``encoder`` / ``enc_norm`` /
 reference tree carried across by ``convert.params_from_numpy`` runs here
 unchanged. Full repeats of ``block_pattern`` run as a Python loop over the
 stacked layers (the reference's ``lax.scan``; ``unroll_layers`` is then the
-same program, and ``remat`` changes nothing in a forward); remainder layers
-run after them. Decode takes ``pos`` as a 0-dim device tensor and makes no
+same program); remainder layers run after them. ``loss_fn`` is
+differentiable by ``torch.autograd``; with ``cfg.remat`` a training
+forward recomputes each repeat's activations in the backward
+(``torch.utils.checkpoint``, the reference's ``jax.checkpoint``), with the
+same numbers. Decode takes ``pos`` as a 0-dim device tensor and makes no
 host read.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -127,23 +132,63 @@ def embed_inputs(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
 # forward
 # ---------------------------------------------------------------------------
 
+def _remat_context_fn(policy: str):
+    """``context_fn`` of ``torch.utils.checkpoint`` for the reference's
+    ``jax.checkpoint`` policies: ``"dots"``
+    (``dots_with_no_batch_dims_saveable``) keeps the outputs of the matrix
+    products without batch dims (``aten.mm`` / ``aten.addmm``: the weight
+    products) and recomputes the rest; ``"nothing"`` saves nothing."""
+    from torch.utils.checkpoint import (CheckpointPolicy, create_selective_checkpoint_contexts,
+                                        noop_context_fn)
+
+    if policy != "dots":
+        return noop_context_fn
+
+    saved = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+    def policy_fn(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in saved
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return lambda: create_selective_checkpoint_contexts(policy_fn)
+
+
 def _run_stacks(params, x, cfg, plan, states=None, causal=True, decode_pos=None):
     """Pattern repeats in a loop, then the tail. ``states`` mirrors the
-    params layout: {"stacks": [stacked state per position], "tail": [...]}."""
+    params layout: {"stacks": [stacked state per position], "tail": [...]}.
+
+    With ``cfg.remat``, autograd recording and no decode states (a
+    training forward), each repeat of the pattern runs under
+    ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of its
+    scan body, policy ``cfg.remat_policy``): its activations are recomputed
+    in the backward. The numbers do not change; prefill and decode run as
+    without remat."""
     n_rep, pat, tail = _pattern_layout(cfg)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     positions = torch.arange(x.shape[1], device=x.device) if decode_pos is None else None
 
-    ys = []
-    for r in range(n_rep):
+    def body(r, x, aux, layer_states):
         new_states = []
         for pi, kind in enumerate(pat):
-            st = None if states is None else _layer(states["stacks"][pi], r)
+            st = None if layer_states is None else _layer(layer_states[pi], r)
             x, st_new, a = blk.apply_block(
                 _layer(params["stacks"][pi], r), kind, x, cfg, positions, st,
                 causal=causal, decode_pos=decode_pos)
             new_states.append(st_new)
-            aux_total = aux_total + a
+            aux = aux + a
+        return x, aux, new_states
+
+    run = body
+    if cfg.remat and states is None and torch.is_grad_enabled():
+        from torch.utils.checkpoint import checkpoint
+
+        run = functools.partial(checkpoint, body, use_reentrant=False,
+                                context_fn=_remat_context_fn(cfg.remat_policy))
+
+    layer_states = None if states is None else states["stacks"]
+    ys = []
+    for r in range(n_rep):
+        x, aux_total, new_states = run(r, x, aux_total, layer_states)
         ys.append(new_states)
 
     tail_states = []
@@ -221,7 +266,8 @@ def forward(params: dict, batch: dict, cfg: ModelConfig,
 def loss_fn(params: dict, batch: dict, cfg: ModelConfig,
             plan: ParallelPlan = DEFAULT_PLAN) -> tuple[torch.Tensor, dict]:
     """Next-token CE over the text tokens (image positions excluded) plus
-    the MoE aux loss. Forward only: the LM's gradients come with training."""
+    the MoE aux loss, ``(loss, {"ce", "moe_aux"})``; its gradients come from
+    ``torch.autograd`` (the reference's ``jax.grad``)."""
     logits, aux = forward(params, batch, cfg, plan)
     tokens = batch["tokens"].long()
     n_prefix = logits.shape[1] - tokens.shape[1]   # image tokens prepended

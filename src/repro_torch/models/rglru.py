@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import dense_init, gelu
 
@@ -141,6 +142,8 @@ def recurrent_block_forward(p: dict, x: torch.Tensor, state: dict | None = None
 
 
 def init_rglru_state(cfg: ModelConfig, batch: int, device=None) -> dict:
+    """Zero recurrent and conv state on ``device`` (the GPU by default)."""
+    device = resolve_device(device)
     d = cfg.d_model
     return {
         "h": torch.zeros((batch, d), dtype=torch.float32, device=device),

@@ -24,6 +24,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import dense_init, inv_sqrt
 from repro_torch.models.rglru import CONV_K, _causal_conv1d
@@ -232,6 +233,8 @@ def mlstm_block_forward(p: dict, x: torch.Tensor, state: dict | None = None,
 
 
 def init_mlstm_state_cell(batch: int, nh: int, dh: int, device=None) -> dict:
+    """The mLSTM cell (C, n, m) on ``device`` (the GPU by default)."""
+    device = resolve_device(device)
     return {
         "C": torch.zeros((batch, nh, dh, dh), dtype=torch.float32, device=device),
         "n": torch.zeros((batch, nh, dh), dtype=torch.float32, device=device),
@@ -240,6 +243,8 @@ def init_mlstm_state_cell(batch: int, nh: int, dh: int, device=None) -> dict:
 
 
 def init_mlstm_state(cfg: ModelConfig, batch: int, device=None) -> dict:
+    """Conv state and cell on ``device`` (the GPU by default)."""
+    device = resolve_device(device)
     di, nh, dh = _heads(cfg)
     return {
         "conv": torch.zeros((batch, CONV_K - 1, di), dtype=torch.bfloat16, device=device),
@@ -311,6 +316,8 @@ def _zero_slstm_state(batch: int, nh: int, dh: int, device=None) -> dict:
 
 
 def init_slstm_state(cfg: ModelConfig, batch: int, device=None) -> dict:
+    """Zero sLSTM state on ``device`` (the GPU by default)."""
+    device = resolve_device(device)
     d = cfg.d_model
     nh = cfg.n_heads
     return _zero_slstm_state(batch, nh, d // nh, device)

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch._arith import const_vector, div, to_int32
+from repro_torch._device import resolve_device
 from repro_torch.core.power import EnergyMeter, EventCounts, frontend_frame_events
 
 
@@ -80,7 +81,8 @@ class GovernorControls(NamedTuple):
 
 def init_controls(capacity: int, j_max: int, device=None) -> GovernorControls:
     """Fresh slots start ungoverned (cap j_max, tier 0, exact backend) and
-    unbudgeted."""
+    unbudgeted, on ``device`` (the GPU by default)."""
+    device = resolve_device(device)
     return GovernorControls(
         j_cap=torch.full((capacity,), j_max, dtype=torch.int32, device=device),
         tier=torch.zeros((capacity,), dtype=torch.int32, device=device),
@@ -113,7 +115,7 @@ def tier_is_sign(spec: GovernorSpec, tier: torch.Tensor) -> torch.Tensor:
     return tier >= len(spec.k_tiers)
 
 
-def fixed_power_mw(meter: EnergyMeter, n_pixels: float, pixels_per_patch: int,
+def fixed_power_mw(spec_meter: EnergyMeter, n_pixels: float, pixels_per_patch: int,
                    n_vectors: int, k_eff: torch.Tensor, frame_hz: float) -> torch.Tensor:
     """Per-frame power that gating cannot avoid at a token tier (CDS, the
     DAC broadcast, the deselected-patch dumps): the metered events of a
@@ -122,7 +124,7 @@ def fixed_power_mw(meter: EnergyMeter, n_pixels: float, pixels_per_patch: int,
     ev = frontend_frame_events(n_pixels, pixels_per_patch, n_vectors,
                                n_selected_patches=sel,
                                n_converted_patches=torch.zeros_like(sel))
-    return meter.power_mw(ev, frame_hz)
+    return spec_meter.power_mw(ev, frame_hz)
 
 
 def control_update(spec: GovernorSpec, controls: GovernorControls,

@@ -74,18 +74,66 @@ def saccade_scores(aux: dict, explore: float) -> torch.Tensor:
     return scores + max(explore, 1e-3) * baseline * energy
 
 
-def make_saccade_step(cfg, explore: float = 0.1, project_fn=None):
-    """Closed-loop step(params, rgb, indices) -> (logits, next_indices, aux)
-    on the compact path; seed ``indices`` with :func:`make_bootstrap_indices`."""
+def make_saccade_step(cfg, explore: float = 0.1, project_fn=None,
+                      temporal: bool = False, backend: bool = False):
+    """Closed-loop step on the compact path: frame t projects only the k
+    patches the backend attended to on frame t-1, and its attention (see
+    :func:`saccade_scores`) picks frame t+1's. Seed ``indices`` with
+    :func:`make_bootstrap_indices`.
+
+    ``project_fn`` is a kernel-backed projection of the gathered patches
+    (``ops.ip2_codes_fn(spec, adc)`` for the staged kernel route);
+    ``cfg.fused_embed`` routes the frontend->embed seam through the fused
+    kernel instead (plain form only: it takes no cache). The forms, as the
+    reference's:
+
+    * ``step(params, rgb, indices) -> (logits, next_indices, aux)``;
+    * ``temporal=True``: ``step(params, rgb, indices, cache) -> (...,
+      cache)`` threads a :class:`FeatureCache` (the temporal gate
+      re-projects only the stale subset of each selection);
+    * ``backend=True``: ``step(params, rgb, indices, bcache, eps=None) ->
+      (..., bcache)`` threads a :class:`BackendCache` (rows whose served
+      wire is bitwise unchanged reuse their backend work; ``eps`` (B,)
+      the snap budget, default exact);
+    * both: ``step(params, rgb, indices, cache, bcache, eps=None) ->
+      (logits, next_indices, aux, cache, bcache)``.
+
+    The caches are popped out of ``aux``; ``aux["n_stale"]`` stays."""
     fcfg = cfg.frontend
+
+    def _finish(logits, aux):
+        scores = saccade_scores(aux, explore)
+        return logits, sal.topk_patch_indices(scores, fcfg.n_active), aux
 
     def step(params, rgb, indices):
         logits, aux = vit_forward_compact(params, rgb, cfg, indices=indices,
                                           project_fn=project_fn)
-        scores = saccade_scores(aux, explore)
-        return logits, sal.topk_patch_indices(scores, fcfg.n_active), aux
+        return _finish(logits, aux)
 
-    return step
+    def step_temporal(params, rgb, indices, cache):
+        logits, aux = vit_forward_compact(params, rgb, cfg, indices=indices,
+                                          project_fn=project_fn, cache=cache)
+        logits, next_indices, aux = _finish(logits, aux)
+        return logits, next_indices, aux, aux.pop("cache")
+
+    def step_backend(params, rgb, indices, bcache, eps=None):
+        logits, aux = vit_forward_compact(params, rgb, cfg, indices=indices,
+                                          project_fn=project_fn, backend_cache=bcache,
+                                          backend_eps=eps)
+        logits, next_indices, aux = _finish(logits, aux)
+        return logits, next_indices, aux, aux.pop("backend_cache")
+
+    def step_temporal_backend(params, rgb, indices, cache, bcache, eps=None):
+        logits, aux = vit_forward_compact(params, rgb, cfg, indices=indices,
+                                          project_fn=project_fn, cache=cache,
+                                          backend_cache=bcache, backend_eps=eps)
+        logits, next_indices, aux = _finish(logits, aux)
+        return (logits, next_indices, aux, aux.pop("cache"),
+                aux.pop("backend_cache"))
+
+    if backend:
+        return step_temporal_backend if temporal else step_backend
+    return step_temporal if temporal else step
 
 
 def make_rollout(step_fn):

@@ -123,8 +123,20 @@ def test_tiers_budgets_and_resets():
                           _t(hit), J_MAX)
     for a, b in zip(tr, jr):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
-    for a, b in zip(t_gov.init_controls(5, J_MAX), j_gov.init_controls(5, J_MAX)):
+    for a, b in zip(t_gov.init_controls(5, J_MAX, device="cpu"),
+                    j_gov.init_controls(5, J_MAX)):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+def test_fixed_power_mw_by_keyword_matches_reference():
+    """Both packages take ``fixed_power_mw``'s arguments by the reference's
+    names, ``spec_meter`` first."""
+    k_eff = np.array([2, 4, 8], np.int32)
+    kw = dict(n_pixels=N_PIXELS, pixels_per_patch=PPP, n_vectors=M, frame_hz=HZ)
+    want = np.asarray(j_gov.fixed_power_mw(spec_meter=j_pw.EnergyMeter(),
+                                           k_eff=jnp.asarray(k_eff), **kw))
+    got = t_gov.fixed_power_mw(spec_meter=t_pw.EnergyMeter(), k_eff=_t(k_eff), **kw)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=0)
 
 
 def test_spec_validation_and_sign_tier():

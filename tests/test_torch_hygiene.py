@@ -49,13 +49,17 @@ import repro_torch.data.pipeline
 import repro_torch.kernels.ops
 import repro_torch.models.backend_delta
 import repro_torch.models.cnn
+import repro_torch.models.attention
+import repro_torch.models.blocks
 import repro_torch.models.layers
 import repro_torch.models.lm
+import repro_torch.models.rglru
+import repro_torch.models.xlstm
 import repro_torch.models.vit
 import repro_torch.optim.adamw
 import repro_torch.train.trainer
 from repro_torch.checkpoint.manager import CheckpointManager
-from repro_torch.examples import serve_lm, train_ip2_classifier
+from repro_torch.examples import serve_lm, train_ip2_classifier, train_lm
 import repro_torch.serve.engine
 import repro_torch.serve.fleet
 import repro_torch.serve.governor
@@ -66,7 +70,8 @@ ROOT = Path(__file__).resolve().parents[1]
 def _port_files():
     return (sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
             + [ROOT / "chip_smoke.py", ROOT / "tools" / "fused_embed_variants.py",
-               ROOT / "tools" / "profiler_windows.py"])
+               ROOT / "tools" / "profiler_windows.py",
+               ROOT / "tools" / "long_context_decode.py"])
 
 
 def _imported_modules(path):
@@ -240,6 +245,22 @@ def test_entry_points_need_cuda_when_device_is_none(monkeypatch, tmp_path):
                                                 1, 8)
     with pytest.raises(RuntimeError, match="CUDA"):
         serve_lm.main(["--gen", "2", "--prompt-len", "2"])
+    plan = repro_torch.models.layers.DEFAULT_PLAN
+    xl_cfg = repro_torch.configs.smoke_config("xlstm-1.3b")
+    for build in (
+            lambda: repro_torch.models.attention.make_cache(lm_cfg, plan, 1, 8),
+            lambda: repro_torch.models.attention.make_cache_scales(lm_cfg, plan, 1, 8),
+            lambda: repro_torch.models.blocks.init_block_state("attn", lm_cfg, plan, 1, 8),
+            lambda: repro_torch.models.rglru.init_rglru_state(lm_cfg, 1),
+            lambda: repro_torch.models.xlstm.init_mlstm_state_cell(1, 2, 4),
+            lambda: repro_torch.models.xlstm.init_mlstm_state(xl_cfg, 1),
+            lambda: repro_torch.models.xlstm.init_slstm_state(xl_cfg, 1),
+            lambda: repro_torch.serve.governor.init_controls(4, 2)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_lm.main(["--smoke", "--steps", "1", "--batch", "2", "--seq", "8",
+                       "--ckpt-dir", str(tmp_path / "lm")])
 
 
 def test_cpu_tensors_never_reach_the_cuda_build(monkeypatch):
