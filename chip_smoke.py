@@ -218,6 +218,29 @@ one CUDA device. Phases, any failure exits non-zero:
          the cache contraction on one layer against float32 (within the
          worst case of a float32 sum of its terms);
          ``_write_slot`` alone.
+  (k)    the distributed layer (``distributed_phase``) in a NCCL process
+         group of world size 1 (it prints the world size, the NCCL version,
+         the device count and nvidia-smi's name and power limit; NCCL not
+         starting fails the phase). k1: smollm-135m at full width, batch 8
+         x 512, bf16 compute, 3 steps as ``DTensor``s on a (1, 1) ("data",
+         "model") ``DeviceMesh`` (``plan_for``, ``shardings_for``,
+         ``constrainer_ctx``) against the plain step: losses within 2e-4,
+         parameters within 5e-5; step ms and device launches a step for
+         both. k2: ``pipeline_forward`` over the 30 layers as one stage with
+         8 microbatches against the layers in turn (1e-6), ``apply_moe_a2a``
+         against ``apply_moe`` (qwen3-moe smoke config; 1e-5, aux 1e-6), a
+         compressed all-reduce of the full gradient tree against
+         ``quantize_ef``'s codes (bitwise). k3: the slot-sharded staged
+         (kernels 6 + 5) and gated (2 + 3 + 5) engines at the width of (b),
+         64 slots, 12 ticks, on a ``LocalMesh`` of the card 4 times and
+         once, against the unsharded engine (logits within 1e-5, gaze and
+         n_stale equal), each kernel result of every shard held against its
+         plain version, launches a tick (the kernel table's
+         ``sharded_launches``: counts reset before each 4-shard run, read
+         after) and tick ms; capacity 62 unsharded; a fleet of 2 hosts over
+         ``make_fleet_meshes(2, devices=[card] * 4)``. k4: k1's ``DTensor``
+         state saved, restored onto ``Replicate`` and ``Shard(0)``, and a
+         CPU-saved checkpoint restored onto the mesh, bytes equal.
 
 Prints the kernel table as one JSON line, the card's name and power limit
 (nvidia-smi), and last ``{"ok": true, "device": {...}}``. With ``--out DIR``
@@ -237,6 +260,7 @@ import subprocess
 import sys
 import time
 import traceback
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -759,6 +783,7 @@ def _hold_served(calls):
     held = {}
 
     def codes(name, pairs, live_rows, shapes):
+        pairs = [(g, w) for g, w in pairs if g.numel()]   # a call with no live row
         d = max((int((g.int() - w.int()).abs().max()) for g, w in pairs), default=0)
         flips = sum(int(((g.int() - w.int()).abs().amax(-1) > 0).sum()) for g, w in pairs)
         held[name] = {"calls": len(pairs), "live_rows": live_rows, "max_abs_err": d,
@@ -2128,6 +2153,328 @@ def long_context_phase(dev, out, cfg=None, batch=8, context=8192, gen=8, long=32
     return out
 
 
+def distributed_phase(dev, out, params, cfg_s, cfg_g, ckpt_dir, backend="nccl", lm_cfg=None,
+                      batch=8, seq=512, steps=3, capacity=CAPACITY, ticks=12,
+                      pipe_seq=128, n_micro=8, seed=0):
+    """Phase (k): the distributed layer on one card, in a process group of
+    world size 1 (``backend`` NCCL; gloo only to rehearse on the CPU).
+
+    k1: smollm-135m (``get_config``'s, ``lm_cfg`` to rehearse) trained
+    ``steps`` steps at ``batch`` x ``seq``, bf16 compute, once as plain
+    tensors and once as ``DTensor``s on a (1, 1) ("data", "model")
+    ``DeviceMesh`` laid out by ``plan_for`` / ``shardings_for`` under
+    ``constrainer_ctx``: losses within 2e-4 and parameters within 5e-5 (the
+    reference's bounds), printed; step ms and device launches a step for
+    both. k2: ``pipeline_forward`` over the model's layers as one stage with
+    ``n_micro`` microbatches against the layers run in turn (1e-6);
+    ``apply_moe_a2a`` against ``moe.apply_moe`` on the qwen3-moe smoke
+    config (1e-5, aux 1e-6); one compressed all-reduce of the full gradient
+    tree against ``quantize_ef``'s dequantised codes (bitwise). k3: the
+    slot-sharded engines at the width of ``cfg_s`` / ``cfg_g``, ``capacity``
+    slots, ``ticks`` ticks of scenes that change every 4 ticks: a
+    ``LocalMesh`` of the card 4 times and of the card once, the staged
+    route (kernels 6 + 5) and the gated one (temporal gate and delta
+    backend: kernels 2 + 3 + 5), each against the unsharded engine (logits
+    within 1e-5, gaze and ``n_stale`` equal), every kernel result of the
+    4-shard runs held against its plain version (``_recording``,
+    ``_hold_served``), the launch counts reset before and read after each
+    4-shard run (4x the unsharded ones a tick), tick ms; capacity
+    ``capacity - 2`` runs unsharded; a fleet of 2 hosts over
+    ``make_fleet_meshes(2, devices=[card] * 4)``. k4: k1's ``DTensor``
+    state saved and restored onto ``Replicate`` and onto ``Shard(0)``, and
+    a checkpoint saved from CPU tensors restored onto the mesh: bytes
+    equal. Fills ``out``; returns the 4-shard runs' launches by kernel."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch import models as M
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import get_config, smoke_config
+    from torch.distributed.tensor import Replicate, Shard
+    from repro_torch.convert import tree_flatten_with_paths, tree_map, tree_to, tree_unflatten
+    from repro_torch.data.pipeline import DataConfig, SceneStream, TokenStream
+    from repro_torch.distributed.pipeline import pipeline_forward, split_layers_to_stages
+    from repro_torch.examples.train_lm import token_batches
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import LocalMesh
+    from repro_torch.launch.shardings import (Sharding, constrainer_ctx, plan_for, shard_tree,
+                                              shardings_for)
+    from repro_torch.models import blocks as blk
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.moe_a2a import apply_moe_a2a
+    from repro_torch.models.sharding_ctx import P
+    from repro_torch.optim import AdamWConfig, init_opt_state, opt_state_specs
+    from repro_torch.optim.compression import make_compressed_allreduce, quantize_ef
+    from repro_torch.serve.engine import SaccadeEngine
+    from repro_torch.serve.fleet import SaccadeFleet, make_fleet_meshes
+    from repro_torch.train.train_step import make_grads_fn, make_train_step
+
+    def leaves(tree):
+        return [x for _, x in tree_flatten_with_paths(tree)]
+
+    def full(x):
+        return x.full_tensor() if hasattr(x, "full_tensor") else x
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev.index or 0)
+    dist.init_process_group(backend, rank=0, world_size=1, store=dist.HashStore())
+    try:
+        out["process_group"] = {
+            "backend": dist.get_backend(), "world_size": dist.get_world_size(),
+            "nccl_version": (".".join(map(str, torch.cuda.nccl.version()))
+                             if backend == "nccl" else None),
+            "device_count": torch.cuda.device_count()}
+        print(json.dumps({"k_process_group": out["process_group"]}))
+        if dev.type == "cuda":
+            print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                                  "--format=csv,noheader"], capture_output=True, text=True,
+                                 timeout=60).stdout.strip())
+
+        # ---- k1: the sharded LM train step -----------------------------
+        cfg = lm_cfg or get_config("smollm-135m")
+        mesh = init_device_mesh(dev.type, (1, 1), mesh_dim_names=("data", "model"))
+        plan = plan_for(cfg, mesh)
+        opt = AdamWConfig(lr=1e-3)
+        init = M.init_params(torch.Generator().manual_seed(seed), cfg, plan, device="cpu")
+        stream = TokenStream(DataConfig(seed=seed + 1, vocab=cfg.vocab, seq_len=seq,
+                                        global_batch=batch))
+        data = [token_batches(cfg, stream, batch, dev)(s) for s in range(steps)]
+        step = make_train_step(cfg, plan, opt, compute_dtype=torch.bfloat16, warmup=2,
+                               total_steps=steps)
+        pspecs = M.param_specs(cfg, plan)
+        b_sh = {"tokens": Sharding(mesh, P(plan.dp_axes, None))}
+
+        def run(sharded):
+            p = tree_to(init, dev)
+            o = init_opt_state(p, opt)
+            if sharded:
+                p_sh = shardings_for(pspecs, p, mesh)
+                p = shard_tree(p, p_sh)
+                o = shard_tree(o, shardings_for(opt_state_specs(pspecs), o, mesh))
+            losses, ms = [], []
+            for s in range(steps):
+                b = shard_tree(data[s], b_sh) if sharded else data[s]
+                sync()
+                t0 = time.perf_counter()
+                with constrainer_ctx(mesh if sharded else None, plan):
+                    p, o, m = step(p, o, b)
+                losses.append(float(full(m["loss"])))
+                ms.append((time.perf_counter() - t0) * 1e3)
+            b = shard_tree(data[0], b_sh) if sharded else data[0]
+            with constrainer_ctx(mesh if sharded else None, plan):
+                by_name = _device_by_name(lambda: step(p, o, b)) if dev.type == "cuda" else []
+            return p, o, losses, ms, by_name
+
+        k1 = out["k1"] = {"name": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+                          "batch": batch, "seq": seq, "steps": steps}
+        runs = {}
+        for name, sharded in (("plain", False), ("dtensor", True)):
+            p, o, losses, ms, by_name = run(sharded)
+            runs[name] = (p, o)
+            k1[name] = {"losses": losses, "step_ms": ms,
+                        "step_ms_after_first": float(np.median(ms[1:])) if steps > 1 else None,
+                        "device_launches": sum(n for *_, n in by_name),
+                        "device_ms": sum(ms_ for _, ms_, _ in by_name)}
+        (pa, _), (pb, ob) = runs["plain"], runs["dtensor"]
+        k1["loss_diff"] = max(abs(a - b) for a, b in zip(k1["plain"]["losses"],
+                                                          k1["dtensor"]["losses"]))
+        k1["param_diff"] = max(float((a.float() - full(b).float()).abs().max())
+                               for a, b in zip(leaves(pa), leaves(pb)))
+        k1["all_dtensor"] = all(type(x).__name__ == "DTensor" for x in leaves(pb) + leaves(ob))
+        print(json.dumps({"k1": k1}))
+        assert k1["all_dtensor"], "the sharded step left DTensor land"
+        assert all(np.isfinite(k1["dtensor"]["losses"])), k1
+        assert k1["loss_diff"] < 2e-4, k1
+        assert k1["param_diff"] < 5e-5, k1
+
+        # ---- k2: the collectives at world size 1 -------------------------
+        k2 = out["k2"] = {}
+        pod = init_device_mesh(dev.type, (1,), mesh_dim_names=("pod",))
+        stacks = split_layers_to_stages(pa["stacks"][0], 1)
+        kind = cfg.block_pattern[0]
+        positions = torch.arange(pipe_seq, device=dev)
+
+        def stage_fn(p_stage, x):
+            for i in range(p_stage["norm1"].shape[0]):
+                x, _, _ = blk.apply_block({k_: _index(v, i) for k_, v in p_stage.items()},
+                                          kind, x, cfg, positions, None)
+            return x
+
+        g = torch.Generator().manual_seed(seed + 2)
+        mbs = (torch.randn((n_micro, 1, pipe_seq, cfg.d_model), generator=g) * 0.5).to(dev)
+        with torch.no_grad():
+            got = pipeline_forward(stacks, mbs, stage_fn, pod)
+            seq_out = torch.stack([stage_fn(_index_tree(stacks, 0), mbs[i])
+                                   for i in range(n_micro)])
+        k2["pipeline"] = {"layers": cfg.n_layers, "n_micro": n_micro, "seq": pipe_seq,
+                          "max_abs_err": float((got - seq_out).abs().max()),
+                          "finite": bool(torch.isfinite(got).all())}
+        mcfg = smoke_config("qwen3-moe-235b-a22b")
+        mp = tree_to(moe_mod.init_moe(torch.Generator().manual_seed(seed + 3), mcfg), dev)
+        xm = (torch.randn((4, 16, mcfg.d_model), generator=g) * 0.5).to(dev)
+        m11 = init_device_mesh(dev.type, (1, 1), mesh_dim_names=("data", "model"))
+        with torch.no_grad():
+            o_a2a, aux_a2a = apply_moe_a2a(mp, xm, mcfg, m11, ("data",), "model")
+            o_ref, aux_ref = moe_mod.apply_moe(mp, xm, mcfg)
+        k2["moe_a2a"] = {"max_abs_err": float((o_a2a - o_ref).abs().max()),
+                         "aux_err": abs(float(aux_a2a) - float(aux_ref))}
+        grads = make_grads_fn(cfg, plan, opt, compute_dtype=torch.bfloat16)(
+            tree_to(init, dev), data[0])[2]
+        errs = [torch.zeros(x.shape, dtype=torch.float32, device=dev) for x in leaves(grads)]
+        fn = make_compressed_allreduce(mesh, "data")
+        mean, new_err = fn(grads, tree_unflatten(grads, errs))
+        same = True
+        for gl, ml, el in zip(leaves(grads), leaves(mean), leaves(new_err)):
+            scale = torch.clamp_min(gl.float().abs().amax(), 1e-12) / torch.full(
+                (), 127.0, device=dev)
+            codes, e2 = quantize_ef(gl, torch.zeros_like(el), scale)
+            same &= torch.equal(ml, codes.float() * scale) and torch.equal(el, e2)
+        k2["compressed_allreduce"] = {"leaves": len(errs), "bitwise": bool(same),
+                                      "elements": sum(e.numel() for e in errs)}
+        print(json.dumps({"k2": k2}))
+        assert k2["pipeline"]["finite"] and k2["pipeline"]["max_abs_err"] <= 1e-6, k2
+        assert k2["moe_a2a"]["max_abs_err"] <= 1e-5 and k2["moe_a2a"]["aux_err"] <= 1e-6, k2
+        assert same, "compressed all-reduce differs from quantize_ef's codes"
+        del grads, mean, new_err, errs
+
+        # ---- k3: the slot-sharded engines ---------------------------------
+        k3 = out["k3"] = {}
+        pool, _ = SceneStream(seed=seed + 9, image=cfg_s.frontend.image_h).batch(0, 24)
+        sids = list(range(capacity))
+        clip = [{s: pool[(s + t // 4) % len(pool)] for s in sids} for t in range(ticks)]
+        mesh4, mesh1 = LocalMesh([dev] * 4), LocalMesh([dev])
+        launched = {n: 0 for n in ops.LAUNCHES}
+        for route, cfg_r, kw in (
+                ("staged", cfg_s, {}),
+                ("gated", cfg_g, {"temporal": True, "backend_delta": True})):
+            pf = ops.ip2_codes_fn(cfg_r.frontend.patch, cfg_r.frontend.adc)
+
+            def engine(cap=capacity, **mk):
+                e = SaccadeEngine(cfg_r, params, capacity=cap, project_fn=pf, **kw, **mk)
+                for s in range(cap):
+                    e.admit(s)
+                return e
+
+            def serve(e):
+                rows, per_tick = [], []
+                for t in range(ticks):
+                    pre = dict(ops.LAUNCHES)
+                    o = e.step(clip[t])
+                    per_tick.append(sum(ops.LAUNCHES[n] - pre[n] for n in pre))
+                    st = e.state
+                    rows.append((np.stack([o[s] for s in sids]), st.indices.cpu(),
+                                 None if st.cache is None else st.cache.n_stale.cpu()))
+                return rows, per_tick
+
+            base, base_ticks = serve(engine(device=dev))
+            rec = k3[route] = {"unsharded_launches_per_tick": base_ticks}
+            for mname, mesh_r in (("x4", mesh4), ("x1", mesh1)):
+                e = engine(mesh=mesh_r)
+                with _recording(ops) as calls:
+                    ops.reset_launches()
+                    rows, per_tick = serve(e)
+                    counts = dict(ops.LAUNCHES)
+                if mname == "x4":
+                    for n, c in counts.items():
+                        launched[n] += c
+                    rec["held"] = {n: {k_: v for k_, v in h.items() if k_ != "shapes"}
+                                   for n, h in _hold_served(calls).items()}
+                del calls
+                err = max(float(np.abs(a[0] - b[0]).max()) for a, b in zip(rows, base))
+                gaze = all(torch.equal(a[1], b[1]) for a, b in zip(rows, base))
+                stale = all(a[2] is None or torch.equal(a[2], b[2]) for a, b in zip(rows, base))
+                rec[mname] = {"n_shards": e.n_shards, "max_abs_err": err, "gaze_equal": gaze,
+                              "n_stale_equal": stale, "launches": counts,
+                              "launches_per_tick": per_tick,
+                              "tick_ms": _host_ms(lambda: e.step(clip[0]), n=5, warm=1)
+                              if dev.type == "cuda" else None}
+                assert e.n_shards == (4 if mname == "x4" else 1), rec[mname]
+                assert err <= 1e-5 and gaze and stale, (route, mname, rec[mname])
+            u = engine(device=dev)
+            rec["unsharded_tick_ms"] = (_host_ms(lambda: u.step(clip[0]), n=5, warm=1)
+                                        if dev.type == "cuda" else None)
+            rec["launch_ratio"] = (sum(rec["x4"]["launches_per_tick"])
+                                   / max(1, sum(base_ticks)))
+            print(json.dumps({"k3_" + route: {k_: v for k_, v in rec.items() if k_ != "held"}}))
+        odd = SaccadeEngine(cfg_s, params, capacity=capacity - 2, mesh=mesh4)
+        k3["odd_capacity_shards"] = odd.n_shards
+        assert odd.n_shards == 1, "an indivisible capacity was sharded"
+        pf = ops.ip2_codes_fn(cfg_s.frontend.patch, cfg_s.frontend.adc)
+        fleet = SaccadeFleet(cfg_s, params, n_hosts=2, capacity=capacity // 2, project_fn=pf,
+                             meshes=make_fleet_meshes(2, devices=[dev] * 4))
+        whole = SaccadeEngine(cfg_s, params, capacity=capacity, project_fn=pf, device=dev)
+        for s in sids:
+            fleet.submit(s)
+            whole.admit(s)
+        fleet.drain()
+        f_err, f_gaze = 0.0, True
+        for t in range(4):
+            a, b = fleet.step(clip[t]), whole.step(clip[t])
+            f_err = max(f_err, max(float(np.abs(a[s] - b[s]).max()) for s in sids))
+            f_gaze &= all((fleet.engines[fleet.host_of(s)].gaze(s) == whole.gaze(s)).all()
+                          for s in sids)
+        k3["fleet"] = {"hosts": 2, "shards": [e.n_shards for e in fleet.engines],
+                       "max_abs_err": f_err, "gaze_equal": bool(f_gaze)}
+        print(json.dumps({"k3_fleet": k3["fleet"], "odd_capacity_shards": odd.n_shards}))
+        assert k3["fleet"]["shards"] == [2, 2] and f_err <= 1e-5 and f_gaze, k3["fleet"]
+        del fleet, whole, odd
+
+        # ---- k4: elastic restore on the card ------------------------------
+        k4 = out["k4"] = {}
+        state = {"params": pb, "opt": ob}
+        want = [full(x).detach().cpu() for x in leaves(state)]
+        like = {"params": tree_to(init, "cpu"), "opt": init_opt_state(init, opt)}
+        cm = CheckpointManager(str(ckpt_dir / "dtensor"))
+        cm.save(1, state, blocking=True)
+
+        def same_bytes(tree, ref_leaves):
+            return all(torch.equal(full(x).detach().cpu().reshape(-1).view(torch.uint8),
+                                   w.reshape(-1).view(torch.uint8))
+                       for x, w in zip(leaves(tree), ref_leaves))
+
+        def placed(tree, shard0):
+            # explicit placements: a Shard() over a size-1 axis, which
+            # placements_for writes as Replicate(), is still a layout
+            # restore must take
+            return tree_map(lambda x: types.SimpleNamespace(mesh=mesh, placements=(
+                Shard(0) if shard0 and x.dim() else Replicate(), Replicate())), tree)
+
+        for name, shard0 in (("replicate", False), ("shard0", True)):
+            got, step_no = cm.restore(like, shardings=placed(like, shard0))
+            pl = {str(tuple(x.placements)) for x in leaves(got)}
+            k4[name] = {"step": step_no, "bytes_equal": same_bytes(got, want),
+                        "placements": sorted(pl)}
+            assert k4[name]["bytes_equal"] and step_no == 1, k4
+            del got
+        cpu_params = tree_to(init, "cpu")
+        CheckpointManager(str(ckpt_dir / "cpu")).save(2, cpu_params, blocking=True)
+        got, _ = CheckpointManager(str(ckpt_dir / "cpu")).restore(
+            cpu_params, shardings=placed(cpu_params, True))
+        k4["from_cpu"] = {"bytes_equal": same_bytes(got, leaves(cpu_params)),
+                          "device": str(leaves(got)[0].device)}
+        print(json.dumps({"k4": k4}))
+        assert k4["from_cpu"]["bytes_equal"], k4
+        return launched
+    finally:
+        dist.destroy_process_group()
+
+
+def _index(x, i):
+    """Leaf ``i`` of a stacked (L, ...) tree node: a tensor or a dict of them."""
+    if isinstance(x, dict):
+        return {k: _index(v, i) for k, v in x.items()}
+    return x[i]
+
+
+def _index_tree(tree, i):
+    return {k: _index(v, i) for k, v in tree.items()}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", type=Path, default=None,
@@ -3460,14 +3807,27 @@ def main():
         out = report["j3_long_context"] = {}
         long_context_phase(dev, out)
 
+    # ---- (k) the distributed layer: NCCL at world size 1, the slot-sharded
+    # engines through kernels 6 + 5 and 2 + 3 + 5 on every shard
+    @phase("k_distributed")
+    def _k():
+        out = report["k_distributed"] = {}
+        ckpt_dir = ROOT / "build" / "ckpt_k"
+        try:
+            launched = distributed_phase(dev, out, params, cfg_s, cfg_g, ckpt_dir)
+        finally:
+            shutil.rmtree(ckpt_dir, ignore_errors=True)
+        for name, c in launched.items():
+            kernels.setdefault(name, {})["sharded_launches"] = c
+
     lost = [k for k in PREROLL_LOST if k is not None]
     report["profiler_preroll_lost"] = {"windows": len(PREROLL_LOST), "max": max(lost, default=None),
                                        "total": sum(lost), "marks_lost": PREROLL_LOST.count(None)}
     print(json.dumps({"profiler_preroll_lost": report["profiler_preroll_lost"]}))
     report["kernels"] = [kernels.get(n, {"name": n}) for n in KERNELS]
     keys = ("name", "route", "source", "symbol", "replaces", "redesigned", "launches",
-            "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "library_device_ms", "staged_device_ms")
+            "sharded_launches", "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "library_device_ms", "staged_device_ms")
     print(json.dumps({"kernels": [{k: row.get(k) for k in keys} for row in report["kernels"]]}))
     try:
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

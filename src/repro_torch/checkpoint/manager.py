@@ -18,9 +18,13 @@ Properties kept from the reference:
   * asynchronous: ``save`` copies every leaf to host memory before it
     returns (a later in-place update cannot race the write), then writes
     on a background thread; at most one save is pending;
-  * keep-last-N garbage collection after each commit.
-The reference's elastic re-sharded restore (``shardings=``) has no
-single-card counterpart: ``restore`` places the leaves on ``device``.
+  * keep-last-N garbage collection after each commit;
+  * elastic restore: a tree of ``DTensor``s is saved whole (each leaf's
+    ``full_tensor()``, gathered by every rank before ``save`` returns, then
+    written by rank 0 alone: the same bytes as one process saving the full
+    arrays), and ``restore(shardings=...)`` lays each leaf onto any mesh
+    and placements with ``distribute_tensor``; without ``shardings`` the
+    leaves go to ``device``.
 """
 
 from __future__ import annotations
@@ -49,6 +53,12 @@ def _save_leaf(path: str, t: torch.Tensor) -> None:
         np.save(path, t.numpy())
 
 
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
 def _load_leaf(path: str) -> torch.Tensor:
     arr = np.load(path)
     if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:
@@ -62,6 +72,7 @@ class CheckpointManager:
         self.keep = keep
         self._pending: threading.Thread | None = None
         self._error: Exception | None = None
+        self._barrier = False      # a distributed save is pending
         os.makedirs(directory, exist_ok=True)
 
     # -- save ---------------------------------------------------------------
@@ -70,8 +81,18 @@ class CheckpointManager:
         self.wait()
         flat = tree_flatten_with_paths(tree)
         paths = [p for p, _ in flat]
-        # the snapshot, before save returns
-        host_leaves = [x.detach().to("cpu", copy=True).contiguous() for _, x in flat]
+        distributed = any(_is_dtensor(x) for _, x in flat)
+        # the snapshot, before save returns (a DTensor gathered whole)
+        host_leaves = [(x.detach().full_tensor() if _is_dtensor(x) else x.detach())
+                       .to("cpu", copy=True).contiguous() for _, x in flat]
+        if distributed:
+            import torch.distributed as dist
+
+            self._barrier = True
+            if dist.get_rank() != 0:           # one writer
+                if blocking:
+                    self.wait()
+                return
 
         def write():
             tmp = os.path.join(self.dir, f"step_{step:08d}.tmp")
@@ -89,6 +110,7 @@ class CheckpointManager:
 
         if blocking:
             write()
+            self.wait()
             return
 
         def background():
@@ -101,10 +123,16 @@ class CheckpointManager:
         self._pending.start()
 
     def wait(self) -> None:
-        """Join the pending save; raise what it raised."""
+        """Join the pending save; raise what it raised. After a save of
+        ``DTensor``s every rank waits here until the writer has committed."""
         if self._pending is not None:
             self._pending.join()
             self._pending = None
+        if self._barrier:
+            import torch.distributed as dist
+
+            self._barrier = False
+            dist.barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise err
@@ -127,12 +155,17 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, tree_like, step: int | None = None, device=None):
+    def restore(self, tree_like, step: int | None = None, device=None, shardings=None):
         """``(tree, step)``: the checkpoint of ``step`` (the latest by
-        default) in the structure of ``tree_like``, every leaf on
-        ``device`` (the GPU by default). Raises ``ValueError`` when the
-        leaves' paths differ from the manifest's."""
-        dev = resolve_device(device)
+        default) in the structure of ``tree_like``. With ``shardings`` (a
+        tree of the same structure of records with a ``mesh`` and
+        ``placements``, such as ``launch.shardings.Sharding``) each leaf
+        becomes a ``DTensor`` on its record's mesh and placements (the
+        elastic re-shard path; every rank calls it); otherwise every leaf
+        goes to ``device`` (the GPU by default).
+        Raises ``ValueError`` when the leaves' paths differ from the
+        manifest's."""
+        dev = None if shardings is not None else resolve_device(device)
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -146,6 +179,13 @@ class CheckpointManager:
                 "checkpoint tree mismatch: "
                 f"{set(paths) ^ set(manifest['paths'])}"
             )
-        leaves = [_load_leaf(os.path.join(d, f"arr_{i}.npy")).to(dev)
-                  for i in range(len(paths))]
+        leaves = [_load_leaf(os.path.join(d, f"arr_{i}.npy")) for i in range(len(paths))]
+        if shardings is None:
+            leaves = [t.to(dev) for t in leaves]
+        else:
+            from torch.distributed.tensor import distribute_tensor
+
+            shs = [s for _, s in tree_flatten_with_paths(shardings)]
+            leaves = [distribute_tensor(t.to(s.mesh.device_type), s.mesh, s.placements)
+                      for t, s in zip(leaves, shs)]
         return tree_unflatten(tree_like, leaves), step

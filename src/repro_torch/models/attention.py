@@ -17,6 +17,7 @@ from repro_torch._arith import div
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import DEFAULT_PLAN, ParallelPlan, apply_rope, dense_init, inv_sqrt
+from repro_torch.models.sharding_ctx import P
 
 NEG_INF = -1e30
 
@@ -48,6 +49,21 @@ def init_attention(generator: torch.Generator, cfg: ModelConfig,
         p["bk"] = torch.zeros((hkv, dh), dtype=dtype)
         p["bv"] = torch.zeros((hkv, dh), dtype=dtype)
     return p
+
+
+def spec_attention(cfg: ModelConfig, plan: ParallelPlan) -> dict:
+    w_in = plan.fsdp_axis if plan.fsdp else None
+    s = {
+        "wq": P(w_in, plan.tp_axis, None),
+        "wk": P(w_in, plan.tp_axis, None),
+        "wv": P(w_in, plan.tp_axis, None),
+        "wo": P(plan.tp_axis, None, w_in),
+    }
+    if cfg.qkv_bias:
+        s["bq"] = P(plan.tp_axis, None)
+        s["bk"] = P(plan.tp_axis, None)
+        s["bv"] = P(plan.tp_axis, None)
+    return s
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""Per-kind block init / apply dispatch and decode-state init.
+"""Per-kind block init / spec / apply dispatch and decode-state init.
 
 A model is ``block_pattern`` tiled over n_layers; each pattern position
 has its own parameter stack (leading repeat dim), so heterogeneous
@@ -23,7 +23,9 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import xlstm as xlstm_mod
-from repro_torch.models.layers import ParallelPlan, apply_mlp, init_mlp, rms_norm
+from repro_torch.models.layers import ParallelPlan, apply_mlp, init_mlp, rms_norm, spec_mlp
+from repro_torch.models.moe_a2a import apply_moe_a2a
+from repro_torch.models.sharding_ctx import P, constrain, get_moe_ctx
 
 
 def init_block(generator: torch.Generator, kind: str, cfg: ModelConfig,
@@ -48,6 +50,26 @@ def init_block(generator: torch.Generator, kind: str, cfg: ModelConfig,
     else:
         raise ValueError(kind)
     return p
+
+
+def spec_block(kind: str, cfg: ModelConfig, plan: ParallelPlan) -> dict:
+    s: dict = {"norm1": P(None)}
+    if kind in (ATTN, LOCAL_ATTN, MOE):
+        s["attn"] = attn_mod.spec_attention(cfg, plan)
+        s["norm2"] = P(None)
+        if kind == MOE:
+            s["moe"] = moe_mod.spec_moe(cfg, plan)
+        else:
+            s["mlp"] = spec_mlp(cfg.mlp_kind, plan)
+    elif kind == RECURRENT:
+        s["rec"] = rglru_mod.spec_rglru_block(cfg, plan)
+        s["norm2"] = P(None)
+        s["mlp"] = spec_mlp(cfg.mlp_kind, plan)
+    elif kind == MLSTM:
+        s["mlstm"] = xlstm_mod.spec_mlstm_block(cfg, plan)
+    elif kind == SLSTM:
+        s["slstm"] = xlstm_mod.spec_slstm_block(cfg, plan)
+    return s
 
 
 def _cache_from_prefill(k: torch.Tensor, t: int, cache_dtype: torch.dtype) -> torch.Tensor:
@@ -107,28 +129,33 @@ def apply_block(p: dict, kind: str, x: torch.Tensor, cfg: ModelConfig,
                         "k": _cache_from_prefill(k, t, state["k"].dtype),
                         "v": _cache_from_prefill(v, t, state["v"].dtype),
                     }
-        x = x + out
+        x = constrain(x + out, "act")
         h = rms_norm(x, p["norm2"], cfg.norm_eps)
         if kind == MOE:
-            out, aux = moe_mod.apply_moe(p["moe"], h, cfg)
+            moe_ctx = get_moe_ctx()
+            if moe_ctx is not None:
+                out, aux = apply_moe_a2a(p["moe"], h, cfg, moe_ctx["mesh"],
+                                         moe_ctx["dp"], moe_ctx["tp"])
+            else:
+                out, aux = moe_mod.apply_moe(p["moe"], h, cfg)
         else:
             out = apply_mlp(p["mlp"], h, cfg.mlp_kind)
-        x = x + out
+        x = constrain(x + out, "act")
     elif kind == RECURRENT:
         h = rms_norm(x, p["norm1"], cfg.norm_eps)
         out, new_state = rglru_mod.recurrent_block_forward(p["rec"], h, state)
-        x = x + out
+        x = constrain(x + out, "act")
         h = rms_norm(x, p["norm2"], cfg.norm_eps)
-        x = x + apply_mlp(p["mlp"], h, cfg.mlp_kind)
+        x = constrain(x + apply_mlp(p["mlp"], h, cfg.mlp_kind), "act")
     elif kind == MLSTM:
         h = rms_norm(x, p["norm1"], cfg.norm_eps)
         out, new_state = xlstm_mod.mlstm_block_forward(
             p["mlstm"], h, state, chunk_size=cfg.xlstm_chunk)
-        x = x + out
+        x = constrain(x + out, "act")
     elif kind == SLSTM:
         h = rms_norm(x, p["norm1"], cfg.norm_eps)
         out, new_state = xlstm_mod.slstm_forward(p["slstm"], h, state)
-        x = x + out
+        x = constrain(x + out, "act")
     return x, new_state, aux
 
 
@@ -154,4 +181,27 @@ def init_block_state(kind: str, cfg: ModelConfig, plan: ParallelPlan, batch: int
         return xlstm_mod.init_mlstm_state(cfg, batch, device)
     if kind == SLSTM:
         return xlstm_mod.init_slstm_state(cfg, batch, device)
+    raise ValueError(kind)
+
+
+def state_specs(kind: str, cfg: ModelConfig, plan: ParallelPlan,
+                cache_dtype: torch.dtype = torch.bfloat16) -> dict:
+    """Partition specs of one block's decode state (batch over dp, heads /
+    features over tp where the shape allows)."""
+    dp = plan.dp_axes
+    tp = plan.tp_axis
+    if kind in (ATTN, MOE, LOCAL_ATTN):
+        s = {"k": P(dp, None, tp, None), "v": P(dp, None, tp, None)}
+        if cache_dtype == torch.int8:
+            s["k_scale"] = P(dp, None, tp)
+            s["v_scale"] = P(dp, None, tp)
+        return s
+    if kind == RECURRENT:
+        return {"h": P(dp, tp), "conv": P(dp, None, tp)}
+    if kind == MLSTM:
+        return {"conv": P(dp, None, tp), "C": P(dp, None, None, tp),
+                "n": P(dp, None, tp), "m": P(dp, None)}
+    if kind == SLSTM:
+        return {"c": P(dp, None, tp), "n": P(dp, None, tp),
+                "m": P(dp, None, tp), "h": P(dp, tp)}
     raise ValueError(kind)

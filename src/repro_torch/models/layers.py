@@ -1,6 +1,8 @@
-"""Shared layers: the parallel plan's head bookkeeping, dense and embed
-init, RMS and layer norms, rotary embeddings, the MLPs. Parameters are
-plain dicts of tensors in the reference's layouts."""
+"""Shared layers: the parallel plan (head bookkeeping and partition
+specs), dense and embed init, RMS and layer norms, rotary embeddings, the
+MLPs. Parameters are plain dicts of tensors in the reference's layouts;
+each ``spec_*`` builds the matching tree of partition specs, which the
+launcher (``repro_torch.launch``) turns into ``DTensor`` placements."""
 
 from __future__ import annotations
 
@@ -11,6 +13,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch._arith import div
+from repro_torch.models.sharding_ctx import P
 
 
 # ---------------------------------------------------------------------------
@@ -19,9 +22,7 @@ from repro_torch._arith import div
 
 @dataclasses.dataclass(frozen=True)
 class ParallelPlan:
-    """How one arch maps onto a mesh; tp = size of the tensor axis. On one
-    card only the head bookkeeping is used (the partition specs come with
-    the distributed layer)."""
+    """How one arch maps onto a mesh; tp = size of the tensor axis."""
 
     tp: int = 1
     fsdp: bool = False                   # ZeRO-3 param shard over the data axis
@@ -41,6 +42,33 @@ class ParallelPlan:
         if padded_q % stored != 0:
             stored = padded_q
         return stored
+
+    # -- common specs --------------------------------------------------------
+
+    @property
+    def _w_in(self) -> str | tuple | None:
+        return self.fsdp_axis if self.fsdp else None
+
+    def spec_embed(self) -> P:          # (V, D)
+        return P(self.tp_axis, self._w_in)
+
+    def spec_proj_out_tp(self) -> P:    # (D, inner): inner sharded on tp
+        return P(self._w_in, self.tp_axis)
+
+    def spec_proj_in_tp(self) -> P:     # (inner, D): inner sharded on tp
+        return P(self.tp_axis, self._w_in)
+
+    def spec_bias_tp(self) -> P:
+        return P(self.tp_axis)
+
+    def spec_replicated(self) -> P:
+        return P()
+
+    def spec_activations(self) -> P:    # (B, S, D)
+        return P(self.dp_axes, None, None)
+
+    def spec_tokens(self) -> P:         # (B, S)
+        return P(self.dp_axes, None)
 
 
 DEFAULT_PLAN = ParallelPlan()
@@ -132,6 +160,21 @@ def init_mlp(generator: torch.Generator, d: int, d_ff: int, kind: str,
             "b_down": torch.zeros((d,), dtype=dtype),
         }
     raise ValueError(kind)
+
+
+def spec_mlp(kind: str, plan: ParallelPlan) -> dict:
+    if kind in ("swiglu", "geglu"):
+        return {
+            "w_gate": plan.spec_proj_out_tp(),
+            "w_up": plan.spec_proj_out_tp(),
+            "w_down": plan.spec_proj_in_tp(),
+        }
+    return {
+        "w_up": plan.spec_proj_out_tp(),
+        "b_up": plan.spec_bias_tp(),
+        "w_down": plan.spec_proj_in_tp(),
+        "b_down": plan.spec_replicated(),
+    }
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

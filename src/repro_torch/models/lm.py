@@ -1,9 +1,11 @@
 """Top-level models: causal LM, whisper-style enc-dec, VLM (+ IP2 frontend).
 
   init_params(generator, cfg, plan, dtype, device)   -> params tree
+  param_specs(cfg, plan)                             -> partition-spec tree
   forward(params, batch, cfg, plan)                  -> (logits, aux)
   loss_fn(params, batch, cfg, plan)                  -> (loss, metrics)
   init_decode_state(cfg, plan, B, max_len, ...)      -> state tree
+  decode_state_specs(cfg, plan, cache_dtype)         -> partition-spec tree
   prefill(params, batch, cfg, plan, state)           -> (logits_last, state)
   decode_step(params, state, tokens, pos, cfg, plan) -> (logits, state)
 
@@ -33,8 +35,9 @@ from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.convert import tree_map, tree_to
 from repro_torch.models import blocks as blk
-from repro_torch.models.attention import attention_forward, init_attention
+from repro_torch.models.attention import attention_forward, init_attention, spec_attention
 from repro_torch.models.layers import DEFAULT_PLAN, ParallelPlan, dense_init, embed_init, rms_norm
+from repro_torch.models.sharding_ctx import P, constrain, replicated, with_layer_dim
 
 
 # ---------------------------------------------------------------------------
@@ -108,6 +111,28 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
     return tree_to(p, dev)
 
 
+def param_specs(cfg: ModelConfig, plan: ParallelPlan = DEFAULT_PLAN) -> dict:
+    """The partition specs of :func:`init_params`'s tree."""
+    n_rep, pat, tail = _pattern_layout(cfg)
+    s: dict = {}
+    if cfg.vocab:
+        s["embed"] = plan.spec_embed()
+        if not cfg.tie_embeddings:
+            s["lm_head"] = plan.spec_embed()
+    s["final_norm"] = P(None)
+    s["stacks"] = [with_layer_dim(blk.spec_block(k, cfg, plan)) for k in pat]
+    s["tail"] = [blk.spec_block(k, cfg, plan) for k in tail]
+    if cfg.is_encoder_decoder:
+        s["encoder"] = [blk.spec_block("attn", cfg, plan) for _ in range(cfg.n_encoder_layers)]
+        s["enc_norm"] = P(None)
+        s["cross"] = with_layer_dim({"norm": P(None), "attn": spec_attention(cfg, plan)})
+    if cfg.is_vlm:
+        s["vision_adapter"] = P(None, plan.tp_axis)
+        if cfg.vision_frontend == "ip2":
+            s["ip2"] = {"a_rgb": P(plan.tp_axis, None), "bias": P(plan.tp_axis)}
+    return s
+
+
 # ---------------------------------------------------------------------------
 # embedding of mixed inputs
 # ---------------------------------------------------------------------------
@@ -120,7 +145,12 @@ def embed_inputs(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
         if cfg.vision_frontend == "ip2":
             from repro_torch.core.frontend import apply_frontend
 
-            vis, _ = apply_frontend(params["ip2"], batch["images_rgb"], _ip2_cfg(cfg))
+            # on DTensors through a Replicate() detour: DTensor has no
+            # sharding rule for the optics' reflection padding
+            vis = replicated(
+                lambda a, b, rgb: apply_frontend({"a_rgb": a, "bias": b}, rgb,
+                                                 _ip2_cfg(cfg))[0],
+                params["ip2"]["a_rgb"], params["ip2"]["bias"], batch["images_rgb"])
         else:
             vis = batch["image_embeds"]                    # (B, n_img, 1024)
         vis = vis.to(params["vision_adapter"].dtype) @ params["vision_adapter"]
@@ -222,7 +252,7 @@ def _cross_attend(params_cross_i, x, enc_kv, cfg):
     out, _ = attention_forward(
         params_cross_i["attn"], h, cfg, torch.arange(x.shape[1], device=x.device),
         causal=False, kv_override=enc_kv, use_rope=False)
-    return x + out
+    return constrain(x + out, "act")
 
 
 def _decoder_layer(params, state, i: int, n_rep: int):
@@ -237,7 +267,7 @@ def _decoder_layer(params, state, i: int, n_rep: int):
 def _logits(params, x, cfg) -> torch.Tensor:
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-    logits = torch.einsum("bsd,vd->bsv", x, head)
+    logits = constrain(torch.einsum("bsd,vd->bsv", x, head), "logits")
     if cfg.logit_softcap:
         c = cfg.logit_softcap
         logits = c * torch.tanh(div(logits, c))
@@ -308,6 +338,19 @@ def init_decode_state(cfg: ModelConfig, plan: ParallelPlan, batch: int, max_len:
         state["enc"] = torch.zeros((batch, cfg.n_encoder_frames, cfg.d_model),
                                    dtype=torch.float32, device=dev)
     return state
+
+
+def decode_state_specs(cfg: ModelConfig, plan: ParallelPlan,
+                       cache_dtype: torch.dtype = torch.bfloat16) -> dict:
+    """The partition specs of :func:`init_decode_state`'s tree."""
+    n_rep, pat, tail = _pattern_layout(cfg)
+    s = {
+        "stacks": [with_layer_dim(blk.state_specs(k, cfg, plan, cache_dtype)) for k in pat],
+        "tail": [blk.state_specs(k, cfg, plan, cache_dtype) for k in tail],
+    }
+    if cfg.is_encoder_decoder:
+        s["enc"] = P(plan.dp_axes, None, None)
+    return s
 
 
 def _run_decoder(params, x, cfg, state, enc, pos=None, decode_pos=None):

@@ -20,7 +20,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import dense_init
+from repro_torch.models.layers import ParallelPlan, dense_init
+from repro_torch.models.sharding_ctx import P, constrain, replicated
 
 
 def init_moe(generator: torch.Generator, cfg: ModelConfig,
@@ -45,6 +46,24 @@ def init_moe(generator: torch.Generator, cfg: ModelConfig,
             "w_down": dense_init(generator, dsh, d, dtype),
         }
     return p
+
+
+def spec_moe(cfg: ModelConfig, plan: ParallelPlan) -> dict:
+    w_in = plan.fsdp_axis if plan.fsdp else None
+    s = {
+        "router": P(None, None),
+        # experts sharded over the tensor axis (EP == TP axis)
+        "w_gate": P(plan.tp_axis, w_in, None),
+        "w_up": P(plan.tp_axis, w_in, None),
+        "w_down": P(plan.tp_axis, None, w_in),
+    }
+    if cfg.moe.n_shared_experts:
+        s["shared"] = {
+            "w_gate": P(w_in, plan.tp_axis),
+            "w_up": P(w_in, plan.tp_axis),
+            "w_down": P(plan.tp_axis, w_in),
+        }
+    return s
 
 
 def capacity(cfg: ModelConfig, n_tokens: int) -> int:
@@ -104,12 +123,15 @@ def apply_moe(p: dict, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor,
     aux = e * torch.sum(me * ce) * m.router_aux_loss
 
     cap = capacity(cfg, t)
-    dp = dispatch(ids, e, cap)
+    # DTensor has no sharding rule for searchsorted: the dispatch (integer
+    # indices, no gradient) runs on replicated ids
+    dp = replicated(lambda i: dispatch(i, e, cap), ids)
     order, tok_of, keep, dest = dp["order"], dp["tok_of"], dp["keep"], dp["dest"]
 
+    permuted = constrain(flat[tok_of], "moe_tokens")               # (TK, D)
     buf = torch.zeros((e * cap + 1, d), dtype=x.dtype, device=x.device)
-    buf[dest] = flat[tok_of]                  # dropped rows land on the cut row
-    eb = buf[: e * cap].reshape(e, cap, d)    # (E, C, D)
+    buf = buf.index_put((dest,), permuted)    # dropped rows land on the cut row
+    eb = constrain(buf[: e * cap].reshape(e, cap, d), "moe_buf")   # (E, C, D)
 
     h = F.silu(torch.einsum("ecd,edf->ecf", eb, p["w_gate"]))
     h = h * torch.einsum("ecd,edf->ecf", eb, p["w_up"])
@@ -118,6 +140,7 @@ def apply_moe(p: dict, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor,
     out_flat = out_e.reshape(e * cap, d)
     gathered = torch.where(keep[:, None], out_flat[torch.clamp(dest, 0, e * cap - 1)],
                            torch.zeros((), dtype=out_flat.dtype, device=x.device))
+    gathered = constrain(gathered, "moe_tokens")                   # (TK, D)
     gate_of = gates.reshape(t * k)[order]
     contrib = gathered.to(torch.float32) * gate_of[:, None]        # (TK, D), sorted
     # each token's k contributions back in sorted (ascending expert) order

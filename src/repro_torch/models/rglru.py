@@ -20,7 +20,8 @@ import torch.nn.functional as F
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import dense_init, gelu
+from repro_torch.models.layers import ParallelPlan, dense_init, gelu
+from repro_torch.models.sharding_ctx import P
 
 _C = 8.0
 CONV_K = 4
@@ -43,6 +44,18 @@ def init_rglru_block(generator: torch.Generator, cfg: ModelConfig,
         "wa": wa, "ba": torch.zeros((d,), dtype=dtype),
         "wxg": wxg, "bxg": torch.zeros((d,), dtype=dtype),
         "lam": lam,
+    }
+
+
+def spec_rglru_block(cfg: ModelConfig, plan: ParallelPlan) -> dict:
+    w_in = plan.fsdp_axis if plan.fsdp else None
+    tp = plan.tp_axis
+    return {
+        "w_x": P(w_in, tp), "w_gate": P(w_in, tp), "w_out": P(tp, w_in),
+        "conv_w": P(None, tp), "conv_b": P(tp),
+        "wa": P(w_in, tp), "ba": P(tp),
+        "wxg": P(w_in, tp), "bxg": P(tp),
+        "lam": P(tp),
     }
 
 

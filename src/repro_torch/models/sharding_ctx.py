@@ -1,0 +1,210 @@
+"""Activation-sharding context and the port's partition specs.
+
+Model code is mesh-agnostic; the launcher installs a constrainer that maps
+logical names to ``DTensor.redistribute`` on the live mesh (the
+reference's ``with_sharding_constraint``). With nothing installed, or on a
+plain tensor, ``constrain`` returns its input. Names: act (B,S,D), tokens
+(B,S), logits (B,S,V), moe_buf (E,C,D), moe_tokens (TK,D), kv (B,T,H,dh).
+
+``P`` is the port's partition spec: one entry per tensor dim, each
+``None`` (replicated), a mesh axis name, or a tuple of names (the dim
+split over several axes, major first). Entries are normalised as the
+reference's ``PartitionSpec`` normalises them (a list becomes a tuple, a
+one-name tuple the name, an empty one ``None``), so ``tuple(P(...))``
+equals the tuple of the reference's spec of the same entries.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable
+
+import torch
+
+from repro_torch.convert import tree_map
+
+_CONSTRAINER: Callable[[torch.Tensor, str], torch.Tensor] | None = None
+_MOE_CTX: dict | None = None   # {"mesh", "dp", "tp"} -> all-to-all MoE dispatch
+
+
+def _normalise(entry):
+    if isinstance(entry, (list, tuple)):
+        entry = tuple(entry)
+        return None if not entry else entry[0] if len(entry) == 1 else entry
+    return entry
+
+
+class P:
+    """A partition spec: ``P("data", None)``, ``P(("pod", "data"), "model")``,
+    ``P()`` (every dim replicated). A leaf of spec trees (not a tuple, so
+    tree helpers never walk into it)."""
+
+    __slots__ = ("parts",)
+
+    def __init__(self, *parts):
+        self.parts = tuple(_normalise(a) for a in parts)
+
+    def __iter__(self):
+        return iter(self.parts)
+
+    def __len__(self):
+        return len(self.parts)
+
+    def __getitem__(self, i):
+        return self.parts[i]
+
+    def __eq__(self, other):
+        return isinstance(other, P) and self.parts == other.parts
+
+    def __hash__(self):
+        return hash(("P", self.parts))
+
+    def __repr__(self):
+        return "P(" + ", ".join(repr(a) for a in self.parts) + ")"
+
+
+def spec_map(fn, tree, *rest):
+    """``fn`` over the ``P`` leaves of a nested dict / list / tuple spec tree
+    (and the same places of the trees ``rest``), keeping the structure."""
+    if isinstance(tree, P) or tree is None:
+        return fn(tree, *rest)
+    if isinstance(tree, dict):
+        return {k: spec_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(spec_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree))
+    raise TypeError(f"not a spec tree node: {type(tree).__name__}")
+
+
+def with_layer_dim(tree):
+    """Every spec of ``tree`` with a leading replicated (stacked-layer) dim."""
+    return spec_map(lambda sp: P(None, *sp), tree)
+
+
+def replicated(fn, *args):
+    """``fn(*args)`` where ``DTensor`` has no sharding rule for an op of
+    ``fn``: every ``DTensor`` argument is redistributed to ``Replicate()``
+    and ``fn`` runs on the local tensors; tensor results come back as
+    replicated ``DTensor``s on that mesh (a tensor, or a tuple / list /
+    dict of them). Differentiable. Without a ``DTensor`` argument this is
+    ``fn(*args)``."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    meshes = [a.device_mesh for a in args if isinstance(a, DTensor)]
+    if not meshes:
+        return fn(*args)
+    mesh = meshes[0]
+    rep = [Replicate()] * mesh.ndim
+    out = fn(*(a.redistribute(mesh, rep).to_local() if isinstance(a, DTensor) else a
+               for a in args))
+
+    def wrap(t):
+        if isinstance(t, torch.Tensor):
+            return DTensor.from_local(t, mesh, rep, run_check=False)
+        if isinstance(t, dict):
+            return {k: wrap(v) for k, v in t.items()}
+        if isinstance(t, (tuple, list)):
+            return type(t)(wrap(v) for v in t)
+        return t
+
+    return wrap(out)
+
+
+
+# ---------------------------------------------------------------------------
+# Layout primitives on a mesh (a ``DeviceMesh`` or a ``LocalMesh``)
+# ---------------------------------------------------------------------------
+
+def axis_names(mesh) -> tuple[str, ...]:
+    """The mesh's axis names: a ``DeviceMesh``'s ``mesh_dim_names``, a
+    ``LocalMesh``'s ``axis_names``."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    return tuple(mesh.axis_names if names is None else names)
+
+
+def axis_size(mesh, axis) -> int:
+    """Devices along ``axis``: a name, a tuple of names (their product) or
+    ``None`` (1)."""
+    if axis is None:
+        return 1
+    if isinstance(axis, (tuple, list)):
+        return math.prod(axis_size(mesh, a) for a in axis)
+    return tuple(mesh.shape)[axis_names(mesh).index(axis)]
+
+
+def fit_spec(spec: P | None, shape: tuple[int, ...], mesh) -> P:
+    """Drop spec axes that don't divide their dimension (replicate there);
+    of a compound entry keep the axes that still divide, in order."""
+    if spec is None:
+        return P()
+    parts = list(spec)
+    while len(parts) < len(shape):
+        parts.append(None)
+    out = []
+    for dim, axis in zip(shape, parts[: len(shape)]):
+        if axis is None:
+            out.append(None)
+            continue
+        if dim % axis_size(mesh, axis) == 0:
+            out.append(axis)
+        elif isinstance(axis, (tuple, list)):
+            kept = []
+            for a in axis:
+                if dim % axis_size(mesh, tuple(kept + [a])) == 0:
+                    kept.append(a)
+            out.append(tuple(kept) if kept else None)
+        else:
+            out.append(None)
+    return P(*out)
+
+
+def placements_for(spec: P, mesh) -> tuple:
+    """``DTensor`` placements of a fitted spec on a ``DeviceMesh``."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = axis_names(mesh)
+    owner: dict[str, int] = {}
+    for d, entry in enumerate(spec):
+        group = entry if isinstance(entry, tuple) else (entry,)
+        group = tuple(a for a in group if a is not None)
+        idx = [names.index(a) for a in group]
+        if idx != sorted(idx):
+            raise ValueError(f"spec entry {entry!r} is not in mesh order {names}")
+        for a in group:
+            if a in owner:
+                raise ValueError(f"axis {a!r} shards two dims of {spec}")
+            owner[a] = d
+    return tuple(Shard(owner[n]) if n in owner and axis_size(mesh, n) > 1 else Replicate()
+                 for n in names)
+
+
+def relayout(tree, like):
+    """Each ``DTensor`` leaf of ``tree`` redistributed to the placements of
+    the same leaf of ``like`` (a step's outputs back in its inputs' layouts,
+    the reference's ``out_shardings``); plain leaves as they are."""
+    def one(new, old):
+        if hasattr(old, "placements") and tuple(new.placements) != tuple(old.placements):
+            return new.redistribute(old.device_mesh, old.placements)
+        return new
+
+    return tree_map(one, tree, like)
+
+
+def set_constrainer(fn: Callable[[torch.Tensor, str], torch.Tensor] | None) -> None:
+    global _CONSTRAINER
+    _CONSTRAINER = fn
+
+
+def constrain(x: torch.Tensor, name: str) -> torch.Tensor:
+    if _CONSTRAINER is None:
+        return x
+    return _CONSTRAINER(x, name)
+
+
+def set_moe_ctx(info: dict | None) -> None:
+    """Enable the explicit all-to-all MoE dispatch under a mesh."""
+    global _MOE_CTX
+    _MOE_CTX = info
+
+
+def get_moe_ctx() -> dict | None:
+    return _MOE_CTX

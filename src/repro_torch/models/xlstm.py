@@ -26,8 +26,15 @@ import torch.nn.functional as F
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import dense_init, inv_sqrt
+from repro_torch.models.layers import ParallelPlan, dense_init, inv_sqrt
+from repro_torch.models.sharding_ctx import P, replicated
 from repro_torch.models.rglru import CONV_K, _causal_conv1d
+
+
+def _logsigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``F.logsigmoid``; on a ``DTensor`` through a ``Replicate()`` detour
+    (``DTensor`` has no sharding rule for its backward)."""
+    return replicated(F.logsigmoid, x)
 
 
 def _heads(cfg: ModelConfig) -> tuple[int, int, int]:
@@ -74,6 +81,21 @@ def init_mlstm_block(generator: torch.Generator, cfg: ModelConfig,
     }
 
 
+def spec_mlstm_block(cfg: ModelConfig, plan: ParallelPlan) -> dict:
+    w_in = plan.fsdp_axis if plan.fsdp else None
+    tp = plan.tp_axis
+    return {
+        "w_up": P(w_in, tp),
+        "conv_w": P(None, tp), "conv_b": P(tp),
+        # heads (nh=4) generally don't divide tp=16 -> shard the dh dims
+        "wq": P(None, None, tp), "wk": P(None, None, tp), "wv": P(None, None, tp),
+        "w_i": P(tp, None), "b_i": P(None),
+        "w_f": P(tp, None), "b_f": P(None),
+        "gn": P(tp),
+        "w_down": P(tp, w_in),
+    }
+
+
 def _group_norm(x: torch.Tensor, scale: torch.Tensor, nh: int) -> torch.Tensor:
     """Per-head RMS norm over the head channels. x (..., di)."""
     shp = x.shape
@@ -105,7 +127,7 @@ def _mlstm_qkvif(p: dict, x: torch.Tensor, conv_state=None):
 def mlstm_parallel(q, k, v, i_raw, f_raw) -> torch.Tensor:
     """Stabilised parallel (quadratic) form. q/k/v (B,S,NH,dh) -> (B,S,NH,dh)."""
     b, s, nh, dh = q.shape
-    lf = F.logsigmoid(f_raw)                           # (B,S,NH)
+    lf = _logsigmoid(f_raw)                           # (B,S,NH)
     lfc = torch.cumsum(lf, dim=1)                      # inclusive Σ log f
     # pair weight (t, j): lfc_t - lfc_j + i_j, j <= t
     dmat = lfc[:, :, None, :] - lfc[:, None, :, :] + i_raw[:, None, :, :]
@@ -124,7 +146,7 @@ def mlstm_parallel(q, k, v, i_raw, f_raw) -> torch.Tensor:
 
 def mlstm_step(state: dict, q, k, v, i_raw, f_raw):
     """Recurrent step. q/k/v (B,NH,dh); state {C (B,NH,dh,dh), n, m}."""
-    lf = F.logsigmoid(f_raw)                           # (B,NH)
+    lf = _logsigmoid(f_raw)                           # (B,NH)
     m_new = torch.maximum(lf + state["m"], i_raw)
     fp = torch.exp(lf + state["m"] - m_new)[..., None]
     ip = torch.exp(i_raw - m_new)[..., None]
@@ -167,7 +189,7 @@ def mlstm_chunkwise(q, k, v, i_raw, f_raw, chunk: int) -> tuple[torch.Tensor, di
     hs = []
     for ci in range(n_chunks):
         qq, kk, vv, ii, ff = qc[ci], kc[ci], vc[ci], ic[ci], fc[ci]
-        lf = F.logsigmoid(ff)
+        lf = _logsigmoid(ff)
         lfc = torch.cumsum(lf, dim=1)                  # in-chunk Σ log f
         dmat = lfc[:, :, None, :] - lfc[:, None, :, :] + ii[:, None, :, :]
         dmat = torch.where(causal[None, :, :, None], dmat, neg_inf)
@@ -197,7 +219,7 @@ def mlstm_chunkwise(q, k, v, i_raw, f_raw, chunk: int) -> tuple[torch.Tensor, di
 def mlstm_final_state(k, v, i_raw, f_raw) -> dict:
     """Fold a full sequence into the end-of-sequence recurrent state:
     C_S = Σ_j exp(lfc_S - lfc_j + i_j - m_S) v_j k_j^T (stabilised)."""
-    lf = F.logsigmoid(f_raw)
+    lf = _logsigmoid(f_raw)
     lfc = torch.cumsum(lf, dim=1)                      # (B,S,NH)
     w = lfc[:, -1:, :] - lfc + i_raw                   # (B,S,NH)
     m = torch.amax(w, dim=1)                           # (B,NH)
@@ -274,6 +296,18 @@ def init_slstm_block(generator: torch.Generator, cfg: ModelConfig,
     }
 
 
+def spec_slstm_block(cfg: ModelConfig, plan: ParallelPlan) -> dict:
+    w_in = plan.fsdp_axis if plan.fsdp else None
+    tp = plan.tp_axis
+    return {
+        "w": P(w_in, tp),
+        "r": P(None, None, None, tp),
+        "b": P(tp),
+        "gn": P(tp),
+        "w_down": P(tp, w_in),
+    }
+
+
 def slstm_forward(p: dict, x: torch.Tensor, state: dict | None = None
                   ) -> tuple[torch.Tensor, dict]:
     """x (B,S,D). A sequential loop over time (sLSTM is not parallelisable)."""
@@ -292,7 +326,7 @@ def slstm_forward(p: dict, x: torch.Tensor, state: dict | None = None
         z_r, i_r, f_r, o_r = (g_t[:, gi] + rec[gi] for gi in range(4))
         z = torch.tanh(z_r)
         o = torch.sigmoid(o_r)
-        lf = F.logsigmoid(f_r)
+        lf = _logsigmoid(f_r)
         m_new = torch.maximum(lf + m, i_r)
         ip = torch.exp(i_r - m_new)
         fp = torch.exp(lf + m - m_new)

@@ -15,6 +15,7 @@ import dataclasses
 import torch
 
 from repro_torch.convert import tree_flatten_with_paths, tree_map, tree_unflatten
+from repro_torch.models.sharding_ctx import P
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,6 +43,11 @@ def init_opt_state(params, cfg: AdamWConfig) -> dict:
         "v": tree_map(zeros, params),
         "step": torch.zeros((), dtype=torch.int32, device=first.device),
     }
+
+
+def opt_state_specs(param_specs) -> dict:
+    """Moments shard exactly like their parameters."""
+    return {"m": param_specs, "v": param_specs, "step": P()}
 
 
 def global_norm(tree) -> torch.Tensor:

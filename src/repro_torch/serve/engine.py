@@ -34,6 +34,14 @@ toward a mW budget, and with ``sign_tier`` may degrade a slot to the sign
 view of its codes; ``backend_delta=True`` threads a per-slot backend
 cache (unchanged rows reuse their encoder work, an unchanged frame serves
 cached logits).
+
+Slot sharding: with ``mesh=`` (a ``launch.mesh.LocalMesh``) the slots are
+split over the mesh's devices along ``axis`` when the axis divides the
+capacity (``fit_spec``): each shard's state and frame buffer live on its
+device and each shard is stepped there with its own kernel launches
+(per-slot parallel, params replicated, no collective); fetches merge the
+shards in slot order. An indivisible capacity runs unsharded on the
+mesh's first device.
 """
 
 from __future__ import annotations
@@ -50,17 +58,27 @@ from repro_torch.core import saliency as sal
 from repro_torch.core.power import EnergyMeter, EventCounts, dense_backend_macs
 from repro_torch.core.temporal import FeatureCache, init_feature_cache
 from repro_torch.models import backend_delta as bdel
+from repro_torch.models.sharding_ctx import P, fit_spec
 from repro_torch.models.vit import vit_forward_compact
 from repro_torch.serve import governor as gov_mod
 from repro_torch.serve.serve_step import make_rollout, saccade_scores
 
 
+def _fetch(logits, axis: int) -> np.ndarray:
+    """Device logits (a tensor, or one per slot shard) on the host, the
+    shards merged in slot order along ``axis``."""
+    if isinstance(logits, torch.Tensor):
+        return logits.cpu().numpy()
+    return np.concatenate([t.cpu().numpy() for t in logits], axis=axis)
+
+
 class StepHandle:
     """A tick's result, issued but not fetched: the device's (S, n_classes)
-    logits and the fed streams' sid -> slot map. :meth:`result` makes the
-    one device-to-host fetch and caches the dict. The handle stays valid
-    across later engine calls (step outputs are fresh tensors that nothing
-    writes into), but an unfetched handle keeps its logits on the card."""
+    logits (one tensor per slot shard on a sharded engine) and the fed
+    streams' sid -> slot map. :meth:`result` makes the device-to-host
+    fetch and caches the dict. The handle stays valid across later engine
+    calls (step outputs are fresh tensors that nothing writes into), but
+    an unfetched handle keeps its logits on the card."""
 
     __slots__ = ("_logits", "_slots", "_out")
 
@@ -73,7 +91,7 @@ class StepHandle:
         """Stream id -> (n_classes,) logits for exactly the fed streams;
         blocks until they are on the host. Idempotent."""
         if self._out is None:
-            arr = None if self._logits is None else self._logits.cpu().numpy()
+            arr = None if self._logits is None else _fetch(self._logits, 0)
             self._out = {sid: arr[s] for sid, s in self._slots.items()}
             self._logits = None
         return self._out
@@ -96,7 +114,7 @@ class RolloutHandle:
         """One dict per tick (stream id -> (n_classes,) logits of that
         tick's fed streams); blocks until they are on the host. Idempotent."""
         if self._out is None:
-            arr = None if self._logits is None else self._logits.cpu().numpy()
+            arr = None if self._logits is None else _fetch(self._logits, 1)
             self._out = [{sid: arr[t, s] for sid, s in m.items()}
                          for t, m in enumerate(self._slot_maps)]
             self._logits = None
@@ -308,6 +326,28 @@ def _make_churn(k: int, j_max: int):
     return churn
 
 
+class _Shard:
+    """Slots ``lo..hi`` of an engine on ``device``: their params copy,
+    state and frame buffer."""
+
+    __slots__ = ("lo", "hi", "device", "params", "state", "frames")
+
+    def __init__(self, lo, hi, device, params, state, frames):
+        self.lo, self.hi, self.device = lo, hi, device
+        self.params, self.state, self.frames = params, state, frames
+
+
+def _cat_states(states: list, device: torch.device):
+    """Slot-major trees (tensors, NamedTuples, None) of several shards
+    concatenated along the slot axis on ``device``."""
+    first = states[0]
+    if first is None:
+        return None
+    if isinstance(first, torch.Tensor):
+        return torch.cat([s.to(device) for s in states])
+    return type(first)(*(_cat_states(list(parts), device) for parts in zip(*states)))
+
+
 class SaccadeEngine:
     """Slot-based multi-stream saccadic server.
 
@@ -335,9 +375,14 @@ class SaccadeEngine:
       backend_delta: the per-slot delta-gated backend cache
         (``governor.backend_eps > 0`` needs it).
       device: where the engine runs; None means the GPU (raises without one).
+      mesh / axis: a ``LocalMesh`` to split the slots over along ``axis``
+        (default "data") when it divides the capacity; otherwise the
+        engine runs unsharded on the mesh's first device. Excludes
+        ``device``.
     """
 
-    def __init__(self, cfg, params, capacity: int = 8, *, explore: float = 0.1,
+    def __init__(self, cfg, params, capacity: int = 8, *, mesh=None, axis: str = "data",
+                 explore: float = 0.1,
                  ema_decay: float = 0.0, project_fn=None, temporal: bool = False,
                  meter: EnergyMeter = EnergyMeter(), frame_hz: float = 30.0,
                  governor: gov_mod.GovernorSpec | None = None,
@@ -351,7 +396,20 @@ class SaccadeEngine:
             raise ValueError("governor.backend_eps budgets the delta-gated backend; "
                              "build the engine with backend_delta=True or drop "
                              "backend_eps")
+        if mesh is not None and device is not None:
+            raise ValueError("pass mesh or device, not both")
+        shard_devices = None
+        if mesh is not None:
+            # an indivisible slot axis is dropped: run unsharded
+            if fit_spec(P(axis), (capacity,), mesh)[0] is not None:
+                # every device of a LocalMesh lies on its first axis
+                shard_devices = mesh.devices if axis == mesh.axis_names[0] else mesh.devices[:1]
+            device = mesh.devices[0]
         self.device = resolve_device(device)
+        if shard_devices is None:
+            shard_devices = [self.device]
+        else:
+            shard_devices = [resolve_device(d) for d in shard_devices]
         self.cfg = cfg
         self.params = tree_to(params, self.device)
         self.capacity = capacity
@@ -382,18 +440,37 @@ class SaccadeEngine:
         k = fcfg.n_active
         self._churn_fn = _make_churn(k, fcfg.temporal.budget(k))
         self._rollout_fn = make_rollout(self._step_fn)
-        self._state = init_stream_state(cfg, capacity, self.device, temporal=temporal,
-                                        governed=governor is not None,
-                                        backend=backend_delta)
-        self._frames_dev = torch.zeros((capacity, fcfg.image_h, fcfg.image_w, 3),
-                                       dtype=torch.float32, device=self.device)
+        per = capacity // len(shard_devices)
+        self._shards = [
+            _Shard(i * per, (i + 1) * per, dev,
+                   self.params if dev == self.device else tree_to(params, dev),
+                   init_stream_state(cfg, per, dev, temporal=temporal,
+                                     governed=governor is not None, backend=backend_delta),
+                   torch.zeros((per, fcfg.image_h, fcfg.image_w, 3),
+                               dtype=torch.float32, device=dev))
+            for i, dev in enumerate(shard_devices)]
 
     # ---- host-side slot bookkeeping ------------------------------------
     @property
-    def state(self) -> StreamState:
-        """Device state with any pending churn flushed first."""
+    def n_shards(self) -> int:
+        """Slot shards the engine steps (1 when unsharded)."""
+        return len(self._shards)
+
+    @property
+    def shard_states(self) -> list[StreamState]:
+        """Each shard's device state (slots lo..hi of the shard, on its
+        device), pending churn flushed first."""
         self._flush_churn()
-        return self._state
+        return [sh.state for sh in self._shards]
+
+    @property
+    def state(self) -> StreamState:
+        """Device state with any pending churn flushed first; a sharded
+        engine's shards merged in slot order on the first shard's device."""
+        self._flush_churn()
+        if len(self._shards) == 1:
+            return self._shards[0].state
+        return _cat_states([sh.state for sh in self._shards], self.device)
 
     @property
     def stream_ids(self) -> list[Hashable]:
@@ -453,14 +530,15 @@ class SaccadeEngine:
         """The engine-total budget being split over slots (None ungoverned)."""
         return self._budget_mw
 
-    def _upload(self, arr: np.ndarray) -> torch.Tensor:
-        """A small host array on the device without a host wait: through a
+    @staticmethod
+    def _upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+        """A small host array on ``device`` without a host wait: through a
         page-locked copy whose block PyTorch's host allocator keeps until
         the upload has left it."""
-        t = torch.from_numpy(arr)
-        if self.device.type != "cuda":
-            return t
-        return t.pin_memory().to(self.device, non_blocking=True)
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+        if device.type != "cuda":
+            return t.to(device)
+        return t.pin_memory().to(device, non_blocking=True)
 
     def _flush_churn(self) -> None:
         dirty_budget = self.governor is not None and self._budgets_dirty
@@ -470,16 +548,20 @@ class SaccadeEngine:
         evict_hit = np.zeros((self.capacity,), bool)
         for slot, op in self._pending.items():
             (admit_hit if op == "admit" else evict_hit)[slot] = True
-        hits = self._upload(np.stack([admit_hit, evict_hit]))
-        budgets = None
+        hits_np = np.stack([admit_hit, evict_hit])
+        budgets_np = None
         if self.governor is not None:
             w = np.zeros((self.capacity,), np.float64)
             for slot, sid in enumerate(self._slots):
                 if sid is not None:
                     w[slot] = self._priority[sid]
-            budgets = self._upload(gov_mod.allocate_budgets(
+            budgets_np = np.asarray(gov_mod.allocate_budgets(
                 self.governor, w, total_mw=self._budget_mw))
-        self._state = self._churn_fn(self._state, hits[0], hits[1], budgets)
+        for sh in self._shards:
+            hits = self._upload(hits_np[:, sh.lo:sh.hi], sh.device)
+            budgets = (None if budgets_np is None
+                       else self._upload(budgets_np[sh.lo:sh.hi], sh.device))
+            sh.state = self._churn_fn(sh.state, hits[0], hits[1], budgets)
         self._pending.clear()
         self._budgets_dirty = False
 
@@ -492,15 +574,44 @@ class SaccadeEngine:
         if st.event is not None:
             st.event.synchronize()
 
-    def _issue_upload(self, st: _Staging, n_rows: int):
-        """Non-blocking upload of a staging buffer's first ``n_rows`` rows,
-        their slots and the fed mask; records the buffer's event."""
-        dev = self.device
-        out = tuple(t.to(dev, non_blocking=True)
-                    for t in (st.rows[:n_rows], st.slots[:n_rows], st.fed))
+    def _issue_upload(self, st: _Staging, n_by_shard: list) -> list:
+        """Per shard, the non-blocking upload of its fed rows (staged
+        shard-major: one contiguous run each, slots local to the shard) and
+        its slice of the fed mask, straight to the shard's device; records
+        the buffer's event."""
+        out, off = [], 0
+        for sh, n in zip(self._shards, n_by_shard):
+            out.append(tuple(t.to(sh.device, non_blocking=True)
+                             for t in (st.rows[off:off + n], st.slots[off:off + n],
+                                       st.fed[..., sh.lo:sh.hi])))
+            off += n
         if st.event is not None:
             st.event.record()
         return out
+
+    def _stage_rows(self, st: _Staging, ticks: list, slot_maps: list) -> list:
+        """Stage the fed frames of ``ticks`` shard-major (each shard's rows
+        in tick order, their slots local to the shard) and set the fed mask
+        (``fed[slot]``, or ``fed[t, slot]`` for a rollout's (T, S) mask).
+        Returns, per shard, its row count per tick."""
+        st.fed_np[:] = False
+        f = 0
+        counts = []
+        for sh in self._shards:
+            per_tick = []
+            for t, fr in enumerate(ticks):
+                n = 0
+                for sid, frame in fr.items():
+                    slot = slot_maps[t][sid]
+                    if sh.lo <= slot < sh.hi:
+                        st.rows_np[f] = frame
+                        st.slots_np[f] = slot - sh.lo
+                        st.fed_np[(t, slot) if st.fed_np.ndim == 2 else slot] = True
+                        f += 1
+                        n += 1
+                per_tick.append(n)
+            counts.append(per_tick)
+        return counts
 
     def step(self, frames: Mapping[Hashable, Any], block: bool = True
              ) -> "dict[Hashable, np.ndarray] | StepHandle":
@@ -514,28 +625,24 @@ class SaccadeEngine:
         run it; an empty ``frames`` issues nothing."""
         if not frames:
             return {} if block else StepHandle(None, {})
+        unknown = set(frames) - self._slot_index.keys()
+        if unknown:
+            raise ValueError(f"frames for streams never admitted: "
+                             f"unknown={sorted(map(str, unknown))}")
         st = self._stages[self._stage_next]
         self._wait_staging(st)
-        st.fed_np[:] = False
-        slots_by_sid: dict[Hashable, int] = {}
-        for f, (sid, frame) in enumerate(frames.items()):
-            if sid not in self._slot_index:
-                unknown = set(frames) - self._slot_index.keys()
-                raise ValueError(f"frames for streams never admitted: "
-                                 f"unknown={sorted(map(str, unknown))}")
-            slot = self._slot_index[sid]
-            st.rows_np[f] = frame
-            st.slots_np[f] = slot
-            st.fed_np[slot] = True
-            slots_by_sid[sid] = slot
+        slots_by_sid = {sid: self._slot_index[sid] for sid in frames}
+        counts = self._stage_rows(st, [frames], [slots_by_sid])
         self._stage_next ^= 1
         self._flush_churn()
         with torch.inference_mode():
-            rows, slots, fed = self._issue_upload(st, len(slots_by_sid))
-            self._frames_dev.index_copy_(0, slots, rows)
-            logits, self._state = self._step_fn(self.params, self._frames_dev, fed,
-                                                self._state)
-        handle = StepHandle(logits, slots_by_sid)
+            ups = self._issue_upload(st, [c[0] for c in counts])
+            logits = []
+            for sh, (rows, slots, fed) in zip(self._shards, ups):
+                sh.frames.index_copy_(0, slots, rows)
+                lg, sh.state = self._step_fn(sh.params, sh.frames, fed, sh.state)
+                logits.append(lg)
+        handle = StepHandle(logits[0] if len(logits) == 1 else logits, slots_by_sid)
         return handle.result() if block else handle
 
     def step_rollout(self, frames_by_tick, block: bool = True
@@ -571,22 +678,15 @@ class SaccadeEngine:
                               self._frame_shape, self.device)
             self._roll_stage[t_len] = st
         self._wait_staging(st)
-        st.fed_np[:] = False
-        f = 0
-        counts = []
-        for t, fr in enumerate(ticks):
-            for sid, frame in fr.items():
-                slot = slot_maps[t][sid]
-                st.rows_np[f] = frame
-                st.slots_np[f] = slot
-                st.fed_np[t, slot] = True
-                f += 1
-            counts.append(len(fr))
+        shard_counts = self._stage_rows(st, ticks, slot_maps)
         with torch.inference_mode():
-            rows, slots, fed_seq = self._issue_upload(st, f)
-            logits_seq, self._state = self._rollout_fn(
-                self.params, self._frames_dev, rows, slots, fed_seq, counts, self._state)
-        handle = RolloutHandle(logits_seq, slot_maps)
+            ups = self._issue_upload(st, [sum(c) for c in shard_counts])
+            logits = []
+            for sh, counts, (rows, slots, fed_seq) in zip(self._shards, shard_counts, ups):
+                lg, sh.state = self._rollout_fn(sh.params, sh.frames, rows, slots, fed_seq,
+                                                counts, sh.state)
+                logits.append(lg)
+        handle = RolloutHandle(logits[0] if len(logits) == 1 else logits, slot_maps)
         return handle.result() if block else handle
 
     def _served_slot(self, stream_id: Hashable) -> int:

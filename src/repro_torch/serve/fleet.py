@@ -38,7 +38,9 @@ import dataclasses
 from typing import Any, Hashable, Mapping
 
 import numpy as np
+import torch
 
+from repro_torch.launch.mesh import LocalMesh
 from repro_torch.serve import governor as gov_mod
 from repro_torch.serve.engine import SaccadeEngine
 
@@ -51,6 +53,27 @@ PRIORITY_CLASSES: dict[str, float] = {
     "standard": 1.0,
     "background": 0.25,
 }
+
+
+def make_fleet_meshes(n_hosts: int, axis: str = "data", devices=None) -> list:
+    """Partition the devices into ``n_hosts`` contiguous per-host meshes
+    (``LocalMesh``es, 1-D, named ``axis``): the stand-in for one process per
+    host, each seeing only its local devices. ``devices`` defaults to every
+    visible CUDA device (raises without CUDA); tests pass CPU entries, and
+    one card may appear several times. ``n_hosts`` must divide the device
+    count."""
+    if devices is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device is available; pass devices=[...] "
+                               "to build the meshes over other devices")
+        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    devs = list(devices)
+    if n_hosts < 1:
+        raise ValueError(f"n_hosts must be >= 1, got {n_hosts}")
+    if len(devs) % n_hosts != 0:
+        raise ValueError(f"{len(devs)} devices do not split over {n_hosts} hosts")
+    per = len(devs) // n_hosts
+    return [LocalMesh(devs[h * per:(h + 1) * per], (axis,)) for h in range(n_hosts)]
 
 
 class FleetHandle:
@@ -102,6 +125,9 @@ class SaccadeFleet:
       capacity: slots per host (fleet capacity = n_hosts * capacity).
       devices: optional list of n_hosts devices, one per host engine; None
         puts every engine on the GPU (raises without one).
+      meshes: optional list of n_hosts ``LocalMesh``es
+        (:func:`make_fleet_meshes`), one per host engine, each sharding its
+        engine's slots; excludes ``devices``.
       governor: a fleet-level ``GovernorSpec``; its ``budget_mw`` is the
         fleet budget, split over hosts by admitted priority mass and
         re-split over slots inside each engine.
@@ -111,13 +137,18 @@ class SaccadeFleet:
     """
 
     def __init__(self, cfg, params, *, n_hosts: int = 1, capacity: int = 8,
-                 devices=None, governor: gov_mod.GovernorSpec | None = None,
+                 devices=None, meshes=None,
+                 governor: gov_mod.GovernorSpec | None = None,
                  priority_classes: Mapping[str, float] | None = None,
                  **engine_kw):
         if n_hosts < 1:
             raise ValueError(f"n_hosts must be >= 1, got {n_hosts}")
         if devices is not None and len(devices) != n_hosts:
             raise ValueError(f"got {len(devices)} devices for {n_hosts} hosts")
+        if meshes is not None and len(meshes) != n_hosts:
+            raise ValueError(f"got {len(meshes)} meshes for {n_hosts} hosts")
+        if meshes is not None and devices is not None:
+            raise ValueError("pass meshes or devices, not both")
         self.governor = governor
         self.classes = dict(priority_classes or PRIORITY_CLASSES)
         if any(w <= 0 for w in self.classes.values()):
@@ -125,6 +156,7 @@ class SaccadeFleet:
         self.engines: list[SaccadeEngine] = [
             SaccadeEngine(cfg, params, capacity=capacity,
                           device=None if devices is None else devices[h],
+                          mesh=None if meshes is None else meshes[h],
                           governor=governor, **engine_kw)
             for h in range(n_hosts)
         ]

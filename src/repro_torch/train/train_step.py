@@ -6,9 +6,19 @@ optional gradient accumulation over microbatches.
 The cast is differentiable, so the gradients arrive in float32 on the
 float32 masters while the forward runs in ``compute_dtype``. Nothing here
 reads a value back to the host.
+
+The sharded step is the same function on ``DTensor`` parameters and
+optimiser state (laid out by ``launch.shardings.shardings_for``) and a
+batch sharded over the dp axes, run under ``launch.shardings.
+constrainer_ctx``: every op propagates its operands' placements, the
+activation constraints redistribute, and the constants the model makes
+as plain tensors (positions, masks, zeros) count as replicated
+(``implicit_replication``).
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -16,6 +26,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.convert import tree_flatten_with_paths, tree_map, tree_unflatten
 from repro_torch.models import lm
 from repro_torch.models.layers import ParallelPlan
+from repro_torch.models.sharding_ctx import relayout
 from repro_torch.optim import AdamWConfig, adamw_update, cosine_with_warmup
 
 
@@ -60,6 +71,20 @@ def make_grads_fn(cfg: ModelConfig, plan: ParallelPlan, opt: AdamWConfig,
     return grads_of
 
 
+def _spmd(params):
+    """``implicit_replication`` when the parameters are ``DTensor``s (plain
+    tensors made inside the step are then replicated operands), else
+    nothing."""
+    from torch.distributed.tensor import DTensor
+
+    first = tree_flatten_with_paths(params)[0][1]
+    if isinstance(first, DTensor):
+        from torch.distributed.tensor.experimental import implicit_replication
+
+        return implicit_replication()
+    return contextlib.nullcontext()
+
+
 def _slice(x: torch.Tensor, i: int, n: int) -> torch.Tensor:
     mb = x.shape[0] // n
     return x[i * mb:(i + 1) * mb]
@@ -76,9 +101,14 @@ def make_train_step(cfg: ModelConfig, plan: ParallelPlan, opt: AdamWConfig,
     grads_of = make_grads_fn(cfg, plan, opt, compute_dtype, microbatches)
 
     def train_step(params, opt_state, batch):
-        loss, metrics, grads = grads_of(params, batch)
-        lr_t = cosine_with_warmup(opt_state["step"], opt.lr, warmup, total_steps)
-        new_params, new_opt, opt_metrics = adamw_update(grads, opt_state, params, opt, lr_t)
+        with _spmd(params):
+            loss, metrics, grads = grads_of(params, batch)
+            lr_t = cosine_with_warmup(opt_state["step"], opt.lr, warmup, total_steps)
+            new_params, new_opt, opt_metrics = adamw_update(grads, opt_state, params, opt,
+                                                            lr_t)
+            # the layouts the step was given (the reference's out_shardings)
+            new_params = relayout(new_params, params)
+            new_opt = relayout(new_opt, opt_state)
         out = {"loss": loss, "lr": lr_t, **opt_metrics}
         out.update({k: v for k, v in metrics.items() if k != "loss"})
         return new_params, new_opt, out

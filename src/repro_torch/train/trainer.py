@@ -2,7 +2,8 @@
 
   * checkpoint / restart: periodic asynchronous atomic saves; on start,
     auto-resume from the latest commit, on the device the given state
-    lives on; the data function is a pure function of the step, so the
+    lives on, or with ``shardings`` as ``DTensor``s on any mesh (elastic
+    restore); the data function is a pure function of the step, so the
     stream continues exactly;
   * preemption drain: SIGTERM / SIGINT set a flag; the loop finishes the
     current step, writes a blocking checkpoint and returns (the handlers
@@ -111,24 +112,25 @@ class Trainer:
             pass  # not on the main thread
         return old
 
-    def run(self, params, opt_state, start_step: int = 0):
+    def run(self, params, opt_state, start_step: int = 0, shardings=None):
         """Returns (params, opt_state, history). Auto-resumes if checkpoints
-        exist (the restart-after-failure path)."""
+        exist (the restart-after-failure path); ``shardings`` (a tree of
+        ``Sharding`` records for ``{"params", "opt"}``) restores onto them."""
         old = self._install_signals()
         try:
-            return self._run(params, opt_state, start_step)
+            return self._run(params, opt_state, start_step, shardings)
         finally:
             for sig, h in old.items():
                 signal.signal(sig, h)
 
-    def _run(self, params, opt_state, start_step: int):
+    def _run(self, params, opt_state, start_step: int, shardings):
         tcfg = self.tcfg
         state = {"params": params, "opt": opt_state}
         latest = self.ckpt.latest_step()
         step = start_step
         if latest is not None and latest >= start_step:
             device = tree_flatten_with_paths(params)[0][1].device
-            state, step = self.ckpt.restore(state, device=device)
+            state, step = self.ckpt.restore(state, device=device, shardings=shardings)
             step += 1  # saved after completing `step`
         params, opt_state = state["params"], state["opt"]
 
@@ -137,7 +139,10 @@ class Trainer:
             t0 = time.time()
             batch = self.data_fn(step)
             params, opt_state, metrics = self.step_fn(params, opt_state, batch)
-            loss = float(metrics["loss"])   # waits for the step on the device
+            loss = metrics["loss"]
+            if hasattr(loss, "full_tensor"):   # a DTensor
+                loss = loss.full_tensor()
+            loss = float(loss)                 # waits for the step on the device
             dt = time.time() - t0
             self.step_times.append(dt)
             med = float(np.median(self.step_times[-20:]))

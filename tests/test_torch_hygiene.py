@@ -46,17 +46,24 @@ import repro_torch.core.qth_attention
 import repro_torch.core.temporal
 import repro_torch.core.throughput
 import repro_torch.data.pipeline
+import repro_torch.distributed.pipeline
 import repro_torch.kernels.ops
+import repro_torch.launch.mesh
+import repro_torch.launch.shardings
+import repro_torch.launch.specs
 import repro_torch.models.backend_delta
 import repro_torch.models.cnn
 import repro_torch.models.attention
 import repro_torch.models.blocks
 import repro_torch.models.layers
 import repro_torch.models.lm
+import repro_torch.models.moe_a2a
+import repro_torch.models.sharding_ctx
 import repro_torch.models.rglru
 import repro_torch.models.xlstm
 import repro_torch.models.vit
 import repro_torch.optim.adamw
+import repro_torch.optim.compression
 import repro_torch.train.trainer
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.examples import serve_lm, train_ip2_classifier, train_lm
@@ -87,6 +94,21 @@ def _imported_modules(path):
 def test_no_jax_or_reference_imports(path):
     bad = [m for m in _imported_modules(path)
            if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def _lower_layer_files():
+    base = ROOT / "src" / "repro_torch"
+    return sorted(p for d in ("models", "optim", "train", "checkpoint", "distributed")
+                  for p in (base / d).rglob("*.py"))
+
+
+@pytest.mark.parametrize("path", _lower_layer_files(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_lower_layers_never_import_the_launcher(path):
+    """The launcher builds on the model, optimiser and training code, never
+    the reverse: their layout primitives live in ``models.sharding_ctx``."""
+    bad = [m for m in _imported_modules(path) if m.startswith("repro_torch.launch")]
     assert not bad, f"{path.name} imports {bad}"
 
 
@@ -261,6 +283,17 @@ def test_entry_points_need_cuda_when_device_is_none(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         train_lm.main(["--smoke", "--steps", "1", "--batch", "2", "--seq", "8",
                        "--ckpt-dir", str(tmp_path / "lm")])
+    # the meshes: process-group meshes default to CUDA ranks, fleet meshes
+    # to the visible CUDA devices
+    for build in (lambda: repro_torch.launch.mesh.make_host_mesh(2, 2),
+                  lambda: repro_torch.launch.mesh.make_production_mesh(),
+                  lambda: repro_torch.launch.mesh.make_production_mesh(multi_pod=True),
+                  lambda: repro_torch.serve.fleet.make_fleet_meshes(2)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build()
+    mesh = repro_torch.launch.mesh.LocalMesh(["cuda:0"] * 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        repro_torch.serve.engine.SaccadeEngine(cfg, {}, capacity=2, mesh=mesh)
 
 
 def test_cpu_tensors_never_reach_the_cuda_build(monkeypatch):
