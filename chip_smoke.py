@@ -241,6 +241,24 @@ one CUDA device. Phases, any failure exits non-zero:
          ``make_fleet_meshes(2, devices=[card] * 4)``. k4: k1's ``DTensor``
          state saved, restored onto ``Replicate`` and ``Shard(0)``, and a
          CPU-saved checkpoint restored onto the mesh, bytes equal.
+  (l)    kernel 4 past its one-chunk code tile, then the dry run on fake
+         ranks (``fused_past_tile_phase``, ``dryrun_l2_phase``,
+         ``estimate_phase``). l1: ``ip2_fused_embed`` at M 2560 (int8 codes),
+         1280 (int16) and 640 (int32), just past each width's one-chunk code
+         tile, and M 5000 (int8, 3 chunks), on 64 slots x 16 of 64 patches of
+         32 x 32 pixels with ragged counts: bitwise the staged kernels
+         (``ip2_project`` -> ``quant_matmul``) and bitwise its plain version
+         on the rows whose codes agree, with its device time beside the staged
+         pair's; and phase a''s ``fused_sha256`` equal to ``FUSED_SHA256``,
+         the hashes the one-chunk kernel printed. l2: ``run_cell("llama3-8b",
+         "train_4k", "single")`` on 256 fake ranks with its roofline points
+         (its memory, microbatches, bottleneck and seconds printed). l3: the
+         dry run of smollm-135m at mesh (1, 1) (batch 8 x 512, bf16 compute,
+         remat "nothing", phase j2's setup) against one real step on the card:
+         its peak above the arguments within 10 % of ``max_memory_allocated``
+         above the bytes resident before the step, its flops equal to a
+         ``FlopCounterMode`` count of the real step. The launch counts are
+         reset before l2 and l3 and read after: the dry run reaches no kernel.
 
 Prints the kernel table as one JSON line, the card's name and power limit
 (nvidia-smi), and last ``{"ok": true, "device": {...}}``. With ``--out DIR``
@@ -252,6 +270,7 @@ import argparse
 import contextlib
 import ctypes
 import dataclasses
+import gc
 import hashlib
 import io
 import json
@@ -272,6 +291,25 @@ KERNELS = ("ip2_project_sparse", "ip2_ragged", "delta_attention", "ip2_fused_emb
 # bound on the share of codes a 1-LSB move may touch between a projection
 # kernel and the plain projection (fp32 sums on an ADC rounding boundary)
 LSB_MOVES = {10: 0.001, 16: 0.01}
+# ip2_fused_embed's output at the fixed inputs of phases a and a' (sha256),
+# as the one-chunk kernel printed them: a run must print the same
+FUSED_SHA256 = {
+    "serving": "3d1940558e359a7c8820cd6db9d074193914ea807d4dcae0a749c9244d009096",
+    "K1000_M100": "347a101e3b178b53da00e942efe59b251b74178a7ed66559aafaccc4af528349",
+    "K1000_M100_zero": "9b54dfbc92b4baf804aa3b0360cbc32e4d9ebe32c974c5131c52e3f375d3e25e",
+    "K1000_M100_full": "347a101e3b178b53da00e942efe59b251b74178a7ed66559aafaccc4af528349",
+    "K1000_M100_one_full": "6ba068f7c2d733291f8ddf7c8f11e82ac661f8a246e05dcbdc7f0b29d499ce77",
+    "K1000_M100_gated": "ef25fe4afd949f5e4b071c625f6995bd312b982a4b35612a70b1409ac64e3185",
+    "K1000_M100_clipped": "b9e13ab3948d80414452f6c8720150969cac894af7a8bdc7b09b03b395daaeb5",
+    "K250_M30": "23fefc9539ede8d5bcc9735cfbd2c8d7d35c95bba8edb2b9b74d84f5f6068c6e",
+    "K250_M30_zero": "9b54dfbc92b4baf804aa3b0360cbc32e4d9ebe32c974c5131c52e3f375d3e25e",
+    "K250_M30_full": "23fefc9539ede8d5bcc9735cfbd2c8d7d35c95bba8edb2b9b74d84f5f6068c6e",
+    "K250_M30_one_full": "52c358962e6b764662ec2315ef1c74cd0ef0f1b496823aea0472d351c2eee52e",
+    "K250_M30_gated": "d370b7c5e1daf4e1f4f99628461fcceb0d3e20eb9f469d1d63dc102969ef2707",
+    "K250_M30_clipped": "e7ba63f08fd6752d2637b179048befb89c98d768081566ffc01777e57feb2cfd",
+}
+# the dry run's peak above its arguments against the card's, phase l3
+ESTIMATE_PEAK_REL = 0.10
 # decode with a bf16 or int8 KV cache against the float32 forward, as a
 # share of the largest |logit|: the reference's own bound for its int8 cache
 LM_CACHE_REL_BOUND = 0.015
@@ -2464,6 +2502,166 @@ def distributed_phase(dev, out, params, cfg_s, cfg_g, ckpt_dir, backend="nccl", 
         dist.destroy_process_group()
 
 
+def fused_past_tile_phase(dev, out, n_slots=CAPACITY, n_patches=64, k=16, kk=1024, d=256,
+                          seed=24):
+    """Phase (l1): ``ip2_fused_embed`` where the bank's code tile does not
+    fit a block's shared memory in one chunk (M 2560 int8, 1280 int16, 640
+    int32: 2 chunks; M 5000 int8: 3), on ``n_slots`` x ``k`` of
+    ``n_patches`` patches of ``kk`` pixels, D ``d``, with ragged counts:
+    bitwise the staged kernels and bitwise its plain version on the rows
+    whose codes agree; device ms beside the staged pair's, the plain
+    version's ms and the bound of the live rows' work."""
+    import torch
+    from repro_torch.core import saliency as sal
+    from repro_torch.core.adc import ADCSpec
+    from repro_torch.core.projection import PatchSpec
+    from repro_torch.kernels import ops, ref
+
+    g = torch.Generator().manual_seed(seed)
+    x = torch.rand((n_slots, n_patches, kk), generator=g).to(dev)
+    idx = torch.stack([torch.randperm(n_patches, generator=g)[:k]
+                       for _ in range(n_slots)]).int().to(dev)
+    cnt = torch.tensor([(0, 5, k, 11)[i % 4] for i in range(n_slots)], dtype=torch.int32,
+                       device=dev)
+    live = torch.arange(k, device=dev)[None, :] < cnt[:, None]
+    gathered = sal.gather_patches(x, idx)
+    for bits, m in ((8, 2560), (16, 1280), (32, 640), (8, 5000)):
+        spec = PatchSpec(32, 32, n_vectors=m)
+        adc = ADCSpec(bits=bits)
+        w = (torch.randn((m, kk), generator=g) * 6.4).to(dev)
+        w8, s_w = ops.quantize_weights_int8((torch.randn((m, d), generator=g) * 0.1).to(dev))
+        n0 = ops.LAUNCHES["ip2_fused_embed"]
+        fused = ops.ip2_fused_embed(x, w, idx, spec, adc, w8, s_w, row_counts=cnt)
+        assert ops.LAUNCHES["ip2_fused_embed"] == n0 + 1, "ip2_fused_embed did not launch"
+        codes = ops.ip2_project(gathered, w, spec, adc=adc, codes=True)
+        staged = torch.where(live[..., None], ops.quant_matmul_pre(codes, adc.lsb, w8, s_w),
+                             torch.zeros((), device=dev))
+        assert torch.equal(fused.view(torch.int32), staged.view(torch.int32)), \
+            f"M {m}, {bits}-bit codes: ip2_fused_embed differs from the staged kernels"
+        w_t = ops._dac_weights(w, spec).T.contiguous()
+        table, cnt_c = ops._ragged_tables(idx, n_patches, cnt)
+        p_codes = ops.kernel_params_from_spec(spec, adc, codes=True)
+        flat = x.reshape(-1, kk)
+        plain = ref.ip2_fused_embed_ref(table, cnt_c, flat, w_t, w8, s_w, p_codes,
+                                        k).reshape(fused.shape)
+        plain_codes = ref.ip2_project_ref(flat[table.long()], w_t,
+                                          torch.zeros(m, device=dev), p_codes)
+        same = (plain_codes.reshape(codes.shape) == codes).all(-1)
+        assert torch.equal(fused[same].view(torch.int32), plain[same].view(torch.int32)), \
+            f"M {m}, {bits}-bit codes: ip2_fused_embed differs from its plain version"
+        zero = torch.zeros(m, device=dev)
+        s_a = torch.full((n_slots * k,), adc.lsb, dtype=torch.float32, device=dev)
+        flat_g = gathered.reshape(-1, kk).contiguous()
+        n_live = int(live.sum())
+        bound, bound_by = _bound(n_live * kk * 4 + kk * m * 4 + m * d + d * 4
+                                 + n_slots * k * d * 4, fp32_flops=2.0 * n_live * kk * m,
+                                 int8_ops=2.0 * n_live * m * d)
+        rec = {"bits": bits, "m": m, "rows": n_slots * k, "live_rows": n_live,
+               "rows_codes_agree": int(same.sum()), "bound_ms": bound, "bound_by": bound_by,
+               "plain_ms": _time_ms(lambda: ref.ip2_fused_embed_ref(
+                   table, cnt_c, flat, w_t, w8, s_w, p_codes, k), n=5, warm=1),
+               "device_ms": _device_ms(lambda: ops._fused_embed_cuda(
+                   table, cnt_c, flat, w_t, w8, s_w, adc.lsb, p_codes, k),
+                   kernel="ip2_fused_embed_kernel"),
+               "staged_device_ms": _device_ms(lambda: ops._quant_matmul_cuda(
+                   ops._ip2_project_cuda(flat_g, w_t, zero, p_codes), s_a, w8, s_w))}
+        out[f"M{m}_{bits}bit"] = rec
+        print(json.dumps({"l1_fused_past_tile": rec}))
+
+
+def dryrun_l2_phase(out, arch="llama3-8b", shape="train_4k", mesh="single"):
+    """Phase (l2): the dry run of one production cell on fake ranks (256
+    for the single pod), with its roofline points; the record's memory,
+    microbatches, bottleneck and seconds."""
+    from repro_torch.launch import dryrun
+
+    t0 = time.perf_counter()
+    rec = dryrun.run_cell(arch, shape, mesh)
+    rec["wall_s"] = time.perf_counter() - t0
+    out["record"] = rec
+    rl = rec["roofline"]
+    brief = {"cell": f"{arch}/{shape}/{mesh}", "chips": rec["chips"], "plan": rec["plan"],
+             "microbatches": rec["microbatches"], "memory": rec["memory"],
+             "microbatch_trail": rec["microbatch_trail"],
+             "full_collectives": rec["full_collectives"],
+             "bottleneck": rl["bottleneck"], "t_compute_s": rl["t_compute_s"],
+             "t_memory_s": rl["t_memory_s"], "t_collective_s": rl["t_collective_s"],
+             "useful_flops_ratio": rl["useful_flops_ratio"],
+             "lower_s": rec["lower_s"], "compile_s": rec["compile_s"], "wall_s": rec["wall_s"]}
+    print(json.dumps({"l2_dryrun": brief}))
+    assert rec["chips"] == 256 and rl["flops_per_chip"] > 0
+
+
+def estimate_phase(dev, out, cfg=None, batch=8, seq=512, seed=0):
+    """Phase (l3): the dry run's estimate of one training step against the
+    step on the card. smollm-135m (``cfg`` replaces it to rehearse on the
+    CPU) at batch x seq, bf16 compute on float32 masters, remat
+    ``"nothing"`` (phase j2's setup): ``lower_cell`` on a fake (1, 1) mesh,
+    then the same step on real tensors after a warm-up step. Held: the
+    estimate's peak above its arguments within ``ESTIMATE_PEAK_REL`` of
+    ``max_memory_allocated`` above what was resident before the step, and
+    its flops equal to ``FlopCounterMode``'s count of the real step."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.shardings import plan_for, train_plan_for
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.roofline.trace import fake_world
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = dataclasses.replace(cfg or get_config("smollm-135m"), remat=True,
+                              remat_policy="nothing")
+    shape = ShapeConfig("l3", seq, batch, "train")
+    with fake_world(1):
+        mesh = make_host_mesh(1, 1, device_type=dev.type)
+        plan = plan_for(cfg, mesh)
+        tr = dryrun.lower_cell(cfg, shape, mesh, plan)
+    tplan = train_plan_for(cfg)
+    opt = AdamWConfig(moment_dtype=getattr(torch, tplan.moment_dtype))
+    params = lm.init_params(torch.Generator().manual_seed(seed), cfg, plan,
+                            dtype=getattr(torch, tplan.param_dtype), device=dev)
+    ostate = init_opt_state(params, opt)
+    g = torch.Generator().manual_seed(seed + 1)
+    batch_in = {"tokens": torch.randint(0, cfg.vocab, (batch, seq), generator=g,
+                                        dtype=torch.int32).to(dev)}
+    step = make_train_step(cfg, plan, opt)
+    warm = step(params, ostate, batch_in)       # workspaces and allocator warm-up
+    del warm
+    # no garbage of earlier phases may be collected inside the measured step
+    # (it would lower the allocated bytes the peak is read against)
+    gc.collect()
+    gc.disable()
+    try:
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        new = step(params, ostate, batch_in)
+        torch.cuda.synchronize()
+        card_peak = torch.cuda.max_memory_allocated() - resident
+        card_kept = torch.cuda.memory_allocated() - resident
+    finally:
+        gc.enable()
+    del new
+    with FlopCounterMode(display=False) as fc:
+        new = step(params, ostate, batch_in)
+    del new
+    est_peak = tr.peak_bytes - tr.argument_bytes
+    rec = {"cfg": cfg.name, "batch": batch, "seq": seq, "resident_bytes": resident,
+           "argument_bytes": tr.argument_bytes, "output_bytes": tr.output_bytes,
+           "estimate_peak_above_arguments": est_peak, "card_peak_above_resident": card_peak,
+           "card_kept_after_step": card_kept,
+           "peak_rel_err": est_peak / card_peak - 1.0, "estimate_flops": tr.flops,
+           "card_flops": fc.get_total_flops(), "estimate_step_s": tr.step_s}
+    out.update(rec)
+    print(json.dumps({"l3_estimate_vs_card": rec}))
+    assert abs(rec["peak_rel_err"]) <= ESTIMATE_PEAK_REL, rec
+    assert rec["estimate_flops"] == rec["card_flops"], rec
+
+
 def _index(x, i):
     """Leaf ``i`` of a stacked (L, ...) tree node: a tensor or a dict of them."""
     if isinstance(x, dict):
@@ -3819,6 +4017,30 @@ def main():
             shutil.rmtree(ckpt_dir, ignore_errors=True)
         for name, c in launched.items():
             kernels.setdefault(name, {})["sharded_launches"] = c
+
+    # ---- (l) kernel 4 past its one-chunk code tile; the dry run on fake ranks
+    @phase("l1_fused_past_tile")
+    def _l1():
+        out = report["l1_fused_past_tile"] = {}
+        fused_past_tile_phase(dev, out)
+        if FUSED_SHA256 is not None:
+            moved = sorted(k for k in set(hashes) | set(FUSED_SHA256)
+                           if hashes.get(k) != FUSED_SHA256.get(k))
+            assert not moved, f"fused_sha256 differs from the one-chunk kernel's at {moved}"
+
+    @phase("l2_dryrun")
+    def _l2():
+        out = report["l2_dryrun"] = {}
+        ops.reset_launches()
+        dryrun_l2_phase(out)
+        assert not any(ops.LAUNCHES.values()), f"the dry run launched {ops.LAUNCHES}"
+
+    @phase("l3_estimate")
+    def _l3():
+        out = report["l3_estimate"] = {}
+        ops.reset_launches()
+        estimate_phase(dev, out)
+        assert not any(ops.LAUNCHES.values()), f"the step launched {ops.LAUNCHES}"
 
     lost = [k for k in PREROLL_LOST if k is not None]
     report["profiler_preroll_lost"] = {"windows": len(PREROLL_LOST), "max": max(lost, default=None),

@@ -35,6 +35,16 @@
 //   writes their ADC codes into its own copy of the bank's code tile in
 //   shared memory (zero for dead rows and columns past M), laid out as
 //   int8 A stages of 64 k (one plane per code byte: 1, 2 or 4).
+// - M in chunks: where the whole bank's code tile does not fit one block's
+//   shared memory (M > 2496 for int8 codes, 1216 for int16, 576 for int32),
+//   the kernel walks M in equal chunks of whole 64-k stages that fit, each
+//   projected, exchanged and embedded in turn. Between chunks each block
+//   keeps its tiles' raw int32 sums in out (the same element it stores at
+//   the end, written and read back by the same thread) and adds the next
+//   chunk's sums to them; the last chunk stores lsb * s_w once. Sums modulo
+//   2^32 do not depend on the order, so every M gives the staged pair's
+//   bits. Up to those M there is one chunk and the path is the one-chunk
+//   kernel's.
 //   At the serving shape that is 16 clusters of 6 blocks, placed one block
 //   per SM on 96 SMs. (With 48-row banks, ip2_project's tile, 22 clusters
 //   of 6 would fill 132 SMs, but the card fits only 20 such clusters at one
@@ -82,10 +92,8 @@ static_assert(qmm::kBK % T::BM == 0 && T::BM % 16 == 0,
 constexpr int kSliceChunks = T::BM / 16;
 
 // Dynamic shared memory: the projection ring (later the k halves' partial
-// sums), the w8 ring, and the bank's code tile (np planes of ceil(M / 64)
-// A stages of 16 kRG rows x 64 k). That tile bounds M: the whole bank's
-// codes must fit one block's shared memory (M <= 2496 for int8 codes, 1216
-// for int16, 576 for int32).
+// sums), the w8 ring, and the code tile of one chunk of the bank's columns
+// (np planes of ceil(chunk / 64) A stages of 16 kRG rows x 64 k).
 constexpr int kProjBytes = T::SMEM_FLOATS * 4;
 constexpr int kWRingBytes = kNW * qmm::kWStage;
 constexpr int kXchBytes = 2 * kRG * 16 * 32 * 4;  // 2 warps, 16 kRG sums, 32 lanes
@@ -97,6 +105,17 @@ __host__ __device__ __forceinline__ int plane_bytes(int M) {
 
 __host__ __forceinline__ size_t smem_bytes(int M, int np) {
   return (size_t)kProjBytes + kWRingBytes + np * (size_t)plane_bytes(M);
+}
+
+// Columns of codes a chunk: M when the bank's whole code tile fits one
+// block's shared memory, else the fewest equal chunks of whole 64-k stages
+// that fit.
+__host__ __forceinline__ int chunk_cols(int M, int np) {
+  if (smem_bytes(M, np) <= kMaxSmem) return M;
+  const int fit = (int)((kMaxSmem - kProjBytes - kWRingBytes) / (np * (size_t)kCodeBlock)) *
+                  qmm::kBK;
+  const int n = (M + fit - 1) / fit;
+  return ((M + n - 1) / n + qmm::kBK - 1) / qmm::kBK * qmm::kBK;
 }
 
 __host__ __forceinline__ int cluster_size(int M) {
@@ -125,13 +144,39 @@ struct Args {
   float s_a;
   int D;
   float* out;
+  int mc;        // columns of codes a chunk (M: one chunk)
   int cs;        // blocks per cluster
   bool vec_out;  // D % 4 == 0 and out 16-byte aligned: float4 stores
 };
 
+// One warp's raw int32 sums between chunks of M, kept in out at the
+// elements store_warp writes at the end (acc[j][2h + e] is row g + 8h,
+// column c + 4e + j; rows with o[h] null and columns past N are never
+// stored, so they are not kept). LOAD adds the kept sums to acc, else acc
+// is kept.
+template <bool LOAD>
+__device__ __forceinline__ void carry_warp(unsigned (&acc)[4][4], float* const (&o)[2], int c,
+                                           int N) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (o[h] == nullptr) continue;
+    unsigned* u = reinterpret_cast<unsigned*>(o[h]);
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (c + 4 * e + j < N) {
+          if constexpr (LOAD) acc[j][2 * h + e] += u[4 * e + j];
+          else u[4 * e + j] = acc[j][2 * h + e];
+        }
+  }
+}
+
 // VEC: the projection's copy width (ip2::vec4_ok); VW: the w8 copy width;
-// NP: the code planes (1 for int8 codes, 2 for int16, 4 for int32).
-template <int VEC, int VW, int NP>
+// NP: the code planes (1 for int8 codes, 2 for int16, 4 for int32); CH: M
+// in chunks (else one chunk of all of M, with no chunk bookkeeping in the
+// code).
+template <int VEC, int VW, int NP, bool CH>
 __global__ void __launch_bounds__(T::NT, 1)
 ip2_fused_embed_kernel(const Args p, const ip2::Epilogue e) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -139,7 +184,8 @@ ip2_fused_embed_kernel(const Args p, const ip2::Epilogue e) {
   float* ring = reinterpret_cast<float*>(smem);
   int8_t* wring = reinterpret_cast<int8_t*>(smem + kProjBytes);
   int8_t* codes = reinterpret_cast<int8_t*>(smem + kProjBytes + kWRingBytes);
-  const int plane = plane_bytes(p.M);
+  const int mc = CH ? p.mc : p.M;  // columns a chunk
+  const int plane = plane_bytes(mc);
   const int rank = blockIdx.x % p.cs;
   const long long R = (long long)p.S * p.k;
   const long long r0 = (long long)(blockIdx.x / p.cs) * kBankRows;
@@ -162,132 +208,149 @@ ip2_fused_embed_kernel(const Args p, const ip2::Epilogue e) {
       p.out[r0 * p.D + i] = 0.0f;
     return;
   }
-  cluster_arrive_relaxed();
-
-  // the first embed tile's w8 stages land while the projection runs
   const int n_tiles = (p.D + kTileN - 1) / kTileN;
-  const int nkw = (p.M + qmm::kBK - 1) / qmm::kBK;
-  auto load_w_prologue = [&](int n0) {
-#pragma unroll
-    for (int st = 0; st < kNW - 1; ++st) {
-      if (st < nkw)
-        qmm::load_w<VW>(wring + st * qmm::kWStage, p.w8, p.M, p.D, st * qmm::kBK, n0);
-      qmm::commit();
-    }
-  };
-  if (rank < n_tiles) load_w_prologue(rank * kTileN);
-
-  // the projection of slices rank, rank + cs, ... into the local code tile
-  const int n_slices = (p.M + T::BM - 1) / T::BM;
-  const int tr = tid / T::TC, tc = tid % T::TC;
-  for (int sl = rank; sl < n_slices; sl += p.cs) {
-    const int m = sl * T::BM + tc * T::TM;  // this thread's 4 columns
-    float acc[T::TR][T::TM];
-    ip2::project_tile_pipelined<T, VEC>(p.patches, rows, p.w, p.K, p.M, sl * T::BM, e,
-                                        ring, acc);
-#pragma unroll
-    for (int i = 0; i < T::TR; ++i) {
-      const int r = tr * T::TR + i;
-      unsigned pb[NP] = {};  // plane q holds byte NP - 1 - q of each code
-#pragma unroll
-      for (int j = 0; j < T::TM; ++j) {
-        const int c = rows[r] >= 0 && m + j < p.M
-                          ? __float2int_rn(ip2::adc_code(ip2::analog_out(acc[i][j], e), e))
-                          : 0;
-#pragma unroll
-        for (int q = 0; q < NP; ++q)
-          pb[q] |= ((static_cast<unsigned>(c) >> (8 * (NP - 1 - q))) & 0xFF) << (8 * j);
-      }
-      const int o = (m / qmm::kBK) * kCodeBlock + qmm::swz_a(r * qmm::kBK + m % qmm::kBK);
-#pragma unroll
-      for (int q = 0; q < NP; ++q) *reinterpret_cast<unsigned*>(codes + q * plane + o) = pb[q];
-    }
-    __syncthreads();  // the codes are written; the ring is free for the next slice
-  }
-
-  // every block of the cluster has started: hand this block's slices to
-  // the others (a slice's columns are whole 16-byte chunks of each swizzled
-  // 64-byte row)
-  cluster_wait();
-  cg::cluster_group cluster = cg::this_cluster();
-  constexpr int kChunks = NP * kBankRows * kSliceChunks;  // per slice
-  for (int sl = rank; sl < n_slices; sl += p.cs) {
-    for (int t = tid; t < kChunks; t += T::NT) {
-      const int pl = t / (kSliceChunks * kBankRows), r = t / kSliceChunks % kBankRows;
-      const int m = sl * T::BM + t % kSliceChunks * 16;
-      int4* src = reinterpret_cast<int4*>(codes + pl * plane + (m / qmm::kBK) * kCodeBlock +
-                                          qmm::swz_a(r * qmm::kBK + m % qmm::kBK));
-      const int4 v = *src;
-      for (int q = 0; q < p.cs; ++q)
-        if (q != rank) *cluster.map_shared_rank(src, q) = v;
-    }
-  }
-  cluster_arrive();
-  cluster_wait();  // the whole bank's codes are in every block of the cluster
-
-  // the embed: tiles rank, rank + cs, ... of the bank's rows x 64 columns
   unsigned* xch = reinterpret_cast<unsigned*>(smem);  // over the projection ring
   const int wc = (warp & 1) * 32, kk = (warp >> 1) * 32;
   const int g = lane >> 2, t4 = lane & 3;
-  for (int tile = rank; tile < n_tiles; tile += p.cs) {
-    const int n0 = tile * kTileN;
-    if (tile != rank) {
-      __syncthreads();  // the last tile's ring stages and partial sums are consumed
-      load_w_prologue(n0);
+  const int tr = tid / T::TC, tc = tid % T::TC;
+  cg::cluster_group cluster = cg::this_cluster();
+  constexpr int kChunks = NP * kBankRows * kSliceChunks;  // per slice
+  int m0 = 0;
+  do {  // once at M 0 too: the bank's rows are stored as 0
+    const int mw = CH ? min(mc, p.M - m0) : p.M;  // this chunk's columns
+    const bool first = !CH || m0 == 0, last = !CH || m0 + mc >= p.M;
+    if (first) {
+      cluster_arrive_relaxed();
+    } else {
+      __syncthreads();  // the last chunk's ring, partial sums and code tile are consumed
+      cluster_arrive();  // ... and the others may write into this block's code tile
     }
-    unsigned acc[kRG][4][4] = {};
-    for (int s = 0; s < nkw; ++s) {
-      qmm::wait<kNW - 2>();  // this thread's copies of stage s have landed
-      __syncthreads();       // everyone's have, and stage s - 1 is consumed
-      const int nx = s + kNW - 1;
-      if (nx < nkw)
-        qmm::load_w<VW>(wring + (nx % kNW) * qmm::kWStage, p.w8, p.M, p.D, nx * qmm::kBK, n0);
-      qmm::commit();
-      unsigned lo[4], hi[4];
-      qmm::load_b_frag(wring + (s % kNW) * qmm::kWStage, wc, kk, lo, hi);
-      const int8_t* ah = codes + s * kCodeBlock;
+
+    // the first embed tile's w8 stages land while the projection runs
+    const int nkw = (mw + qmm::kBK - 1) / qmm::kBK;
+    auto load_w_prologue = [&](int n0) {
 #pragma unroll
-      for (int rg = 0; rg < kRG; ++rg)
-        qmm::mma_k32<NP>(ah, plane, rg * 16, kk, lo, hi, acc[rg]);
-    }
-    // the k halves: warps 2 and 3 hand their sums to warps 0 and 1
-    unsigned* x = xch + (warp & 1) * kRG * 16 * 32 + lane;
-    if (warp >= 2) {
+      for (int st = 0; st < kNW - 1; ++st) {
+        if (st < nkw)
+          qmm::load_w<VW>(wring + st * qmm::kWStage, p.w8, p.M, p.D, m0 + st * qmm::kBK, n0);
+        qmm::commit();
+      }
+    };
+    if (rank < n_tiles) load_w_prologue(rank * kTileN);
+
+    // the projection of the chunk's slices rank, rank + cs, ... into the
+    // local code tile
+    const int sl0 = m0 / T::BM, sl1 = (m0 + mw + T::BM - 1) / T::BM;
+    for (int sl = sl0 + rank; sl < sl1; sl += p.cs) {
+      const int m = sl * T::BM + tc * T::TM;  // this thread's 4 columns
+      float acc[T::TR][T::TM];
+      ip2::project_tile_pipelined<T, VEC>(p.patches, rows, p.w, p.K, p.M, sl * T::BM, e,
+                                          ring, acc);
 #pragma unroll
-      for (int rg = 0; rg < kRG; ++rg)
+      for (int i = 0; i < T::TR; ++i) {
+        const int r = tr * T::TR + i;
+        unsigned pb[NP] = {};  // plane q holds byte NP - 1 - q of each code
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
+        for (int j = 0; j < T::TM; ++j) {
+          const int c = rows[r] >= 0 && m + j < p.M
+                            ? __float2int_rn(ip2::adc_code(ip2::analog_out(acc[i][j], e), e))
+                            : 0;
 #pragma unroll
-          for (int i = 0; i < 4; ++i) x[((rg * 4 + j) * 4 + i) * 32] = acc[rg][j][i];
-    }
-    __syncthreads();
-    if (warp < 2) {
-      const int c = n0 + wc + 8 * t4;
-#pragma unroll
-      for (int rg = 0; rg < kRG; ++rg) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[rg][j][i] += x[((rg * 4 + j) * 4 + i) * 32];
-        float* o[2];
-        bool alive[2];
-        const float sa[2] = {p.s_a, p.s_a};
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int r = rg * 16 + g + 8 * h;
-          o[h] = r < kBankRows && r0 + r < R ? p.out + (r0 + r) * p.D + c : nullptr;
-          alive[h] = r < kBankRows && rows[r] >= 0;
+          for (int q = 0; q < NP; ++q)
+            pb[q] |= ((static_cast<unsigned>(c) >> (8 * (NP - 1 - q))) & 0xFF) << (8 * j);
         }
-        qmm::store_warp(acc[rg], o, sa, alive, p.s_w, c, p.D, p.vec_out);
+        const int o =
+            ((m - m0) / qmm::kBK) * kCodeBlock + qmm::swz_a(r * qmm::kBK + m % qmm::kBK);
+#pragma unroll
+        for (int q = 0; q < NP; ++q) *reinterpret_cast<unsigned*>(codes + q * plane + o) = pb[q];
+      }
+      __syncthreads();  // the codes are written; the ring is free for the next slice
+    }
+
+    // every block of the cluster has started (and is done with its code
+    // tile's last chunk): hand this block's slices to the others (a slice's
+    // columns are whole 16-byte chunks of each swizzled 64-byte row)
+    cluster_wait();
+    for (int sl = sl0 + rank; sl < sl1; sl += p.cs) {
+      for (int t = tid; t < kChunks; t += T::NT) {
+        const int pl = t / (kSliceChunks * kBankRows), r = t / kSliceChunks % kBankRows;
+        const int m = sl * T::BM + t % kSliceChunks * 16;
+        int4* src =
+            reinterpret_cast<int4*>(codes + pl * plane + ((m - m0) / qmm::kBK) * kCodeBlock +
+                                    qmm::swz_a(r * qmm::kBK + m % qmm::kBK));
+        const int4 v = *src;
+        for (int q = 0; q < p.cs; ++q)
+          if (q != rank) *cluster.map_shared_rank(src, q) = v;
       }
     }
-  }
+    cluster_arrive();
+    cluster_wait();  // the whole chunk's codes are in every block of the cluster
+
+    // the embed: tiles rank, rank + cs, ... of the bank's rows x 64 columns
+    for (int tile = rank; tile < n_tiles; tile += p.cs) {
+      const int n0 = tile * kTileN;
+      if (tile != rank) {
+        __syncthreads();  // the last tile's ring stages and partial sums are consumed
+        load_w_prologue(n0);
+      }
+      unsigned acc[kRG][4][4] = {};
+      for (int s = 0; s < nkw; ++s) {
+        qmm::wait<kNW - 2>();  // this thread's copies of stage s have landed
+        __syncthreads();       // everyone's have, and stage s - 1 is consumed
+        const int nx = s + kNW - 1;
+        if (nx < nkw)
+          qmm::load_w<VW>(wring + (nx % kNW) * qmm::kWStage, p.w8, p.M, p.D,
+                          m0 + nx * qmm::kBK, n0);
+        qmm::commit();
+        unsigned lo[4], hi[4];
+        qmm::load_b_frag(wring + (s % kNW) * qmm::kWStage, wc, kk, lo, hi);
+        const int8_t* ah = codes + s * kCodeBlock;
+#pragma unroll
+        for (int rg = 0; rg < kRG; ++rg)
+          qmm::mma_k32<NP>(ah, plane, rg * 16, kk, lo, hi, acc[rg]);
+      }
+      // the k halves: warps 2 and 3 hand their sums to warps 0 and 1
+      unsigned* x = xch + (warp & 1) * kRG * 16 * 32 + lane;
+      if (warp >= 2) {
+#pragma unroll
+        for (int rg = 0; rg < kRG; ++rg)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) x[((rg * 4 + j) * 4 + i) * 32] = acc[rg][j][i];
+      }
+      __syncthreads();
+      if (warp < 2) {
+        const int c = n0 + wc + 8 * t4;
+#pragma unroll
+        for (int rg = 0; rg < kRG; ++rg) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) acc[rg][j][i] += x[((rg * 4 + j) * 4 + i) * 32];
+          float* o[2];
+          bool alive[2];
+          const float sa[2] = {p.s_a, p.s_a};
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = rg * 16 + g + 8 * h;
+            o[h] = r < kBankRows && r0 + r < R ? p.out + (r0 + r) * p.D + c : nullptr;
+            alive[h] = r < kBankRows && rows[r] >= 0;
+          }
+          if (!first) carry_warp<true>(acc[rg], o, c, p.D);
+          if (last) qmm::store_warp(acc[rg], o, sa, alive, p.s_w, c, p.D, p.vec_out);
+          else carry_warp<false>(acc[rg], o, c, p.D);
+        }
+      }
+    }
+    m0 += mc;
+  } while (CH && m0 < p.M);
 }
 
-template <int VEC, int VW, int NP>
+template <int VEC, int VW, int NP, bool CH>
 cudaError_t launch(const Args& a, const ip2::Epilogue& e, size_t smem, long long n_banks,
                    cudaStream_t stream) {
-  const auto kernel = ip2_fused_embed_kernel<VEC, VW, NP>;
+  const auto kernel = ip2_fused_embed_kernel<VEC, VW, NP, CH>;
   if (smem > 48 * 1024) {
     const cudaError_t rc =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -308,19 +371,28 @@ cudaError_t launch(const Args& a, const ip2::Epilogue& e, size_t smem, long long
   return cudaLaunchKernelEx(&cfg, kernel, a, e);
 }
 
-template <int VEC, int NP>
+// the chunked kernel takes 16-byte or byte-wise w8 copies only (fewer
+// instantiations to build)
+template <int VEC, int NP, bool CH>
 cudaError_t launch_w(int vw, const Args& a, const ip2::Epilogue& e, size_t smem,
                      long long n_banks, cudaStream_t stream) {
-  if (vw == 16) return launch<VEC, 16, NP>(a, e, smem, n_banks, stream);
-  if (vw == 4) return launch<VEC, 4, NP>(a, e, smem, n_banks, stream);
-  return launch<VEC, 1, NP>(a, e, smem, n_banks, stream);
+  if (vw == 16) return launch<VEC, 16, NP, CH>(a, e, smem, n_banks, stream);
+  if (vw == 4 && !CH) return launch<VEC, 4, NP, CH>(a, e, smem, n_banks, stream);
+  return launch<VEC, 1, NP, CH>(a, e, smem, n_banks, stream);
+}
+
+template <int NP, bool CH>
+cudaError_t launch_v(bool vec, int vw, const Args& a, const ip2::Epilogue& e, size_t smem,
+                     long long n_banks, cudaStream_t stream) {
+  return vec ? launch_w<4, NP, CH>(vw, a, e, smem, n_banks, stream)
+             : launch_w<1, NP, CH>(vw, a, e, smem, n_banks, stream);
 }
 
 template <int NP>
-cudaError_t launch_v(bool vec, int vw, const Args& a, const ip2::Epilogue& e, size_t smem,
-                     long long n_banks, cudaStream_t stream) {
-  return vec ? launch_w<4, NP>(vw, a, e, smem, n_banks, stream)
-             : launch_w<1, NP>(vw, a, e, smem, n_banks, stream);
+cudaError_t launch_c(bool chunked, bool vec, int vw, const Args& a, const ip2::Epilogue& e,
+                     size_t smem, long long n_banks, cudaStream_t stream) {
+  return chunked ? launch_v<NP, true>(vec, vw, a, e, smem, n_banks, stream)
+                 : launch_v<NP, false>(vec, vw, a, e, smem, n_banks, stream);
 }
 
 // 1 for int8 codes, 2 for int16, 4 for int32, 0 for an ADC wider than 32 bits
@@ -337,8 +409,9 @@ __host__ int code_bytes(const ip2::Epilogue& e) {
 // i32, w (K, M) f32 on the DAC grid, w8 (M, D) int8, s_w (D,) f32, s_a the
 // ADC LSB -> out (S * k, D) f32. The epilogue must be in code mode; the
 // code width (int8 up to 8 bits, int16 up to 16, int32 up to 32) follows
-// its ADC. Returns cudaGetLastError(), or cudaErrorInvalidValue for an ADC
-// wider than 32 bits or a code tile beyond a block's shared memory.
+// its ADC; M may be any size (in chunks past the code tile's room).
+// Returns cudaGetLastError(), or cudaErrorInvalidValue for an ADC wider
+// than 32 bits.
 extern "C" int ip2_fused_embed_launch(const float* patches, const int* table,
                                       const int* counts, int S, int k, int K,
                                       const float* w, int M, const int8_t* w8,
@@ -348,19 +421,20 @@ extern "C" int ip2_fused_embed_launch(const float* patches, const int* table,
   const int cb = code_bytes(*e);
   if (e->mode != ip2::kCodes || cb == 0) return (int)cudaErrorInvalidValue;
   if (S < 0 || k < 0 || K < 0 || M < 0 || D < 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(M, cb);
-  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  const int mc = chunk_cols(M, cb);
+  const size_t smem = smem_bytes(mc, cb);
   const long long R = (long long)S * k;
   if (R == 0 || D == 0) return (int)cudaGetLastError();
-  const Args a{patches, table, counts, S, k, K, w, M, w8, s_w, s_a, D, out,
+  const Args a{patches, table, counts, S, k, K, w, M, w8, s_w, s_a, D, out, mc,
                cluster_size(M), D % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0};
   const long long n_banks = (R + kBankRows - 1) / kBankRows;
   const int vw = qmm::copy_bytes(w8, D);
   const cudaStream_t st = (cudaStream_t)stream;
   const bool vec = ip2::vec4_ok(patches, w, K, M);
-  const cudaError_t rc = cb == 4   ? launch_v<4>(vec, vw, a, *e, smem, n_banks, st)
-                        : cb == 2 ? launch_v<2>(vec, vw, a, *e, smem, n_banks, st)
-                                  : launch_v<1>(vec, vw, a, *e, smem, n_banks, st);
+  const bool ch = mc < M;
+  const cudaError_t rc = cb == 4   ? launch_c<4>(ch, vec, vw, a, *e, smem, n_banks, st)
+                        : cb == 2 ? launch_c<2>(ch, vec, vw, a, *e, smem, n_banks, st)
+                                  : launch_c<1>(ch, vec, vw, a, *e, smem, n_banks, st);
   const cudaError_t last = cudaGetLastError();
   return (int)(rc != cudaSuccess ? rc : last);
 }
@@ -372,10 +446,15 @@ extern "C" int ip2_fused_embed_launch(const float* patches, const int* table,
 extern "C" int ip2_fused_embed_occupancy(int M, int code_bytes_, int* out) {
   if ((code_bytes_ != 1 && code_bytes_ != 2 && code_bytes_ != 4) || M < 0)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(M, code_bytes_);
-  const auto kernel = code_bytes_ == 4   ? ip2_fused_embed_kernel<4, 16, 4>
-                      : code_bytes_ == 2 ? ip2_fused_embed_kernel<4, 16, 2>
-                                         : ip2_fused_embed_kernel<4, 16, 1>;
+  const int mc = chunk_cols(M, code_bytes_);
+  const size_t smem = smem_bytes(mc, code_bytes_);
+  const bool ch = mc < M;
+  const auto kernel = code_bytes_ == 4 ? (ch ? ip2_fused_embed_kernel<4, 16, 4, true>
+                                             : ip2_fused_embed_kernel<4, 16, 4, false>)
+                      : code_bytes_ == 2 ? (ch ? ip2_fused_embed_kernel<4, 16, 2, true>
+                                               : ip2_fused_embed_kernel<4, 16, 2, false>)
+                                         : (ch ? ip2_fused_embed_kernel<4, 16, 1, true>
+                                               : ip2_fused_embed_kernel<4, 16, 1, false>);
   cudaError_t rc = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                         (int)smem);
   if (rc != cudaSuccess) return (int)rc;

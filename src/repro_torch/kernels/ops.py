@@ -302,9 +302,10 @@ def _fused_embed_cuda(table, counts, patches, w_t, w8, s_w, s_a: float,
     """``table`` rows must lie in the patch grid (``ip2_fused_embed``
     clamps them; checking here would cost a device sync per call). Codes of
     up to 8 bits run as int8, of 9 to 16 bits as int16 and of 17 to 32 bits
-    as int32; the embed sums wrap modulo 2^32 as the reference's do. M is
-    bounded by the bank's code tile in shared memory (the launch raises
-    past it, naming the shape)."""
+    as int32; the embed sums wrap modulo 2^32 as the reference's do. Any M
+    is taken: past the room of a block's shared memory for the bank's code
+    tile the kernel walks M in chunks (an ADC wider than 32 bits raises,
+    naming the shape)."""
     n_rows, kk = patches.shape
     m = w_t.shape[1]
     d = w8.shape[1]

@@ -21,13 +21,16 @@ of ``roofline.analysis``.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.models.sharding_ctx import axis_names, axis_size
 from repro_torch.roofline.analysis import HBM_BW, HBM_BYTES, NVLINK_BW, PEAK_FLOPS_BF16
 
-__all__ = ["HBM_BW", "HBM_BYTES", "NVLINK_BW", "PEAK_FLOPS_BF16", "LocalMesh", "axis_names",
-           "axis_size", "make_host_mesh", "make_production_mesh"]
+__all__ = ["HBM_BW", "HBM_BYTES", "NVLINK_BW", "PEAK_FLOPS_BF16", "PRODUCTION_MESHES",
+           "LocalMesh", "axis_names", "axis_size", "make_host_mesh", "make_production_mesh",
+           "production_ranks"]
 
 
 class LocalMesh:
@@ -54,11 +57,20 @@ def _device_mesh(shape, axes, device_type: str):
     return init_device_mesh(device_type, tuple(shape), mesh_dim_names=tuple(axes))
 
 
+# multi_pod -> (shape, axis names) of the production mesh
+PRODUCTION_MESHES = {False: ((16, 16), ("data", "model")),
+                     True: ((2, 16, 16), ("pod", "data", "model"))}
+
+
+def production_ranks(*, multi_pod: bool = False) -> int:
+    """Ranks (one a device) of the production mesh."""
+    return math.prod(PRODUCTION_MESHES[multi_pod][0])
+
+
 def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cuda"):
     """(16, 16) ("data", "model"), or (2, 16, 16) with "pod" in front: one
     rank per device, so the process group must hold 256 / 512 ranks."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    shape, axes = PRODUCTION_MESHES[multi_pod]
     return _device_mesh(shape, axes, device_type)
 
 

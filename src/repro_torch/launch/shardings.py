@@ -21,6 +21,8 @@ from __future__ import annotations
 
 import dataclasses
 
+import torch
+
 from repro_torch.configs.base import ModelConfig
 from repro_torch.convert import tree_map
 from repro_torch.models.layers import ParallelPlan
@@ -98,15 +100,27 @@ def shard_tree(tree, shardings):
 # Activation constrainer (installed around a step by the launcher)
 # ---------------------------------------------------------------------------
 
+def dtensor_flattens_two_sharded_dims() -> bool:
+    """Whether this torch's ``DTensor`` can view (B, S, ...) as (B·S, ...)
+    with B and S sharded over two mesh axes, as every (B, S, D) @ (D, F)
+    product does: torch 2.13 can (a strided shard); torch 2.11 raises
+    ("Attempted to flatten multiple dimensions")."""
+    major, minor = (int(x) for x in torch.__version__.split(".")[:2])
+    return (major, minor) >= (2, 13)
+
+
 def make_constrainer(mesh, plan: ParallelPlan, seq_shard: bool = True):
     """Logical name -> ``DTensor.redistribute`` on this mesh.
 
     act:    (B, S, D)  B over dp, S over tp (sequence parallelism)
     logits: (B, S, V)  V over tp
     moe_buf:(E, C, D)  E over tp, C over dp
-    A plain tensor passes through unchanged."""
+    A plain tensor passes through unchanged. Where ``DTensor`` cannot
+    flatten two sharded dims (torch before 2.13), S stays whole: no
+    sequence parallelism."""
     from torch.distributed.tensor import DTensor
 
+    seq_shard = seq_shard and dtensor_flattens_two_sharded_dims()
     dp = plan.dp_axes
     tp = plan.tp_axis
     table = {

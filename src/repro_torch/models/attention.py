@@ -17,7 +17,7 @@ from repro_torch._arith import div
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import DEFAULT_PLAN, ParallelPlan, apply_rope, dense_init, inv_sqrt
-from repro_torch.models.sharding_ctx import P
+from repro_torch.models.sharding_ctx import P, local_shards
 
 NEG_INF = -1e30
 
@@ -159,8 +159,10 @@ def attention_forward(p: dict, x: torch.Tensor, cfg: ModelConfig, positions: tor
         if kv_override is None:
             k = apply_rope(k, positions, cfg.rope_theta)
     hq = q.shape[2]
-    out = _flash_attend(q, _expand_kv(k, hq), _expand_kv(v, hq), causal=causal,
-                        window=window, chunk=chunk)
+    # per (batch, head): DTensors sharded on those dims attend on their shards
+    out = local_shards(lambda q_, k_, v_: _flash_attend(q_, k_, v_, causal=causal,
+                                                        window=window, chunk=chunk),
+                       (0, 2), q, _expand_kv(k, hq), _expand_kv(v, hq))
     out = _unproject(out, p["wo"])
     return out, (k, v)
 

@@ -33,7 +33,7 @@ import torch
 from repro_torch._arith import div
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.convert import tree_map, tree_to
+from repro_torch.convert import tree_flatten_with_paths, tree_map, tree_to, tree_unflatten
 from repro_torch.models import blocks as blk
 from repro_torch.models.attention import attention_forward, init_attention, spec_attention
 from repro_torch.models.layers import DEFAULT_PLAN, ParallelPlan, dense_init, embed_init, rms_norm
@@ -58,6 +58,15 @@ def _stack(trees: list):
 
 def _layer(tree, i: int):
     return tree_map(lambda a: a[i], tree)
+
+
+def _split_layers(tree, n: int) -> list:
+    """The ``n`` layers of a stacked tree, each leaf unbound once: the
+    backward stacks the layers' gradients once, where a per-layer ``a[i]``
+    makes each layer's backward write a zero-filled copy of the whole stack
+    (bytes quadratic in the depth). The same values."""
+    flat = [torch.unbind(x) for _, x in tree_flatten_with_paths(tree)]
+    return [tree_unflatten(tree, [x[i] for x in flat]) for i in range(n)]
 
 
 # ---------------------------------------------------------------------------
@@ -137,10 +146,29 @@ def param_specs(cfg: ModelConfig, plan: ParallelPlan = DEFAULT_PLAN) -> dict:
 # embedding of mixed inputs
 # ---------------------------------------------------------------------------
 
+def _embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``. A ``DTensor`` table is gathered whole (as
+    ``DTensor``'s own indexing gathers it) and each rank indexes it with its
+    own tokens; the table's gradient is then a sum over the ranks whose
+    tokens differ (``Partial`` on their axes). torch 2.11's ``DTensor`` has
+    no working rule for the backward of indexing a table by sharded tokens."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    if not isinstance(table, DTensor):
+        return table[tokens]
+    mesh = table.device_mesh
+    rep = [Replicate()] * mesh.ndim
+    if not isinstance(tokens, DTensor):
+        tokens = DTensor.from_local(tokens, mesh, rep, run_check=False)
+    grads = [Replicate() if isinstance(p, Replicate) else Partial() for p in tokens.placements]
+    local = table.redistribute(mesh, rep).to_local(grad_placements=grads)[tokens.to_local()]
+    return DTensor.from_local(local, mesh, tokens.placements, run_check=False)
+
+
 def embed_inputs(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
     """x (B, S, D). For a VLM the image tokens are prepended; for enc-dec
     this embeds the decoder tokens only."""
-    x = params["embed"][batch["tokens"].long()] if cfg.vocab else None
+    x = _embed(params["embed"], batch["tokens"].long()) if cfg.vocab else None
     if cfg.is_vlm:
         if cfg.vision_frontend == "ip2":
             from repro_torch.core.frontend import apply_frontend
@@ -196,13 +224,14 @@ def _run_stacks(params, x, cfg, plan, states=None, causal=True, decode_pos=None)
     n_rep, pat, tail = _pattern_layout(cfg)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     positions = torch.arange(x.shape[1], device=x.device) if decode_pos is None else None
+    layers = [_split_layers(stack, n_rep) for stack in params["stacks"]] if n_rep else []
 
     def body(r, x, aux, layer_states):
         new_states = []
         for pi, kind in enumerate(pat):
             st = None if layer_states is None else _layer(layer_states[pi], r)
             x, st_new, a = blk.apply_block(
-                _layer(params["stacks"][pi], r), kind, x, cfg, positions, st,
+                layers[pi][r], kind, x, cfg, positions, st,
                 causal=causal, decode_pos=decode_pos)
             new_states.append(st_new)
             aux = aux + a

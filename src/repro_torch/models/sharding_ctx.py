@@ -110,6 +110,46 @@ def replicated(fn, *args):
 
 
 
+def local_shards(fn, dims: tuple[int, ...], *args):
+    """``fn(*args)`` on each rank's shards, for an ``fn`` whose result is
+    computed independently along ``dims`` (attention along batch and
+    heads): when the first ``DTensor`` argument is sharded on ``dims``
+    only, every ``DTensor`` argument is laid out as it is and ``fn`` runs on
+    the local tensors; its tensor result, which keeps those dims, comes
+    back as a ``DTensor`` of the same layout. The same numbers as ``fn`` on
+    the global tensors, with none of ``DTensor``'s per-op dispatch (nor its
+    limits: torch 2.11 cannot flatten two sharded dims, which einsum's
+    batched products do). Differentiable. Otherwise ``fn(*args)``."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    lead = next((a for a in args if isinstance(a, DTensor)), None)
+    if lead is None:
+        return fn(*args)
+    pl = tuple(lead.placements)
+    if not all(isinstance(p, Replicate) or (isinstance(p, Shard) and p.dim in dims)
+               for p in pl):
+        return fn(*args)
+    mesh = lead.device_mesh
+    out = fn(*(_ContiguousGrad.apply(a.redistribute(mesh, pl).to_local())
+               if isinstance(a, DTensor) else a for a in args))
+    # contiguous, here and in the gradients: a DTensor's views are planned
+    # on its global strides, which a permuted shard need not match (torch
+    # 2.11 fails to view one with a size-1 head dim)
+    return DTensor.from_local(out.contiguous(), mesh, pl, run_check=False)
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose gradient is made contiguous."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
 # ---------------------------------------------------------------------------
 # Layout primitives on a mesh (a ``DeviceMesh`` or a ``LocalMesh``)
 # ---------------------------------------------------------------------------

@@ -137,10 +137,15 @@ def mlstm_parallel(q, k, v, i_raw, f_raw) -> torch.Tensor:
     m = torch.amax(dmat, dim=2)                        # (B,T,NH)
     dexp = torch.exp(dmat - m[:, :, None, :])
     scale = inv_sqrt(dh, q.device)
-    sc = torch.einsum("btnd,bjnd->btjn", q.to(torch.float32) * scale,
-                      k.to(torch.float32)) * dexp
-    num = torch.einsum("btjn,bjnd->btnd", sc, v.to(torch.float32))
-    denom = torch.maximum(torch.abs(torch.sum(sc, dim=2)), torch.exp(-m))   # (B,T,NH)
+    # head-major products, (B,NH,T,J) and (B,NH,T,dh): the same sums as the
+    # einsums "btnd,bjnd->btjn" and "btjn,bjnd->btnd", written as matmuls of
+    # permuted operands so a DTensor's shards take the layouts of its
+    # global tensor (einsum's own reshapes may view a shard that cannot be)
+    qh = (q.to(torch.float32) * scale).permute(0, 2, 1, 3)
+    sc = (qh @ k.to(torch.float32).permute(0, 2, 3, 1)) * dexp.permute(0, 3, 1, 2)
+    num = (sc @ v.to(torch.float32).permute(0, 2, 1, 3)).permute(0, 2, 1, 3)
+    denom = torch.maximum(torch.abs(torch.sum(sc, dim=3).permute(0, 2, 1)),
+                          torch.exp(-m))                                      # (B,T,NH)
     return (num / denom[..., None]).to(q.dtype)
 
 

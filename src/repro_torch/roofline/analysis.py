@@ -16,8 +16,12 @@ and the fp32 matmuls of the backend and of training run on CUDA cores
 (``_device.py`` pins TF32 off), kernels 5 and 4's embed on int8 tensor
 cores.
 
-The reference's ``collective_bytes`` and ``cost_point`` read XLA's HLO and
-cost analysis; the port has no compiled HLO, so they have no counterpart.
+``collective_bytes`` and ``cost_point`` read the dry run's record of one
+step (``roofline.trace.Trace``: rank 0's local flops, bytes and collectives
+from the step run on fake tensors) where the reference's read XLA's
+partitioned HLO and cost analysis; they return the reference's dicts and
+kind names. The reference's ``_line_result_bytes`` parses an HLO line and
+has no counterpart: a trace holds each collective's result bytes.
 """
 
 from __future__ import annotations
@@ -113,6 +117,32 @@ def extrapolate(point1: dict, point2: dict, n_rep1: int, n_rep2: int,
         bytes_per_chip=extr("bytes"),
         coll_bytes_per_chip=extr("coll_bytes"),
     )
+
+
+def collective_bytes(trace) -> dict:
+    """Per-device bytes moved by each collective kind (result-sized), the
+    reference's dict: ``{kind: bytes, ..., "total": bytes, "counts":
+    {kind: n}}``."""
+    out: dict[str, int] = {}
+    count: dict[str, int] = {}
+    for kind, b in trace.collectives:
+        out[kind] = out.get(kind, 0) + b
+        count[kind] = count.get(kind, 0) + 1
+    out["total"] = sum(out.values())
+    out["counts"] = count
+    return out
+
+
+def cost_point(trace) -> dict:
+    """One roofline point of a traced step: rank 0's flops, bytes and
+    collective bytes, with the collectives by kind."""
+    coll = collective_bytes(trace)
+    return {
+        "flops": float(trace.flops),
+        "bytes": float(trace.bytes),
+        "coll_bytes": float(coll["total"]),
+        "coll_detail": {k: v for k, v in coll.items() if k != "total"},
+    }
 
 
 def megakernel_cost(

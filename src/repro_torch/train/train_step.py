@@ -86,6 +86,20 @@ def _spmd(params):
 
 
 def _slice(x: torch.Tensor, i: int, n: int) -> torch.Tensor:
+    """Microbatch ``i`` of ``n`` along the first dim. A ``DTensor`` whose
+    first dim is sharded is cut within each rank's shard (microbatch i is
+    the i-th slice of every rank's rows), so it stays sharded: a slice of
+    the global rows would be gathered onto every rank. Every microbatch
+    holds as many rows either way, so the mean of their losses and
+    gradients is the batch's."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    if isinstance(x, DTensor) and any(isinstance(p, Shard) and p.dim == 0
+                                      for p in x.placements):
+        loc = x.to_local()
+        mb = loc.shape[0] // n
+        return DTensor.from_local(loc[i * mb:(i + 1) * mb], x.device_mesh, x.placements,
+                                  run_check=False)
     mb = x.shape[0] // n
     return x[i * mb:(i + 1) * mb]
 

@@ -413,17 +413,13 @@ def test_quant_matmul_kernel_wide_codes(dev, bits):
     assert wrapped == (bits > 10)
 
 
-@pytest.mark.parametrize("bits,m", [(10, 192), (10, 600), (16, 192), (16, 600), (24, 192),
-                                    (32, 192), (32, 576)])
-def test_fused_embed_kernel_wide_codes(dev, bits, m):
-    """10- to 32-bit codes through ip2_fused_embed: bitwise the staged
-    kernels (int16 / int32 codes) and the plain version on rows whose
-    codes agree; large weights drive many codes to both ends of the ADC.
-    M 600 is past the old int16 bound (511); M 576 is the largest M whose
-    int32 code tile fits a block's shared memory."""
+def _fused_vs_staged_and_plain(dev, bits, m, scales=(1.0, 40.0)):
+    """ip2_fused_embed at ``bits`` and M ``m`` under ragged counts: bitwise
+    the staged kernels and the plain version on rows whose codes agree;
+    large weights drive many codes to both ends of the ADC."""
     spec, x, w, idx, w8, s_w = _operands(dev, m=m, d=256)
     adc = adc_mod.ADCSpec(bits=bits)
-    for scale in (1.0, 40.0):
+    for scale in scales:
         cnt = torch.tensor([4, 2, 0, 9, 3], dtype=torch.int32, device=dev)
         got = _fused_once(x, w * scale, idx, spec, adc, w8, s_w, cnt)
         want, codes = _staged(x, w * scale, idx, spec, adc, w8, s_w, cnt)
@@ -444,6 +440,25 @@ def test_fused_embed_kernel_wide_codes(dev, bits, m):
         if bits == 10:  # wider LSBs near the fp32 sums' order noise: see below
             assert int((~same).sum()) <= 2
         assert _bitwise(got[same], plain[same])
+
+
+@pytest.mark.parametrize("bits,m", [(10, 192), (10, 600), (16, 192), (16, 600), (24, 192),
+                                    (32, 192), (32, 576)])
+def test_fused_embed_kernel_wide_codes(dev, bits, m):
+    """10- to 32-bit codes through ip2_fused_embed (int16 / int32 codes).
+    M 600 is past the old int16 bound (511); M 576 is the largest M whose
+    int32 code tile fits a block's shared memory in one chunk."""
+    _fused_vs_staged_and_plain(dev, bits, m)
+
+
+# M just past the largest one-chunk code tile of each code width (int8
+# 2496, int16 1216, int32 576): 2 chunks; M 5000 with int8 codes: 3 chunks
+@pytest.mark.parametrize("bits,m", [(8, 2560), (16, 1280), (32, 640), (8, 5000)])
+def test_fused_embed_kernel_past_code_tile(dev, bits, m):
+    """Kernel 4 walks M in chunks where the bank's code tile does not fit
+    a block's shared memory, carrying its int32 sums: bitwise the staged
+    kernels and the plain version on rows whose codes agree."""
+    _fused_vs_staged_and_plain(dev, bits, m)
 
 
 # bound on the codes a 1-LSB move may touch (of all codes of a call): an
@@ -483,14 +498,10 @@ def test_wide_codes_lsb_distance(dev, bits):
 def test_embed_kernels_reject_wide_codes(dev):
     """What the embed kernels do not take raises, naming the shape and
     counting no launch: the fused kernel an ADC wider than 32 bits (no
-    code dtype holds it) and an M whose code tile does not fit a block's
-    shared memory (32-bit codes at M 600); quant_matmul a code dtype that
-    is not int8, int16 or int32. Codes of up to 32 bits at any K are taken
-    (see the wide-codes tests)."""
-    spec6, x6, w6, idx6, w86, s_w6 = _operands(dev, m=600, d=40)
+    code dtype holds it); quant_matmul a code dtype that is not int8,
+    int16 or int32. Codes of up to 32 bits at any K and any M are taken
+    (see the wide-codes and past-code-tile tests)."""
     n0 = dict(ops.LAUNCHES)
-    with pytest.raises(RuntimeError, match=r"\(20, 256, 600, 40\)"):
-        ops.ip2_fused_embed(x6, w6, idx6, spec6, adc_mod.ADCSpec(bits=32), w86, s_w6)
     spec, x, w, idx, w8, s_w = _operands(dev)
     with pytest.raises(RuntimeError, match=r"\(20, 256, 32, 40\)"):
         ops.ip2_fused_embed(x, w, idx, spec, adc_mod.ADCSpec(bits=40), w8, s_w)
