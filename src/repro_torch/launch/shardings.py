@@ -116,18 +116,19 @@ def make_constrainer(mesh, plan: ParallelPlan, seq_shard: bool = True):
     logits: (B, S, V)  V over tp
     moe_buf:(E, C, D)  E over tp, C over dp
     A plain tensor passes through unchanged. Where ``DTensor`` cannot
-    flatten two sharded dims (torch before 2.13), S stays whole: no
-    sequence parallelism."""
+    flatten two sharded dims (torch before 2.13), S stays whole (no
+    sequence parallelism) and so does C (the MoE flattens (E, C))."""
     from torch.distributed.tensor import DTensor
 
-    seq_shard = seq_shard and dtensor_flattens_two_sharded_dims()
+    two_sharded = dtensor_flattens_two_sharded_dims()
+    seq_shard = seq_shard and two_sharded
     dp = plan.dp_axes
     tp = plan.tp_axis
     table = {
         "act": P(dp, tp if seq_shard else None, None),
         "logits": P(dp, None, tp),
         "tokens": P(dp, None),
-        "moe_buf": P(tp, dp, None),
+        "moe_buf": P(tp, dp if two_sharded else None, None),
         "moe_tokens": P((*dp, tp) if seq_shard else dp, None),
         "kv": P(dp, None, tp, None),
     }

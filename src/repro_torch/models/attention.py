@@ -211,6 +211,10 @@ def _contract_cache(spec: str, a: torch.Tensor, cache: torch.Tensor) -> torch.Te
       ``CPU_CACHE_BLOCK``, each widened to float32 (bf16 products are exact
       in float32), so the float32 transient is one block.
     """
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(cache, DTensor):
+        return _contract_cache_shards(spec, a, cache)
     if cache.dtype == torch.float32:
         return torch.einsum(spec, a.to(torch.float32), cache)
     scores = spec == "bngd,btnd->bngt"
@@ -232,13 +236,61 @@ def _contract_cache(spec: str, a: torch.Tensor, cache: torch.Tensor) -> torch.Te
     return torch.cat(parts, dim=-1) if scores else torch.stack(parts).sum(0)
 
 
-def _write_slot(cache: torch.Tensor, new: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
+def _contract_cache_shards(spec: str, a, cache):
+    """:func:`_contract_cache` on a ``DTensor`` cache, on each rank's
+    (batch, kv head) shard: the cache's ``Shard(0)`` / ``Shard(2)`` are
+    ``a``'s and the result's ``Shard(0)`` / ``Shard(1)`` (the positions
+    and head width are never sharded). torch 2.11's ``DTensor`` has no
+    rule for ``bmm(..., out_dtype=)``."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    mesh = cache.device_mesh
+    assert all(not isinstance(p, Shard) or p.dim in (0, 2) for p in cache.placements), \
+        cache.placements
+    pl = tuple(Shard(1) if isinstance(p, Shard) and p.dim == 2 else p for p in cache.placements)
+    b, t, n, dh = cache.shape
+    shape = torch.Size((b, n, a.shape[2], t if spec == "bngd,btnd->bngt" else dh))
+    a = a.redistribute(mesh, pl).to_local() if isinstance(a, DTensor) else a
+    out = _contract_cache(spec, a, cache.to_local())
+    return DTensor.from_local(out, mesh, pl, run_check=False, shape=shape,
+                              stride=torch.empty(shape, device="meta").stride())
+
+
+def _write_slot(cache: torch.Tensor, new: torch.Tensor, slot: torch.Tensor,
+                in_place: bool = False) -> torch.Tensor:
     """The reference's ``dynamic_update_slice_in_dim(cache, new, slot, 1)``
-    for one position: a device-side write (no host read of ``slot``), out
-    of place, the start clamped into range as XLA clamps it."""
+    for one position: a device-side write (no host read of ``slot``), the
+    start clamped into range as XLA clamps it. Out of place (a copy of the
+    cache), or with ``in_place`` into ``cache`` itself: the same values."""
+    from torch.distributed.tensor import DTensor
+
     t = cache.shape[1]
     idx = torch.clamp(slot, 0, t - 1).reshape(1).long()
+    if isinstance(cache, DTensor):
+        return _write_slot_shards(cache, new, idx, in_place)
+    if in_place:
+        return cache.index_copy_(1, idx, new.to(cache.dtype))
     return cache.index_copy(1, idx, new.to(cache.dtype))
+
+
+def _write_slot_shards(cache, new, idx, in_place: bool):
+    """:func:`_write_slot` on a ``DTensor`` cache: each rank writes its own
+    shard (the position dim is never sharded), ``new`` laid out as the
+    cache. torch 2.11's ``DTensor`` has no rule for ``index_copy``."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    mesh, pl = cache.device_mesh, tuple(cache.placements)
+    assert not any(isinstance(p, Shard) and p.dim == 1 for p in pl), pl
+    if isinstance(new, DTensor):
+        new = new.redistribute(mesh, pl).to_local()
+    if isinstance(idx, DTensor):
+        idx = idx.to_local()
+    local = cache.to_local() if in_place else cache.to_local().clone()
+    local.index_copy_(1, idx, new.to(local.dtype))
+    if in_place:
+        return cache
+    return DTensor.from_local(local, mesh, pl, run_check=False, shape=cache.shape,
+                              stride=cache.stride())
 
 
 def attention_decode(p: dict, x: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
@@ -246,8 +298,21 @@ def attention_decode(p: dict, x: torch.Tensor, cache_k: torch.Tensor, cache_v: t
                      use_rope: bool = True, cache_scales: dict | None = None):
     """One decode step: x (B, 1, D), caches (B, T, Hkv, dh), ``pos`` a 0-dim
     integer tensor (absolute position). Writes (k, v) at ``pos`` (mod T for
-    a local window), attends over the valid cache. Returns (out (B, 1, D),
-    new_k, new_v, scales)."""
+    a local window) into new caches, attends over the valid cache. Returns
+    (out (B, 1, D), new_k, new_v, scales); the caches passed in are left
+    as they were."""
+    return _decode_into(p, x, cache_k, cache_v, pos, cfg, window, use_rope, cache_scales,
+                       in_place=False)
+
+
+def _decode_into(p: dict, x: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
+                pos: torch.Tensor, cfg: ModelConfig, window: int | None = None,
+                use_rope: bool = True, cache_scales: dict | None = None,
+                in_place: bool = True):
+    """:func:`attention_decode`, writing the new slot into ``cache_k``,
+    ``cache_v`` (and the int8 scales) themselves when ``in_place``: the
+    decode step's route, whose caches are its own copy (``lm._run_stacks``),
+    so a step copies each cache once. The same numbers either way."""
     b = x.shape[0]
     t = cache_k.shape[1]
     q, k, v = _qkv(p, x, x)
@@ -260,11 +325,11 @@ def attention_decode(p: dict, x: torch.Tensor, cache_k: torch.Tensor, cache_v: t
     if cache_k.dtype == torch.int8:
         k8, ks = quantize_kv(k)
         v8, vs = quantize_kv(v)
-        cache_scales = {"k": _write_slot(cache_scales["k"], ks, slot),
-                        "v": _write_slot(cache_scales["v"], vs, slot)}
+        cache_scales = {"k": _write_slot(cache_scales["k"], ks, slot, in_place),
+                        "v": _write_slot(cache_scales["v"], vs, slot, in_place)}
         k, v = k8, v8
-    new_k = _write_slot(cache_k, k, slot)
-    new_v = _write_slot(cache_v, v, slot)
+    new_k = _write_slot(cache_k, k, slot, in_place)
+    new_v = _write_slot(cache_v, v, slot, in_place)
 
     # grouped-query attention without expanding the cache: q heads as
     # (stored kv, group)

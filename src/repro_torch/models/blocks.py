@@ -25,7 +25,7 @@ from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.layers import ParallelPlan, apply_mlp, init_mlp, rms_norm, spec_mlp
 from repro_torch.models.moe_a2a import apply_moe_a2a
-from repro_torch.models.sharding_ctx import P, constrain, get_moe_ctx
+from repro_torch.models.sharding_ctx import P, constrain, get_moe_ctx, shards_whole_along
 
 
 def init_block(generator: torch.Generator, kind: str, cfg: ModelConfig,
@@ -72,13 +72,20 @@ def spec_block(kind: str, cfg: ModelConfig, plan: ParallelPlan) -> dict:
     return s
 
 
+def _roll_positions(x: torch.Tensor, shift: int) -> torch.Tensor:
+    """``torch.roll`` along the positions (dim 1); on a ``DTensor``, on each
+    rank's shards with the positions whole (torch 2.11's ``DTensor`` has
+    no rule for ``aten.roll``)."""
+    return shards_whole_along(lambda a: torch.roll(a, shift, dims=1), 1, x)
+
+
 def _cache_from_prefill(k: torch.Tensor, t: int, cache_dtype: torch.dtype) -> torch.Tensor:
     """Lay prefill keys / values into the (possibly rolling) cache buffer so
     decode's slot arithmetic (slot = pos % t) lines up."""
     s = k.shape[1]
     if s < t:
         return torch.nn.functional.pad(k.to(cache_dtype), (0, 0, 0, 0, 0, t - s))
-    return torch.roll(k[:, -t:].to(cache_dtype), s % t, dims=1)
+    return _roll_positions(k[:, -t:].to(cache_dtype), s % t)
 
 
 def _scale_from_prefill(sc: torch.Tensor, t: int) -> torch.Tensor:
@@ -86,7 +93,11 @@ def _scale_from_prefill(sc: torch.Tensor, t: int) -> torch.Tensor:
     s = sc.shape[1]
     if s < t:
         return torch.nn.functional.pad(sc, (0, 0, 0, t - s), value=1.0)
-    return torch.roll(sc[:, -t:], s % t, dims=1)
+    return _roll_positions(sc[:, -t:], s % t)
+
+
+# kinds whose decode state is a KV cache, which a decode step can write in place
+CACHED_KINDS = (ATTN, LOCAL_ATTN, MOE)
 
 
 def apply_block(p: dict, kind: str, x: torch.Tensor, cfg: ModelConfig,
@@ -95,18 +106,28 @@ def apply_block(p: dict, kind: str, x: torch.Tensor, cfg: ModelConfig,
                 ) -> tuple[torch.Tensor, dict | None, torch.Tensor]:
     """One block over x (B, S, D) -> (x, new_state, aux). With a state and
     S == 1 an attention block decodes at ``decode_pos``; with a state and
-    S > 1 it fills the cache from the prompt."""
+    S > 1 it fills the cache from the prompt. ``state`` is left as it was."""
+    return _apply_block(p, kind, x, cfg, positions, state, causal, decode_pos)
+
+
+def _apply_block(p: dict, kind: str, x: torch.Tensor, cfg: ModelConfig,
+                 positions: torch.Tensor | None, state: dict | None, causal: bool = True,
+                 decode_pos: torch.Tensor | None = None, in_place: bool = False
+                 ) -> tuple[torch.Tensor, dict | None, torch.Tensor]:
+    """:func:`apply_block`; with ``in_place`` a decoding attention block
+    writes its new slot into ``state``'s caches themselves and returns
+    them (a caller's own copy: ``lm._run_stacks``)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_state = state
-    if kind in (ATTN, LOCAL_ATTN, MOE):
+    if kind in CACHED_KINDS:
         window = cfg.local_window if kind == LOCAL_ATTN else None
         h = rms_norm(x, p["norm1"], cfg.norm_eps)
         if state is not None and x.shape[1] == 1:
             scales = ({"k": state["k_scale"], "v": state["v_scale"]}
                       if "k_scale" in state else None)
-            out, nk, nv, nsc = attn_mod.attention_decode(
+            out, nk, nv, nsc = attn_mod._decode_into(
                 p["attn"], h, state["k"], state["v"], decode_pos, cfg,
-                window=window, cache_scales=scales)
+                window=window, cache_scales=scales, in_place=in_place)
             new_state = {"k": nk, "v": nv}
             if nsc is not None:
                 new_state["k_scale"], new_state["v_scale"] = nsc["k"], nsc["v"]

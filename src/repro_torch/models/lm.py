@@ -32,12 +32,12 @@ import torch
 
 from repro_torch._arith import div
 from repro_torch._device import resolve_device
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ATTN, ModelConfig
 from repro_torch.convert import tree_flatten_with_paths, tree_map, tree_to, tree_unflatten
 from repro_torch.models import blocks as blk
 from repro_torch.models.attention import attention_forward, init_attention, spec_attention
 from repro_torch.models.layers import DEFAULT_PLAN, ParallelPlan, dense_init, embed_init, rms_norm
-from repro_torch.models.sharding_ctx import P, constrain, replicated, with_layer_dim
+from repro_torch.models.sharding_ctx import P, constrain, relayout, replicated, with_layer_dim
 
 
 # ---------------------------------------------------------------------------
@@ -85,38 +85,52 @@ def _ip2_cfg(cfg: ModelConfig):
 def init_params(generator: torch.Generator, cfg: ModelConfig,
                 plan: ParallelPlan = DEFAULT_PLAN, dtype: torch.dtype = torch.float32,
                 device=None) -> dict:
-    """Random parameters drawn on the CPU from ``generator``, in the
-    reference's order, then placed on ``device`` (the GPU by default)."""
+    """Random parameters drawn from ``generator`` in the reference's order,
+    on the generator's device (a CPU generator's draws are the tests'; a
+    CUDA generator draws a full-width model on the card in seconds), placed
+    on ``device`` (the GPU by default). Each layer goes into its pattern
+    position's stack on ``device`` as it is drawn, so the draw holds one
+    layer beyond the parameters, not a second copy of the stacks."""
     dev = resolve_device(device)
     n_rep, pat, tail = _pattern_layout(cfg)
     p: dict = {}
-    if cfg.vocab:
-        p["embed"] = embed_init(generator, cfg.vocab, cfg.d_model, dtype)
-        if not cfg.tie_embeddings:
-            p["lm_head"] = embed_init(generator, cfg.vocab, cfg.d_model, dtype)
-    p["final_norm"] = torch.ones((cfg.d_model,), dtype=dtype)
+    with torch.device(generator.device):
+        if cfg.vocab:
+            p["embed"] = embed_init(generator, cfg.vocab, cfg.d_model, dtype)
+            if not cfg.tie_embeddings:
+                p["lm_head"] = embed_init(generator, cfg.vocab, cfg.d_model, dtype)
+        p["final_norm"] = torch.ones((cfg.d_model,), dtype=dtype)
 
-    layers = [blk.init_block(generator, kind, cfg, plan, dtype) for kind in cfg.layer_kinds]
-    p["stacks"] = [_stack([layers[r * len(pat) + pi] for r in range(n_rep)])
-                   for pi in range(len(pat))]
-    p["tail"] = layers[n_rep * len(pat):]
+        stacks: list = [None] * len(pat)
+        p["tail"] = []
+        for li, kind in enumerate(cfg.layer_kinds):
+            layer = blk.init_block(generator, kind, cfg, plan, dtype)
+            r, pi = divmod(li, len(pat))
+            if r >= n_rep:
+                p["tail"].append(tree_to(layer, dev))
+                continue
+            if stacks[pi] is None:
+                stacks[pi] = tree_map(lambda a: torch.empty((n_rep, *a.shape), dtype=a.dtype,
+                                                            device=dev), layer)
+            tree_map(lambda st, a: st[r].copy_(a), stacks[pi], layer)
+        p["stacks"] = stacks
 
-    if cfg.is_encoder_decoder:
-        p["encoder"] = [blk.init_block(generator, "attn", cfg, plan, dtype)
-                        for _ in range(cfg.n_encoder_layers)]
-        p["enc_norm"] = torch.ones((cfg.d_model,), dtype=dtype)
-        # decoder cross-attention, one per decoder layer
-        p["cross"] = _stack([
-            {"norm": torch.ones((cfg.d_model,), dtype=dtype),
-             "attn": init_attention(generator, cfg, plan, dtype)}
-            for _ in range(cfg.n_layers)])
-    if cfg.is_vlm:
-        vis_in = cfg.ip2_vectors if cfg.vision_frontend == "ip2" else 1024
-        p["vision_adapter"] = dense_init(generator, vis_in, cfg.d_model, dtype)
-        if cfg.vision_frontend == "ip2":
-            from repro_torch.core.frontend import init_frontend_params
+        if cfg.is_encoder_decoder:
+            p["encoder"] = [blk.init_block(generator, "attn", cfg, plan, dtype)
+                            for _ in range(cfg.n_encoder_layers)]
+            p["enc_norm"] = torch.ones((cfg.d_model,), dtype=dtype)
+            # decoder cross-attention, one per decoder layer
+            p["cross"] = _stack([
+                {"norm": torch.ones((cfg.d_model,), dtype=dtype),
+                 "attn": init_attention(generator, cfg, plan, dtype)}
+                for _ in range(cfg.n_layers)])
+        if cfg.is_vlm:
+            vis_in = cfg.ip2_vectors if cfg.vision_frontend == "ip2" else 1024
+            p["vision_adapter"] = dense_init(generator, vis_in, cfg.d_model, dtype)
+            if cfg.vision_frontend == "ip2":
+                from repro_torch.core.frontend import init_frontend_params
 
-            p["ip2"] = init_frontend_params(_ip2_cfg(cfg), generator)
+                p["ip2"] = init_frontend_params(_ip2_cfg(cfg), generator)
     return tree_to(p, dev)
 
 
@@ -211,9 +225,24 @@ def _remat_context_fn(policy: str):
     return lambda: create_selective_checkpoint_contexts(policy_fn)
 
 
+def _own_caches(stacks: list, kinds: tuple[str, ...]) -> list:
+    """A decode step's one copy of each stacked KV cache (the pattern
+    positions of attention kinds), which its layers then write in place
+    through their views of it; the caller's states are never written. Other
+    states (RG-LRU, xLSTM) stay as they are: each layer returns a new one,
+    restacked after the step."""
+    return [tree_map(torch.clone, s) if k in blk.CACHED_KINDS else s
+            for s, k in zip(stacks, kinds)]
+
+
 def _run_stacks(params, x, cfg, plan, states=None, causal=True, decode_pos=None):
     """Pattern repeats in a loop, then the tail. ``states`` mirrors the
     params layout: {"stacks": [stacked state per position], "tail": [...]}.
+
+    A decode step (``states`` and ``decode_pos``) copies each stacked KV
+    cache once (:func:`_own_caches`) and writes every layer's new slot into
+    that copy in place; the new state holds the same values as writing each
+    layer out of place and restacking, at one cache copy a step, not two.
 
     With ``cfg.remat``, autograd recording and no decode states (a
     training forward), each repeat of the pattern runs under
@@ -225,14 +254,18 @@ def _run_stacks(params, x, cfg, plan, states=None, causal=True, decode_pos=None)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     positions = torch.arange(x.shape[1], device=x.device) if decode_pos is None else None
     layers = [_split_layers(stack, n_rep) for stack in params["stacks"]] if n_rep else []
+    in_place = states is not None and decode_pos is not None
+    layer_states = None if states is None else states["stacks"]
+    if in_place and n_rep:
+        layer_states = _own_caches(layer_states, pat)
 
     def body(r, x, aux, layer_states):
         new_states = []
         for pi, kind in enumerate(pat):
             st = None if layer_states is None else _layer(layer_states[pi], r)
-            x, st_new, a = blk.apply_block(
+            x, st_new, a = blk._apply_block(
                 layers[pi][r], kind, x, cfg, positions, st,
-                causal=causal, decode_pos=decode_pos)
+                causal=causal, decode_pos=decode_pos, in_place=in_place)
             new_states.append(st_new)
             aux = aux + a
         return x, aux, new_states
@@ -244,7 +277,6 @@ def _run_stacks(params, x, cfg, plan, states=None, causal=True, decode_pos=None)
         run = functools.partial(checkpoint, body, use_reentrant=False,
                                 context_fn=_remat_context_fn(cfg.remat_policy))
 
-    layer_states = None if states is None else states["stacks"]
     ys = []
     for r in range(n_rep):
         x, aux_total, new_states = run(r, x, aux_total, layer_states)
@@ -261,7 +293,8 @@ def _run_stacks(params, x, cfg, plan, states=None, causal=True, decode_pos=None)
 
     new = None
     if states is not None:
-        stacks = ([_stack([y[pi] for y in ys]) for pi in range(len(pat))]
+        stacks = ([layer_states[pi] if in_place and kind in blk.CACHED_KINDS
+                   else _stack([y[pi] for y in ys]) for pi, kind in enumerate(pat)]
                   if n_rep > 0 else None)
         new = {"stacks": stacks, "tail": tail_states}
     return x, new, aux_total
@@ -385,19 +418,24 @@ def decode_state_specs(cfg: ModelConfig, plan: ParallelPlan,
 def _run_decoder(params, x, cfg, state, enc, pos=None, decode_pos=None):
     """The enc-dec decoder over x with its caches: self-attention block i
     (prefill at ``pos`` or decode at ``decode_pos``) then cross-attention
-    to ``enc``. Returns (x, new state)."""
+    to ``enc``. Returns (x, new state). A decode step writes into one copy
+    of the stacked caches, as :func:`_run_stacks` does."""
     n_rep, _, _ = _pattern_layout(cfg)
+    in_place = decode_pos is not None and n_rep > 0
+    if in_place:
+        state = dict(state, stacks=_own_caches(state["stacks"], (ATTN,)))
     new_stack, new_tail = [], list(state["tail"])
     for i in range(cfg.n_layers):
         lp, st = _decoder_layer(params, state, i, n_rep)
-        x, st_new, _ = blk.apply_block(lp, "attn", x, cfg, pos, st, causal=True,
-                                       decode_pos=decode_pos)
+        x, st_new, _ = blk._apply_block(lp, ATTN, x, cfg, pos, st, causal=True,
+                                        decode_pos=decode_pos, in_place=in_place and i < n_rep)
         if i < n_rep:
             new_stack.append(st_new)
         else:
             new_tail[i - n_rep] = st_new
         x = _cross_attend(_layer(params["cross"], i), x, enc, cfg)
-    return x, dict(state, enc=enc, stacks=[_stack(new_stack)], tail=new_tail)
+    stacks = state["stacks"] if in_place else [_stack(new_stack)]
+    return x, dict(state, enc=enc, stacks=stacks, tail=new_tail)
 
 
 def prefill(params: dict, batch: dict, cfg: ModelConfig, plan: ParallelPlan,
@@ -408,10 +446,12 @@ def prefill(params: dict, batch: dict, cfg: ModelConfig, plan: ParallelPlan,
     if cfg.is_encoder_decoder:
         enc = _encode(params, batch["frames"], cfg, plan)
         pos = torch.arange(x.shape[1], device=x.device)
-        x, state = _run_decoder(params, x, cfg, state, enc, pos=pos)
+        x, new_states = _run_decoder(params, x, cfg, state, enc, pos=pos)
     else:
-        x, state, _ = _run_stacks(params, x, cfg, plan, states=state)
-    return _logits(params, x[:, -1:, :], cfg)[:, 0], state
+        x, new_states, _ = _run_stacks(params, x, cfg, plan, states=state)
+    # DTensor states come back in the layout they came in (the reference's
+    # out_shardings); plain tensors as they are
+    return _logits(params, x[:, -1:, :], cfg)[:, 0], relayout(new_states, state)
 
 
 def decode_step(params: dict, state: dict, tokens: torch.Tensor, pos: torch.Tensor,
@@ -425,4 +465,4 @@ def decode_step(params: dict, state: dict, tokens: torch.Tensor, pos: torch.Tens
         x, new_states = _run_decoder(params, x, cfg, state, state["enc"], decode_pos=pos)
     else:
         x, new_states, _ = _run_stacks(params, x, cfg, plan, states=state, decode_pos=pos)
-    return _logits(params, x, cfg)[:, 0], new_states
+    return _logits(params, x, cfg)[:, 0], relayout(new_states, state)

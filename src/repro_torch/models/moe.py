@@ -106,6 +106,13 @@ def dispatch(ids: torch.Tensor, n_experts: int, cap: int) -> dict:
             "dest": dest}
 
 
+def _inverse_permutation(order: torch.Tensor) -> torch.Tensor:
+    """``rank`` with ``rank[order[i]] = i``."""
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(order.numel(), device=order.device)
+    return rank
+
+
 def apply_moe(p: dict, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, D) -> (out (B, S, D), aux_loss 0-dim)."""
     m = cfg.moe
@@ -144,8 +151,9 @@ def apply_moe(p: dict, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor,
     gate_of = gates.reshape(t * k)[order]
     contrib = gathered.to(torch.float32) * gate_of[:, None]        # (TK, D), sorted
     # each token's k contributions back in sorted (ascending expert) order
-    rank = torch.empty_like(order)
-    rank[order] = torch.arange(t * k, device=x.device)
+    # (on DTensors through a Replicate() detour: torch 2.11's DTensor has no
+    # rule for the index_put_ of the inverse permutation)
+    rank = replicated(_inverse_permutation, order)
     by_expert = torch.sort(rank.reshape(t, k), dim=1).values       # (T, K)
     out_tok = contrib[by_expert[:, 0]]
     for j in range(1, k):

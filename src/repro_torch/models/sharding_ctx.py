@@ -110,6 +110,89 @@ def replicated(fn, *args):
 
 
 
+def _sharded_ranks(x, dim: int) -> int:
+    """Ranks a ``DTensor``'s ``dim`` is split over (1 for a plain tensor)."""
+    from torch.distributed.tensor import Shard
+
+    placements = getattr(x, "placements", ())
+    dim = dim % x.dim()
+    return math.prod(n for p, n in zip(placements, x.device_mesh.shape)
+                     if isinstance(p, Shard) and p.dim == dim) if placements else 1
+
+
+def whole_along(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``x`` with ``dim`` whole on every rank: a ``DTensor``'s ``Shard(dim)``
+    redistributed to ``Replicate()``, its other placements kept; a plain
+    tensor as it is. Differentiable."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not isinstance(x, DTensor):
+        return x
+    dim = dim % x.dim()
+    pl = [Replicate() if isinstance(p, Shard) and p.dim == dim else p for p in x.placements]
+    return x if pl == list(x.placements) else x.redistribute(x.device_mesh, pl)
+
+
+def split_last(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``x`` (..., n·m) viewed as (..., n, m), the head split of a model's
+    inner width. A ``DTensor`` sharded on the last dim over ranks that do
+    not divide ``n`` (4 xLSTM heads on a 16-way model axis) is first made
+    whole along it, as is the gradient that comes back sharded on the head
+    width: ``DTensor`` cannot unflatten the one nor flatten the other. The
+    reference's GSPMD shards the head width there; the port's products
+    that follow take the head width's sharding from their weights."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor):
+        return x.reshape(*x.shape[:-1], n, x.shape[-1] // n)
+    if n % _sharded_ranks(x, -1):
+        x = whole_along(x, -1)
+    return _SplitLast.apply(x, n)
+
+
+def merge_last(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (..., n, m) viewed as (..., n·m), the head merge; a ``DTensor``
+    (and the gradient that comes back) is made whole along a dim that
+    ``DTensor`` could not flatten or unflatten (see :func:`split_last`)."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor):
+        return x.reshape(*x.shape[:-2], x.shape[-2] * x.shape[-1])
+    if _sharded_ranks(x, -1) > 1:
+        x = whole_along(x, -1)
+    return _MergeLast.apply(x)
+
+
+class _SplitLast(torch.autograd.Function):
+    """(..., n·m) -> (..., n, m) on a ``DTensor``; the gradient made whole
+    along its head width before it is flattened back."""
+
+    @staticmethod
+    def forward(ctx, x, n):
+        return x.reshape(*x.shape[:-1], n, x.shape[-1] // n)
+
+    @staticmethod
+    def backward(ctx, g):
+        if _sharded_ranks(g, -1) > 1:
+            g = whole_along(g, -1)
+        return g.reshape(*g.shape[:-2], g.shape[-2] * g.shape[-1]), None
+
+
+class _MergeLast(torch.autograd.Function):
+    """(..., n, m) -> (..., n·m) on a ``DTensor``; the gradient made whole
+    along the last dim where its ranks do not divide ``n``."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.n = x.shape[-2]
+        return x.reshape(*x.shape[:-2], x.shape[-2] * x.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.n % _sharded_ranks(g, -1):
+            g = whole_along(g, -1)
+        return g.reshape(*g.shape[:-1], ctx.n, g.shape[-1] // ctx.n)
+
 def local_shards(fn, dims: tuple[int, ...], *args):
     """``fn(*args)`` on each rank's shards, for an ``fn`` whose result is
     computed independently along ``dims`` (attention along batch and
@@ -129,7 +212,51 @@ def local_shards(fn, dims: tuple[int, ...], *args):
     if not all(isinstance(p, Replicate) or (isinstance(p, Shard) and p.dim in dims)
                for p in pl):
         return fn(*args)
-    mesh = lead.device_mesh
+    return _on_local(fn, lead.device_mesh, pl, args)
+
+
+def shards_whole_along(fn, dim: int, x: torch.Tensor) -> torch.Tensor:
+    """``fn(x)`` for an ``fn`` that works along ``dim`` alone (a roll of
+    the positions): a ``DTensor`` is laid out with ``dim`` whole (and any
+    pending sum reduced), its other shards kept, and ``fn`` runs on each
+    rank's local tensor; the result comes back in that layout. torch
+    2.11's ``DTensor`` has no rule for such ops (``aten.roll``). A plain
+    tensor: ``fn(x)``."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not isinstance(x, DTensor):
+        return fn(x)
+    dim = dim % x.dim()
+    pl = tuple(p if isinstance(p, Shard) and p.dim != dim else Replicate()
+               for p in x.placements)
+    return _on_local(fn, x.device_mesh, pl, (x,))
+
+
+def batch_shards(fn, *args):
+    """``fn(*args)`` on each rank's shard of the batch (dim 0), for an
+    ``fn`` computed independently along it: every ``DTensor`` argument is
+    laid out with dim 0 sharded as the first one's is and every other dim
+    whole, ``fn`` runs on the local tensors and its tensor result comes
+    back in that layout. The mLSTM's parallel form runs so: on a shard of
+    the head width (4 heads on a model axis wider than 4) ``DTensor``
+    cannot run its batched products' backward (it views a permuted local
+    gradient that cannot be viewed). Differentiable. Without a ``DTensor``
+    argument this is ``fn(*args)``."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    lead = next((a for a in args if isinstance(a, DTensor)), None)
+    if lead is None:
+        return fn(*args)
+    pl = tuple(p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+               for p in lead.placements)
+    return _on_local(fn, lead.device_mesh, pl, args)
+
+
+def _on_local(fn, mesh, pl, args):
+    """``fn`` on the local tensors of ``args`` laid out as ``pl``; its
+    result a ``DTensor`` of that layout."""
+    from torch.distributed.tensor import DTensor
+
     out = fn(*(_ContiguousGrad.apply(a.redistribute(mesh, pl).to_local())
                if isinstance(a, DTensor) else a for a in args))
     # contiguous, here and in the gradients: a DTensor's views are planned

@@ -27,7 +27,8 @@ import torch.nn.functional as F
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import ParallelPlan, dense_init, inv_sqrt
-from repro_torch.models.sharding_ctx import P, replicated
+from repro_torch.models.sharding_ctx import (P, batch_shards, merge_last, replicated,
+                                             split_last)
 from repro_torch.models.rglru import CONV_K, _causal_conv1d
 
 
@@ -98,24 +99,23 @@ def spec_mlstm_block(cfg: ModelConfig, plan: ParallelPlan) -> dict:
 
 def _group_norm(x: torch.Tensor, scale: torch.Tensor, nh: int) -> torch.Tensor:
     """Per-head RMS norm over the head channels. x (..., di)."""
-    shp = x.shape
-    xh = x.reshape(*shp[:-1], nh, shp[-1] // nh).to(torch.float32)
+    xh = split_last(x, nh).to(torch.float32)
     var = torch.mean(xh * xh, dim=-1, keepdim=True)
     xh = xh * torch.rsqrt(var + 1e-6)
-    return (xh.reshape(shp) * scale.to(torch.float32)).to(x.dtype)
+    return (merge_last(xh) * scale.to(torch.float32)).to(x.dtype)
 
 
 def _mlstm_qkvif(p: dict, x: torch.Tensor, conv_state=None):
     """x (B,S,D) -> q,k,v (B,S,NH,dh), i,f raw gates (B,S,NH), z, conv_state."""
     nh = p["wq"].shape[0]
-    di = p["conv_b"].shape[0]
     up = x @ p["w_up"]
     xi, z = torch.chunk(up, 2, dim=-1)
     xc, conv_new = _causal_conv1d(xi, p["conv_w"], p["conv_b"], conv_state)
     xc = F.silu(xc)
-    b, s, _ = x.shape
-    xch = xc.reshape(b, s, nh, di // nh)
-    xih = xi.reshape(b, s, nh, di // nh)
+    # heads that do not divide the model axis: the inner width is made whole
+    # first (split_last), the products below shard the head width as wq does
+    xch = split_last(xc, nh)
+    xih = split_last(xi, nh)
     q = torch.einsum("bsnd,nde->bsne", xch, p["wq"])
     k = torch.einsum("bsnd,nde->bsne", xch, p["wk"])
     v = torch.einsum("bsnd,nde->bsne", xih, p["wv"])
@@ -249,12 +249,12 @@ def mlstm_block_forward(p: dict, x: torch.Tensor, state: dict | None = None,
         h, cell = mlstm_chunkwise(q, k, v, i_raw, f_raw, chunk_size)
         new_state = {"conv": conv_new, **cell}
     else:
-        h = mlstm_parallel(q, k, v, i_raw, f_raw)
+        # on DTensors, on each rank's batch shard (see sharding_ctx.batch_shards)
+        h = batch_shards(mlstm_parallel, q, k, v, i_raw, f_raw)
         # fold the sequence into the final recurrent state (prefill -> decode)
         cell = mlstm_final_state(k, v, i_raw, f_raw)
         new_state = {"conv": conv_new, **cell}
-    b, s, _, dh = h.shape
-    hflat = h.reshape(b, s, nh * dh)
+    hflat = merge_last(h)
     out = (_group_norm(hflat, p["gn"], nh) * F.silu(z)) @ p["w_down"]
     return out, new_state
 
@@ -321,13 +321,16 @@ def slstm_forward(p: dict, x: torch.Tensor, state: dict | None = None
     dh = d // nh
     if state is None:
         state = _zero_slstm_state(b, nh, dh, x.device)
-    gx = (x @ p["w"] + p["b"]).to(torch.float32).reshape(b, s, 4, nh, dh)
+    gx = split_last(split_last((x @ p["w"] + p["b"]).to(torch.float32), 4), nh)
     r32 = p["r"].to(torch.float32)
     c, n, m, h = state["c"], state["n"], state["m"], state["h"]
     hs = []
     for t in range(s):
         g_t = gx[:, t]
-        rec = torch.einsum("bnd,gnde->gbne", h.reshape(b, nh, dh), r32)
+        # einsum("bnd,gnde->gbne") as a broadcast matmul over (gate, head):
+        # torch 2.11's DTensor cannot flatten einsum's (gate, head width) with
+        # the head width sharded
+        rec = (split_last(h, nh).transpose(0, 1)[None] @ r32).transpose(1, 2)
         z_r, i_r, f_r, o_r = (g_t[:, gi] + rec[gi] for gi in range(4))
         z = torch.tanh(z_r)
         o = torch.sigmoid(o_r)
@@ -337,7 +340,7 @@ def slstm_forward(p: dict, x: torch.Tensor, state: dict | None = None
         fp = torch.exp(lf + m - m_new)
         c = fp * c + ip * z
         n = fp * n + ip
-        h = (o * c / torch.clamp_min(n, 1e-6)).reshape(b, d)
+        h = merge_last(o * c / torch.clamp_min(n, 1e-6))
         m = m_new
         hs.append(h)
     hs = torch.stack(hs, dim=1)                                   # (B,S,D)

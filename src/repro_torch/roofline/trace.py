@@ -262,6 +262,8 @@ class StepRecorder(TorchDispatchMode):
             self.read.update(id(t.untyped_storage()) for t in ins)
         formula = _flop_formula(func)
         if formula is not None:
+            if func._overloadname == "dtype":   # bmm.dtype's (a, b, out_dtype): no shape
+                args, kwargs = args[:-1], dict(kwargs, out_dtype=args[-1])
             tr.flops += float(formula(*args, **kwargs, out_val=out))
         if not func.is_view and not name.startswith("empty") and name != "wait_tensor":
             tr.bytes += sum(_nbytes(t) for t in ins) + sum(_nbytes(t) for t in outs)

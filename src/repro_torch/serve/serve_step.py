@@ -13,6 +13,7 @@ from repro_torch.core import frontend as fe
 from repro_torch.core import saliency as sal
 from repro_torch.models import lm
 from repro_torch.models.layers import ParallelPlan
+from repro_torch.models.sharding_ctx import whole_along
 from repro_torch.models.vit import vit_forward_compact
 
 
@@ -37,7 +38,10 @@ def make_decode_step(cfg: ModelConfig, plan: ParallelPlan, temperature: float = 
             probs = torch.softmax(div(logits, temperature), dim=-1)
             nxt = torch.multinomial(probs, 1, generator=rng)[:, 0]
         else:
-            nxt = torch.argmax(logits, dim=-1)
+            # on a DTensor the vocabulary is made whole first: DTensor's
+            # argmax over a sharded dim fails where a rank holds one row (a
+            # batch of 1, or one row a data rank)
+            nxt = torch.argmax(whole_along(logits, -1), dim=-1)
         return nxt.to(torch.int32), logits, state
 
     return decode_one

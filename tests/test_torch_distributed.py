@@ -2,7 +2,9 @@
 reference's own sharded results: the (2, 2) sharded LM train step (llama3-8b,
 and qwen3-moe through the all-to-all MoE), the GPipe pipeline, the
 all-to-all MoE, the int8 compressed all-reduce and the elastic checkpoint
-restore.
+restore. Held against the port's one-process results: sharded serving on
+(2, 2) with float32, bf16 and int8 caches, and xLSTM's train step,
+gradients and serving on (1, 8), a model axis wider than its heads.
 
 One JAX subprocess (``--xla_force_host_platform_device_count=8``) computes
 every reference result on meshes built as ``jax.sharding.Mesh`` (their
@@ -37,6 +39,14 @@ MOE_CFG = dict(n_experts=8, top_k=2, d_expert=32, capacity_factor=2.0)
 # DTensor has no rule for (the MoE dispatch's searchsorted), held against
 # the port's one-process step
 DETOUR_ARCHS = ("qwen3-moe-235b-a22b",)
+# smoke configs served (prefill, then greedy decode steps) as DTensors on the
+# (2, 2) mesh, held against the port's one-process serving: (arch, batch,
+# prompt, decode steps). recurrentgemma's batch of 1 lies on 2 data ranks
+# and its 72-token prompt overflows its 64-position window, so prefill rolls
+# the local caches and decode wraps them; llama3-8b's caches are sharded
+# over batch and kv heads
+SERVE_CASES = (("recurrentgemma-2b", 1, 72, 6), ("llama3-8b", 2, 24, 4))
+CACHE_DTYPES = ("float32", "bfloat16", "int8")
 COMP_STEPS = 20
 
 
@@ -371,6 +381,8 @@ def _job4(rank, ref, meta, work):
     }
 
     res["detour"] = {a: _sharded_vs_one(a, m22) for a in DETOUR_ARCHS}
+    res["serve"] = {f"{a}/{dt}": _sharded_serve_vs_one(a, m22, b, s, n, getattr(torch, dt))
+                    for a, b, s, n in SERVE_CASES for dt in CACHE_DTYPES}
     res["a2a"] = _a2a_step(m22, ref, meta)
 
     # -- the pipeline on a (4,) "pod" mesh ---------------------------------
@@ -462,6 +474,109 @@ def _sharded_vs_one(arch, mesh):
     return {"loss_diff": abs(float(_dt_full(m_sh["loss"])) - float(m_one["loss"])),
             "param_diff": max(float((_dt_full(b) - a).abs().max()) for (_, a), (_, b) in zip(
                 tree_flatten_with_paths(p_one), tree_flatten_with_paths(p_sh)))}
+
+
+def _sharded_serve_vs_one(arch, mesh, batch, prompt, steps, cache_dtype):
+    """``arch``'s smoke config served as DTensors on ``mesh`` and as plain
+    tensors: prefill of ``batch`` x ``prompt`` tokens, then ``steps`` greedy
+    decode steps, each side fed its own tokens. Returns the largest logit
+    and final-state differences, whether the greedy tokens agree, and
+    whether the sharded steps left their input states as they were."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.convert import tree_flatten_with_paths
+    from repro_torch.launch.shardings import constrainer_ctx, plan_for, shard_tree, shardings_for
+    from repro_torch.models import lm
+    from repro_torch.models.sharding_ctx import P
+    from repro_torch.serve.serve_step import make_decode_step, make_prefill_step
+
+    cfg = smoke_config(arch)
+    plan = plan_for(cfg, mesh)
+    params = lm.init_params(torch.Generator().manual_seed(0), cfg, plan, device="cpu")
+    tokens = torch.randint(0, cfg.vocab, (batch, prompt),
+                           generator=torch.Generator().manual_seed(1)).int()
+    state = lm.init_decode_state(cfg, plan, batch, prompt + steps, cache_dtype=cache_dtype,
+                                 device="cpu")
+    prefill, decode = make_prefill_step(cfg, plan), make_decode_step(cfg, plan)
+    sspecs = lm.decode_state_specs(cfg, plan, cache_dtype=cache_dtype)
+
+    def flat(tree):
+        return [_dt_full(x) for _, x in tree_flatten_with_paths(tree)]
+
+    def serve(params, state, tokens, place):
+        logits, st = prefill(params, {"tokens": place(tokens, P(plan.dp_axes, None))}, state)
+        outs, toks, kept = [_dt_full(logits)], [], True
+        nxt = torch.argmax(_dt_full(logits), dim=-1).to(torch.int32)
+        for i in range(steps):
+            before = [x.clone() for x in flat(st)]
+            nxt, logits, new = decode(params, st, place(nxt, P(plan.dp_axes)),
+                                      place(torch.tensor(prompt + i), P()))
+            kept &= all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+                        for a, b in zip(before, flat(st)))
+            st = new
+            outs.append(_dt_full(logits))
+            toks.append(_dt_full(nxt))
+        return outs, toks, flat(st), kept
+
+    o_one, t_one, s_one, _ = serve(params, state, tokens, lambda x, spec: x)
+
+    def place(x, spec):
+        return shard_tree({"x": x}, shardings_for({"x": spec}, {"x": x}, mesh))["x"]
+
+    p_sh = shard_tree(params, shardings_for(lm.param_specs(cfg, plan), params, mesh))
+    s_sh = shard_tree(state, shardings_for(sspecs, state, mesh))
+    with constrainer_ctx(mesh, plan), implicit_replication():
+        o_sh, t_sh, s_out, kept = serve(p_sh, s_sh, tokens, place)
+    return {"logit_diff": max(float((a - b).abs().max()) for a, b in zip(o_one, o_sh)),
+            "logit_scale": max(float(a.abs().max()) for a in o_one),
+            # each state leaf's difference as a share of its largest |value|
+            "state_rel": max(float((a.float() - b.float()).abs().max())
+                             / max(float(a.float().abs().max()), 1e-30)
+                             for a, b in zip(s_one, s_out)),
+            "tokens_equal": all(torch.equal(a, b) for a, b in zip(t_one, t_sh)),
+            "input_state_kept": bool(kept)}
+
+
+def _sharded_grads_vs_one(arch, mesh):
+    """``loss_fn``'s float32 gradients of ``arch``'s smoke config, batch
+    4 x 16, with the parameters as DTensors on ``mesh`` and as plain
+    tensors: the loss difference and the worst leaf's gradient difference
+    as a share of that leaf's largest |g|."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.convert import tree_flatten_with_paths
+    from repro_torch.launch.shardings import (Sharding, constrainer_ctx, plan_for, shard_tree,
+                                              shardings_for)
+    from repro_torch.models import lm
+    from repro_torch.models.sharding_ctx import P
+
+    cfg = smoke_config(arch)
+    plan = plan_for(cfg, mesh)
+    params = lm.init_params(torch.Generator().manual_seed(0), cfg, plan, device="cpu")
+    batch = {"tokens": torch.randint(0, cfg.vocab, (4, 16),
+                                     generator=torch.Generator().manual_seed(1)).int()}
+
+    def grads(p, b):
+        leaves = [x.requires_grad_(True) for _, x in tree_flatten_with_paths(p)]
+        loss, _ = lm.loss_fn(p, b, cfg, plan)
+        gs = torch.autograd.grad(loss, leaves, allow_unused=True)
+        return float(_dt_full(loss).detach()), [None if g is None else _dt_full(g) for g in gs]
+
+    loss_one, g_one = grads(params, batch)
+    p_sh = shard_tree(params, shardings_for(lm.param_specs(cfg, plan), params, mesh))
+    with constrainer_ctx(mesh, plan), implicit_replication():
+        loss_sh, g_sh = grads(p_sh, shard_tree(batch, {"tokens": Sharding(mesh, P(("data",),
+                                                                                 None))}))
+    top = max(float(g.abs().max()) for g in g_one if g is not None)
+    worst = 0.0
+    for a, b in zip(g_one, g_sh):
+        a = torch.zeros(()) if a is None else a
+        b = torch.zeros(()) if b is None else b
+        worst = max(worst, float((a - b).abs().max()) / max(float(a.abs().max()), 1e-6 * top))
+    return {"loss_diff": abs(loss_sh - loss_one), "grad_share": worst,
+            "lost": sum((a is None) != (b is None) for a, b in zip(g_one, g_sh))}
 
 
 def _a2a_step(mesh, ref, meta):
@@ -618,6 +733,12 @@ def _job8(rank, ref, meta, work):
         "g_scale": float(g_ref.abs().max()),
     }
 
+    # -- xLSTM's 4 heads on a model axis of 8 --------------------------------
+    m18 = init_device_mesh("cpu", (1, 8), mesh_dim_names=("data", "model"))
+    res["xlstm"] = {"step": _sharded_vs_one("xlstm-1.3b", m18),
+                    "grads": _sharded_grads_vs_one("xlstm-1.3b", m18),
+                    "serve": _sharded_serve_vs_one("xlstm-1.3b", m18, 2, 24, 4, torch.float32)}
+
     # -- the compressed all-reduce over 8 ranks, 20 steps ------------------
     m8 = init_device_mesh("cpu", (8,), mesh_dim_names=("data",))
     fn = make_compressed_allreduce(m8, "data")
@@ -706,6 +827,49 @@ def test_sharded_step_through_replicate_detours(port4, arch):
     r = port4["detour"][arch]
     print(arch, r)
     assert r["loss_diff"] < 2e-4 and r["param_diff"] < 5e-5, r
+
+
+def _hold_serving(r, cache_dtype):
+    """Sharded serving against one process: logits within the llama3-8b
+    step's parameter bound, each state leaf within 5e-5 of its largest
+    |value| (one bf16 ulp, 2^-8 of it, for a bf16 cache), the same greedy
+    tokens, and the caller's state left as it was."""
+    print(r)
+    assert r["logit_diff"] < 5e-5, r
+    assert r["state_rel"] < (2.0 ** -8 if cache_dtype == "bfloat16" else 5e-5), r
+    assert r["tokens_equal"] and r["input_state_kept"], r
+
+
+@pytest.mark.parametrize("arch", [c[0] for c in SERVE_CASES])
+@pytest.mark.parametrize("cache_dtype", CACHE_DTYPES)
+def test_sharded_serving_matches_single_process(port4, arch, cache_dtype):
+    """Prefill and decode steps as DTensors on (2, 2) (the cache's slot
+    write and contraction on local shards, the rolled window, the argmax
+    over a vocabulary made whole) against the port's one-process serving."""
+    _hold_serving(port4["serve"][f"{arch}/{cache_dtype}"], cache_dtype)
+
+
+def test_xlstm_step_past_its_heads_matches_single_process(port8):
+    """xLSTM's 4 heads on a model axis of 8 (the head width sharded, as on
+    the production mesh's 16): the train step within the llama3-8b step's
+    bounds of the one-process step."""
+    r = port8["xlstm"]["step"]
+    print(r)
+    assert r["loss_diff"] < 2e-4 and r["param_diff"] < 5e-5, r
+
+
+def test_xlstm_grads_past_its_heads_match_single_process(port8):
+    """The same cell's ``loss_fn`` gradients (the head split's and merge's
+    gradients made whole, the mLSTM on batch shards) within 1e-4 of each
+    leaf's largest |g| of the one-process gradients, the bound of
+    ``tests/test_torch_lm_grads.py``; no leaf loses its gradient."""
+    r = port8["xlstm"]["grads"]
+    print(r)
+    assert r["loss_diff"] < 2e-4 and r["grad_share"] < 1e-4 and r["lost"] == 0, r
+
+
+def test_xlstm_serving_past_its_heads_matches_single_process(port8):
+    _hold_serving(port8["xlstm"]["serve"], "float32")
 
 
 def test_sharded_moe_a2a_step_matches_reference(ref, port4):

@@ -4,11 +4,12 @@ report tables, on ``fake`` process groups in this one process.
 
 Held against hand counts (collectives at 4 and 256 ranks, a sharded
 product on 256 ranks: rank 0's flops, not the global product's) and
-against the reference: one subprocess (4 forced CPU devices, an ``Auto``
-``jax.sharding.Mesh`` (2, 2), compiled with ``--xla_cpu_max_isa=AVX`` as
+against the reference: one subprocess (8 forced CPU devices, ``Auto``
+``jax.sharding.Mesh``es, compiled with ``--xla_cpu_max_isa=AVX`` as
 ``tests/test_torch_distributed.py``'s jobs are) lowers and compiles the
-reference's ``lower_cell`` on four smoke cells at a small ``ShapeConfig``,
-while the port traces the same cells on a fake (2, 2) mesh. Held: the
+reference's ``lower_cell`` on four smoke cells at a small ``ShapeConfig``
+on (2, 2) and on the three ``FAULT_CELLS`` on their own meshes, while the
+port traces the same cells on fake meshes of those shapes. Held: the
 plan, the argument bytes and the output bytes exactly (XLA:CPU's output
 size also counts the result tuple's table of 8-byte pointers, one per
 output leaf), and each roofline point's flops between a floor and the
@@ -43,7 +44,8 @@ SRC = os.path.join(HERE, "..", "src")
 
 SMALL = {"train": ShapeConfig("train_small", 16, 8, "train"),
          "decode": ShapeConfig("decode_small", 16, 8, "decode"),
-         "prefill": ShapeConfig("prefill_small", 16, 8, "prefill")}
+         "prefill": ShapeConfig("prefill_small", 16, 8, "prefill"),
+         "decode_b1": ShapeConfig("decode_b1", 16, 1, "decode")}
 CELLS = (("llama3-8b", "train"), ("qwen3-moe-235b-a22b", "train"), ("llama3-8b", "decode"),
          ("xlstm-1.3b", "prefill"))
 # the port's flops at each point as a share of the reference's HLO flops
@@ -53,12 +55,19 @@ CELLS = (("llama3-8b", "train"), ("qwen3-moe-235b-a22b", "train"), ("llama3-8b",
 FLOPS_FLOOR = {("llama3-8b", "train"): 0.80, ("qwen3-moe-235b-a22b", "train"): 0.87,
                ("llama3-8b", "decode"): 0.60, ("xlstm-1.3b", "prefill"): 0.77}
 TUPLE_ENTRY_BYTES = 8
+# cells the port's dry run once raised on, each on its own (data, model) mesh
+# (plan and bytes held; no roofline points): xlstm's 4 heads on a model axis
+# of 8 (the production mesh's 16 shards the head width, as the reference's
+# spec does), decode and train; a decode of global batch 1 on 2 data ranks
+# (long_500k's batch of one on 16)
+FAULT_CELLS = (("xlstm-1.3b", "decode", (1, 8)), ("xlstm-1.3b", "train", (1, 8)),
+               ("recurrentgemma-2b", "decode_b1", (2, 2)))
 
 
 def _env():
     env = dict(os.environ)
     env["PYTHONPATH"] = SRC + os.pathsep + env.get("PYTHONPATH", "")
-    env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4 --xla_cpu_max_isa=AVX"
+    env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8 --xla_cpu_max_isa=AVX"
     env["JAX_PLATFORMS"] = "cpu"
     return env
 
@@ -68,7 +77,7 @@ import dataclasses, json, sys
 import numpy as np
 import jax
 from jax.sharding import Mesh
-devices = jax.devices()          # the backend starts with the 4 forced devices
+devices = jax.devices()          # the backend starts with the 8 forced devices
 import repro.launch.dryrun as D  # its XLA_FLAGS come too late to matter
 from repro.configs import smoke_config
 from repro.configs.base import ShapeConfig
@@ -76,14 +85,14 @@ from repro.launch.shardings import plan_for
 from repro.roofline.analysis import cost_point
 
 small = {k: ShapeConfig(*v) for k, v in json.loads(sys.argv[2]).items()}
-mesh = Mesh(np.array(devices[:4]).reshape(2, 2), ("data", "model"))
 res = {}
-for arch, kind in json.loads(sys.argv[3]):
+for arch, kind, shp in json.loads(sys.argv[3]):
+    mesh = Mesh(np.array(devices[:shp[0] * shp[1]]).reshape(shp), ("data", "model"))
     cfg, shape = smoke_config(arch), small[kind]
     plan = plan_for(cfg, mesh)
     ma = D.lower_cell(cfg, shape, mesh, plan).compile().memory_analysis()
     pts = []
-    for mult in (1, 2):
+    for mult in ((1, 2) if shp == [2, 2] else ()):
         rcfg = dataclasses.replace(cfg, n_layers=len(cfg.block_pattern) * mult,
                                    unroll_layers=True)
         cp = cost_point(D.lower_cell(rcfg, shape, mesh, plan).compile())
@@ -99,11 +108,12 @@ json.dump(res, open(sys.argv[1], "w"))
 @pytest.fixture(scope="module")
 def against_reference(tmp_path_factory):
     """The reference's results (one subprocess, started first) and the
-    port's traces of the same cells on a fake (2, 2) mesh."""
+    port's traces of the same cells on fake meshes of the same shapes."""
     out = tmp_path_factory.mktemp("dryrun_ref") / "ref.json"
     small = {k: [s.name, s.seq_len, s.global_batch, s.kind] for k, s in SMALL.items()}
+    cells = [(a, k, (2, 2)) for a, k in CELLS] + list(FAULT_CELLS)
     proc = subprocess.Popen([sys.executable, "-c", _REF, str(out), json.dumps(small),
-                             json.dumps(CELLS)], env=_env(), stdout=subprocess.PIPE,
+                             json.dumps(cells)], env=_env(), stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     port = {}
     try:
@@ -121,6 +131,13 @@ def against_reference(tmp_path_factory):
                 # full-depth trace
                 port[f"{arch}/{kind}"] = {"plan": {"tp": plan.tp, "fsdp": plan.fsdp},
                                           "full": pts[cfg.n_layers // pat - 1], "points": pts}
+        for arch, kind, shp in FAULT_CELLS:
+            with fake_world(shp[0] * shp[1]):
+                mesh = mesh_mod.make_host_mesh(*shp, device_type="cpu")
+                cfg = smoke_config(arch)
+                plan = plan_for(cfg, mesh)
+                port[f"{arch}/{kind}"] = {"plan": {"tp": plan.tp, "fsdp": plan.fsdp},
+                                          "full": dryrun.lower_cell(cfg, SMALL[kind], mesh, plan)}
     finally:
         log, _ = proc.communicate(timeout=600)
     assert proc.returncode == 0, log[-3000:]
@@ -134,6 +151,20 @@ def test_bytes_and_plan_match_reference(against_reference, arch, kind):
     ref, port = against_reference
     r, p = ref[f"{arch}/{kind}"], port[f"{arch}/{kind}"]
     assert p["plan"] == r["plan"]
+    assert p["full"].argument_bytes == r["argument_bytes"]
+    assert (p["full"].output_bytes + TUPLE_ENTRY_BYTES * p["full"].n_outputs
+            == r["output_bytes"])
+
+
+@pytest.mark.parametrize("arch,kind,mesh", FAULT_CELLS)
+def test_fault_cells_match_reference(against_reference, arch, kind, mesh):
+    """The cells the port's dry run raised on now run, and their plan and
+    argument and output bytes per device equal the reference's compiled
+    program's on the same (data, model) mesh (the output's tuple table
+    aside)."""
+    ref, port = against_reference
+    r, p = ref[f"{arch}/{kind}"], port[f"{arch}/{kind}"]
+    assert p["plan"] == r["plan"] == {"tp": mesh[1], "fsdp": False}
     assert p["full"].argument_bytes == r["argument_bytes"]
     assert (p["full"].output_bytes + TUPLE_ENTRY_BYTES * p["full"].n_outputs
             == r["output_bytes"])
@@ -227,6 +258,21 @@ def test_collective_bytes_of_redistributions(n):
                         "counts": {"collective-permute": 1}}
 
 
+def test_bmm_with_out_dtype_is_counted():
+    """``torch.bmm(..., out_dtype=)`` (the bf16 cache contraction on the
+    card) carries its output dtype as a third positional argument: its
+    flops are counted by the bmm formula all the same."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    fake = FakeTensorMode()
+    with fake:
+        a = torch.empty(4, 8, 16, dtype=torch.bfloat16)
+        b = torch.empty(4, 16, 32, dtype=torch.bfloat16)
+    tr = trace_step(lambda x, y: torch.bmm(x, y, out_dtype=torch.float32), a, b,
+                    fake_mode=fake)
+    assert tr.flops == 2 * 4 * 8 * 16 * 32
+
+
 def test_cost_point_counts_rank0_share():
     """A 4096^2 @ 4096^2 product sharded [Shard(0), Replicate()] @
     [Replicate(), Shard(1)] on 256 ranks. ``FlopCounterMode`` counts the
@@ -254,7 +300,8 @@ def test_cost_point_counts_rank0_share():
 def test_sequence_sharding_needs_strided_flatten(monkeypatch, version, seq_sharded):
     """The "act" constraint shards S over the model axis only where DTensor
     can flatten (B, S) sharded over two axes (torch 2.13; 2.11 raises in
-    every (B, S, D) @ (D, F) product)."""
+    every (B, S, D) @ (D, F) product); likewise the MoE buffer's C over
+    the data axis (the MoE flattens (E, C), E over the model axis)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.distributed.tensor import Replicate, Shard
     from repro_torch.launch.shardings import make_constrainer
@@ -264,9 +311,13 @@ def test_sequence_sharding_needs_strided_flatten(monkeypatch, version, seq_shard
     with fake_world(4):
         mesh = mesh_mod.make_host_mesh(2, 2, device_type="cpu")
         x = _dt((4, 8, 16), mesh, [Replicate(), Replicate()], fake)
-        act = make_constrainer(mesh, plan_for(smoke_config("llama3-8b"), mesh))(x, "act")
+        constrain = make_constrainer(mesh, plan_for(smoke_config("llama3-8b"), mesh))
+        act = constrain(x, "act")
+        buf = constrain(_dt((4, 8, 16), mesh, [Replicate(), Replicate()], fake), "moe_buf")
     want = (Shard(0), Shard(1)) if seq_sharded else (Shard(0), Replicate())
     assert tuple(act.placements) == want
+    assert tuple(buf.placements) == ((Shard(1), Shard(0)) if seq_sharded
+                                     else (Replicate(), Shard(0)))
 
 
 @pytest.mark.skipif(torch.backends.cuda.is_built(), reason="a CUDA build runs fake CUDA steps")

@@ -78,7 +78,8 @@ def _port_files():
     return (sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
             + [ROOT / "chip_smoke.py", ROOT / "tools" / "fused_embed_variants.py",
                ROOT / "tools" / "profiler_windows.py",
-               ROOT / "tools" / "long_context_decode.py"])
+               ROOT / "tools" / "long_context_decode.py",
+               ROOT / "tools" / "dryrun_census.py", ROOT / "tools" / "decode_drift.py"])
 
 
 def _imported_modules(path):

@@ -40,9 +40,10 @@ def port_grads(tp, batch, tc):
     return float(loss.detach()), list(zip(paths, grads))
 
 
-def hold_grads(got, want_tree):
-    """Each leaf of ``got`` against the reference's gradient tree; returns
-    the worst share and the leaves held at the floor."""
+def hold_grads(got, want_tree, rel=REL):
+    """Each leaf of ``got`` against the reference's gradient tree, within
+    ``rel`` of its largest |g|; returns the worst share and the leaves held
+    at the floor."""
     paths, leaves, _ = _flatten_with_paths(want_tree)
     want = {p: np.asarray(x) for p, x in zip(paths, leaves)}
     assert [p for p, _ in got] == paths
@@ -57,7 +58,7 @@ def hold_grads(got, want_tree):
             floored.append(path)
             scale = FLOOR * top
         share = float(np.abs(g - w).max()) / scale
-        assert share <= REL, f"{path}: off by {share:.3g} of its largest |g| ({scale:.3g})"
+        assert share <= rel, f"{path}: off by {share:.3g} of its largest |g| ({scale:.3g})"
         worst = max(worst, share)
     return worst, floored
 
