@@ -2671,14 +2671,20 @@ REFERENCE_FAULT_CELLS = {
     ("xlstm-1.3b", "decode_32k"): (596_606_400, 353_335_984),
     ("xlstm-1.3b", "long_500k"): (287_481_668, 44_167_236),
     ("recurrentgemma-2b", "long_500k"): (488_327_304, 16_838_116),
+    ("recurrentgemma-2b", "prefill_32k"): (471_841_024, 33_676_120),
+    ("recurrentgemma-2b", "train_4k"): (2_829_389_828, 2_829_129_480),
 }
+# the cells whose traces take minutes (recurrentgemma-2b's whole-sequence
+# steps, fault 14): a second dry-run process traces them beside the first
+SLOW_FAULT_CELLS = (("recurrentgemma-2b", "prefill_32k"), ("recurrentgemma-2b", "train_4k"))
 
 
 def dryrun_faults_phase(out, cells=REFERENCE_FAULT_CELLS, device_type="cuda", cfg_of=None,
                         mesh_shape=(16, 16), shapes=None):
     """Phase (l4): the cells the port's dry run once raised on (xlstm's 4
     heads on the 16-way model axis; long_500k's batch of one on 16 data
-    ranks), each one step on the production mesh of fake ranks
+    ranks; recurrentgemma-2b's prefill_32k and train_4k, fault 14), each
+    one step on the production mesh of fake ranks
     (``lower_cell``, no roofline points): the plan, the argument bytes per
     rank equal to the reference's and the output bytes plus the tuple's
     8 B a leaf equal to its, by ``tests/test_torch_dryrun.py``'s rules;
@@ -2712,23 +2718,36 @@ def dryrun_faults_phase(out, cells=REFERENCE_FAULT_CELLS, device_type="cuda", cf
             assert rec["output_bytes"] + 8 * rec["n_outputs"] == want[1], rec
 
 
-DRYRUN_PHASES = ("l2_dryrun", "l4_dryrun_faults")
+def dryrun_worker_phases(part):
+    """The (name, function, keywords) of the phases dry-run process
+    ``part`` runs: 0 phase l2 and l4's quick cells, 1 l4's
+    ``SLOW_FAULT_CELLS``."""
+    slow = {c: REFERENCE_FAULT_CELLS[c] for c in SLOW_FAULT_CELLS}
+    if part == 1:
+        return [("l4_dryrun_faults", dryrun_faults_phase, {"cells": slow})]
+    quick = {c: w for c, w in REFERENCE_FAULT_CELLS.items() if c not in slow}
+    return [("l2_dryrun", dryrun_l2_phase, {}),
+            ("l4_dryrun_faults", dryrun_faults_phase, {"cells": quick})]
 
 
-def dryrun_worker(path):
-    """Phases l2 and l4 in a process of their own, which ``main`` starts
-    before the build and waits for before the first phase it times: both
-    trace on fake tensors on the host's CPU. Each phase's record (or its error) and seconds, as
-    JSON at ``path``; the lines the phases print go to this process's
-    output. Its kernel launch counts must stay 0."""
+DRYRUN_WORKERS = 2
+
+
+def dryrun_worker(path, part=0):
+    """Dry-run process ``part``'s phases (``dryrun_worker_phases``; l2 and
+    l4 trace on fake tensors on the host's CPU), which ``main`` starts
+    before the build, ``DRYRUN_WORKERS`` side by side, and waits for
+    before the first phase it times. Each phase's record (or its error)
+    and seconds, as JSON at ``path``; the lines the phases print go to this
+    process's output. Its kernel launch counts must stay 0."""
     from repro_torch.kernels import ops
 
     res = {}
-    for name, fn in zip(DRYRUN_PHASES, (dryrun_l2_phase, dryrun_faults_phase)):
+    for name, fn, kw in dryrun_worker_phases(part):
         out, t0 = {}, time.perf_counter()
         try:
             ops.reset_launches()
-            fn(out)
+            fn(out, **kw)
             assert not any(ops.LAUNCHES.values()), f"the dry run launched {ops.LAUNCHES}"
             res[name] = {"ok": True, "out": out}
         except Exception:
@@ -2759,7 +2778,11 @@ def dryrun_worker(path):
 # the recurrent decode drifts from the parallel forward with depth
 # (``tools/decode_drift.py``: 48 layers at its widths, prompt 4096, 32
 # steps, the port on the H100 host's CPU 6.91e-4 of the scale, on the card
-# 9.10e-4 with the same weights). ``card_cpu_bound`` /
+# 9.10e-4 with the same weights; the bound is twice the CPU reading). The
+# reference drifts so too: at 16 blocks, a 64-token prompt and 8 steps its
+# decode is 1.35e-4 off its own forward, the port's 2.7e-5 off the port's,
+# and the port's decode 2.43e-4 off the reference's (of a logit scale of
+# 3.97; ``tests/test_torch_lm_widths_recurrent.py``). ``card_cpu_bound`` /
 # ``grad_bound`` replace ``FAMILY_CARD_CPU_BOUND`` for its card-vs-CPU
 # logits and gradients at 8 layers: the port's CPU readings against the
 # reference's at those 8 layers are 7.0e-5 (logits) and 2.36e-4 of a
@@ -3228,18 +3251,27 @@ def main():
                 return None
         return wrap
 
-    # (l2, l4) the dry runs trace on the host's CPU: in a process of their
+    # (l2, l4) the dry runs trace on the host's CPU: in processes of their
     # own, started before the build and waited for after it, so that no
-    # phase timed on the host shares the CPU with it; phases l2 and l4 read
-    # its results
+    # phase timed on the host shares the CPU with them; phases l2 and l4
+    # read their results
     (ROOT / "build").mkdir(exist_ok=True)
-    dry_json = ROOT / "build" / "dryrun_worker.json"
-    dry_json.unlink(missing_ok=True)
-    dry_log = open(ROOT / "build" / "dryrun_worker.log", "w+")
-    dry_proc = subprocess.Popen(
-        [sys.executable, "-c", "import sys; sys.path[:0] = sys.argv[1:3]; import chip_smoke; "
-         "chip_smoke.dryrun_worker(sys.argv[3])", str(ROOT), str(ROOT / "src"), str(dry_json)],
-        cwd=ROOT, stdout=dry_log, stderr=subprocess.STDOUT)
+    dry_procs = []
+    for part in range(DRYRUN_WORKERS):
+        dry_json = ROOT / "build" / f"dryrun_worker{part}.json"
+        dry_json.unlink(missing_ok=True)
+        dry_log = open(ROOT / "build" / f"dryrun_worker{part}.log", "w+")
+        dry_procs.append((subprocess.Popen(
+            [sys.executable, "-c", "import sys; sys.path[:0] = sys.argv[1:3]; import chip_smoke; "
+             "chip_smoke.dryrun_worker(sys.argv[3], int(sys.argv[4]))", str(ROOT),
+             str(ROOT / "src"), str(dry_json), str(part)],
+            cwd=ROOT, stdout=dry_log, stderr=subprocess.STDOUT), dry_log, dry_json))
+
+    def dry_stop():
+        for proc, _, _ in dry_procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
 
     # ---- build -----------------------------------------------------------
     @phase("build")
@@ -3253,36 +3285,43 @@ def main():
         return libs
 
     if built is None:
-        dry_proc.kill()
-        dry_proc.wait()
+        dry_stop()
         _fail("kernel build failed: " + "; ".join(failures))
 
     @phase("dryrun_wait")
     def _dry_wait():
+        t_end = time.monotonic() + 900
         try:
-            dry_proc.wait(timeout=900)
-        except subprocess.TimeoutExpired:
-            dry_proc.kill()
-            dry_proc.wait()
-            raise
+            for proc, _, _ in dry_procs:
+                proc.wait(timeout=max(1.0, t_end - time.monotonic()))
+        finally:
+            dry_stop()
 
     dry = {}
 
     def dry_result(name):
-        """Phase ``name``'s record from the dry-run process (waited for)."""
+        """Phase ``name``'s record from the dry-run processes (waited for):
+        the records of the processes that ran it, merged (l4's cells)."""
         if not dry:
-            dry_proc.wait()
-            dry_log.seek(0)
-            print(dry_log.read(), end="", flush=True)
-            if not dry_json.exists():
-                raise RuntimeError(f"the dry-run process exited {dry_proc.returncode} "
-                                   "without its results")
-            dry.update(json.loads(dry_json.read_text()))
-        res = dry[name]
-        report[name] = res.get("out", {})
-        report[name]["worker_s"] = res["s"]
-        if not res["ok"]:
-            raise RuntimeError(res["error"])
+            for proc, log, path in dry_procs:
+                proc.wait()
+                log.seek(0)
+                print(log.read(), end="", flush=True)
+                if not path.exists():
+                    raise RuntimeError(f"the dry-run process {path.stem} exited "
+                                       f"{proc.returncode} without its results")
+                for k, v in json.loads(path.read_text()).items():
+                    dry.setdefault(k, []).append(v)
+        parts = dry[name]
+        rec = report[name] = {}
+        for res in parts:
+            for k, v in res.get("out", {}).items():
+                rec[k] = {**rec[k], **v} if isinstance(v, dict) and k in rec else v
+        rec["worker_s"] = max(res["s"] for res in parts)
+        rec["worker_parts_s"] = [res["s"] for res in parts]
+        errors = [res["error"] for res in parts if not res["ok"]]
+        if errors:
+            raise RuntimeError("\n".join(errors))
 
     fcfg = FrontendConfig(image_h=256, image_w=256,
                           patch=PatchSpec(32, 32, n_vectors=192), active_fraction=0.25)
@@ -4591,10 +4630,9 @@ def main():
         families_phase(dev, out)
         print(json.dumps({"m_families_s": out["s"]}))
 
-    if dry_proc.poll() is None:      # a phase before l2 failed the script's own way
-        dry_proc.kill()
-        dry_proc.wait()
-    dry_log.close()
+    dry_stop()                       # a phase before l2 failed the script's own way
+    for _, log, _ in dry_procs:
+        log.close()
 
     lost = [k for k in PREROLL_LOST if k is not None]
     report["profiler_preroll_lost"] = {"windows": len(PREROLL_LOST), "max": max(lost, default=None),

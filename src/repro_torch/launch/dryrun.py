@@ -144,7 +144,7 @@ def lower_cell(cfg: ModelConfig, shape: ShapeConfig, mesh, plan: ParallelPlan,
     from torch.distributed.tensor.experimental import implicit_replication
 
     with constrainer_ctx(mesh, plan, moe_a2a=moe_a2a), implicit_replication():
-        tr = trace_step(step, *args, fake_mode=fake)
+        tr = trace_step(step, *args, fake_mode=fake, mesh=mesh)
     tr.setup_s = setup_s
     return tr
 
@@ -179,6 +179,7 @@ def _memory(tr: Trace) -> dict:
     return {
         "argument_bytes_per_device": tr.argument_bytes,
         "output_bytes_per_device": tr.output_bytes,
+        "output_leaves": tr.n_outputs,
         "temp_bytes_per_device": tr.peak_bytes - tr.argument_bytes,
         "alias_bytes_per_device": tr.alias_bytes,
         "approx_peak_per_device": tr.peak_bytes,
@@ -193,8 +194,8 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, do_roofline: bool = Tru
     against ``hbm_bytes``, one H100's 80 GiB unless given). The fake
     tensors lie on ``device_type``'s device: the card's unless the caller
     asks for the CPU."""
-    from repro_torch.roofline.analysis import collective_bytes, cost_point, extrapolate, \
-        model_flops
+    from repro_torch.roofline.analysis import collective_bytes, collectives_by_axis, \
+        cost_point, extrapolate, model_flops
 
     cache_dtype = _dtype(cache_dtype_name)
     cfg = get_config(arch)
@@ -235,6 +236,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, do_roofline: bool = Tru
         rec["microbatch_trail"] = mb_trail
         rec["memory"] = {**_memory(tr), "fits_hbm": bool(tr.peak_bytes <= hbm_bytes)}
         rec["full_collectives"] = collective_bytes(tr)["counts"]
+        rec["full_collectives_by_axis"] = collectives_by_axis(tr)
         # the HBM traffic floor: every argument byte read once; training also
         # writes the params and optimiser state back
         k = 3.0 if shape.is_train else 1.0

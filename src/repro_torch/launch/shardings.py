@@ -100,13 +100,19 @@ def shard_tree(tree, shardings):
 # Activation constrainer (installed around a step by the launcher)
 # ---------------------------------------------------------------------------
 
-def dtensor_flattens_two_sharded_dims() -> bool:
+def dtensor_flattens_two_sharded_dims(mesh) -> bool:
     """Whether this torch's ``DTensor`` can view (B, S, ...) as (B·S, ...)
     with B and S sharded over two mesh axes, as every (B, S, D) @ (D, F)
     product does: torch 2.13 can (a strided shard); torch 2.11 raises
-    ("Attempted to flatten multiple dimensions")."""
+    ("Attempted to flatten multiple dimensions").
+
+    Not on a ``mesh`` of more than two axes either: there B lies over ("pod",
+    "data"), so B·S is sharded over three mesh dims, one of them strided,
+    and torch 2.13 plans every candidate layout of each op on it through
+    its graph-based redistribution planner (a search over the layouts of
+    all three dims; a smoke step on (2, 2, 2) ran past 420 s)."""
     major, minor = (int(x) for x in torch.__version__.split(".")[:2])
-    return (major, minor) >= (2, 13)
+    return (major, minor) >= (2, 13) and len(axis_names(mesh)) <= 2
 
 
 def make_constrainer(mesh, plan: ParallelPlan, seq_shard: bool = True):
@@ -116,11 +122,12 @@ def make_constrainer(mesh, plan: ParallelPlan, seq_shard: bool = True):
     logits: (B, S, V)  V over tp
     moe_buf:(E, C, D)  E over tp, C over dp
     A plain tensor passes through unchanged. Where ``DTensor`` cannot
-    flatten two sharded dims (torch before 2.13), S stays whole (no
+    flatten two sharded dims (torch before 2.13, or a multi-pod mesh:
+    :func:`dtensor_flattens_two_sharded_dims`), S stays whole (no
     sequence parallelism) and so does C (the MoE flattens (E, C))."""
     from torch.distributed.tensor import DTensor
 
-    two_sharded = dtensor_flattens_two_sharded_dims()
+    two_sharded = dtensor_flattens_two_sharded_dims(mesh)
     seq_shard = seq_shard and two_sharded
     dp = plan.dp_axes
     tp = plan.tp_axis

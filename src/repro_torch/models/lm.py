@@ -165,7 +165,9 @@ def _embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     ``DTensor``'s own indexing gathers it) and each rank indexes it with its
     own tokens; the table's gradient is then a sum over the ranks whose
     tokens differ (``Partial`` on their axes). torch 2.11's ``DTensor`` has
-    no working rule for the backward of indexing a table by sharded tokens."""
+    no working rule for the backward of indexing a table by sharded tokens,
+    nor for indexing by tokens sharded over two mesh axes (a multi-pod
+    decode's batch over ("pod", "data"))."""
     from torch.distributed.tensor import DTensor, Partial, Replicate
 
     if not isinstance(table, DTensor):
@@ -460,7 +462,7 @@ def decode_step(params: dict, state: dict, tokens: torch.Tensor, pos: torch.Tens
     """One token step: tokens (B,) integers, ``pos`` a 0-dim integer tensor
     on the params' device (absolute position). Returns (logits (B, V),
     new state)."""
-    x = params["embed"][tokens.long()][:, None, :]             # (B, 1, D)
+    x = _embed(params["embed"], tokens.long())[:, None, :]     # (B, 1, D)
     if cfg.is_encoder_decoder:
         x, new_states = _run_decoder(params, x, cfg, state, state["enc"], decode_pos=pos)
     else:

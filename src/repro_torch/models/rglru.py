@@ -21,7 +21,7 @@ import torch.nn.functional as F
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import ParallelPlan, dense_init, gelu
-from repro_torch.models.sharding_ctx import P
+from repro_torch.models.sharding_ctx import P, whole_along
 
 _C = 8.0
 CONV_K = 4
@@ -76,8 +76,16 @@ def _causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 
 def _gates(p: dict, xc: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """log(a_t) and the input branch sqrt(1 - a_t²) ⊙ i_t ⊙ x_t, both fp32."""
-    x32 = xc.to(torch.float32)
+    """log(a_t) and the input branch sqrt(1 - a_t²) ⊙ i_t ⊙ x_t, both fp32.
+
+    A ``DTensor`` ``xc`` comes sharded on its width over the model axis, as
+    ``wa`` / ``wxg`` shard their output width: it is made whole along it
+    first, so each gate product is column-sharded like its bias. Else
+    ``DTensor`` may contract over the sharded width into a pending sum,
+    and torch 2.11 then asks the bias, ``Shard(0)``, to become that
+    ``Partial`` ("redistribute from S(0) to P(sum) not supported yet"; at
+    recurrentgemma-2b's production widths, not at smoke size)."""
+    x32 = whole_along(xc, -1).to(torch.float32)
     f32 = lambda n: p[n].to(torch.float32)  # noqa: E731
     r = torch.sigmoid(x32 @ f32("wa") + f32("ba"))
     i = torch.sigmoid(x32 @ f32("wxg") + f32("bxg"))

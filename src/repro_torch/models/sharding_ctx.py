@@ -236,12 +236,14 @@ def batch_shards(fn, *args):
     """``fn(*args)`` on each rank's shard of the batch (dim 0), for an
     ``fn`` computed independently along it: every ``DTensor`` argument is
     laid out with dim 0 sharded as the first one's is and every other dim
-    whole, ``fn`` runs on the local tensors and its tensor result comes
-    back in that layout. The mLSTM's parallel form runs so: on a shard of
-    the head width (4 heads on a model axis wider than 4) ``DTensor``
-    cannot run its batched products' backward (it views a permuted local
-    gradient that cannot be viewed). Differentiable. Without a ``DTensor``
-    argument this is ``fn(*args)``."""
+    whole, ``fn`` runs on the local tensors and its result (a tensor, or
+    a dict of them) comes back in that layout. The mLSTM's parallel form
+    runs so: on a shard of the head width (4 heads on a model axis wider
+    than 4) ``DTensor`` cannot run its batched products' backward (it views
+    a permuted local gradient that cannot be viewed); and its final state:
+    torch 2.11's einsum views the local shard of a batch split over two
+    mesh axes ("pod", "data") at the wrong size. Differentiable. Without a
+    ``DTensor`` argument this is ``fn(*args)``."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
 
     lead = next((a for a in args if isinstance(a, DTensor)), None)
@@ -262,7 +264,8 @@ def _on_local(fn, mesh, pl, args):
     # contiguous, here and in the gradients: a DTensor's views are planned
     # on its global strides, which a permuted shard need not match (torch
     # 2.11 fails to view one with a size-1 head dim)
-    return DTensor.from_local(out.contiguous(), mesh, pl, run_check=False)
+    return tree_map(lambda t: DTensor.from_local(t.contiguous(), mesh, pl, run_check=False),
+                    out)
 
 
 class _ContiguousGrad(torch.autograd.Function):

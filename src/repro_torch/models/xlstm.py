@@ -252,7 +252,7 @@ def mlstm_block_forward(p: dict, x: torch.Tensor, state: dict | None = None,
         # on DTensors, on each rank's batch shard (see sharding_ctx.batch_shards)
         h = batch_shards(mlstm_parallel, q, k, v, i_raw, f_raw)
         # fold the sequence into the final recurrent state (prefill -> decode)
-        cell = mlstm_final_state(k, v, i_raw, f_raw)
+        cell = batch_shards(mlstm_final_state, k, v, i_raw, f_raw)
         new_state = {"conv": conv_new, **cell}
     hflat = merge_last(h)
     out = (_group_norm(hflat, p["gn"], nh) * F.silu(z)) @ p["w_down"]

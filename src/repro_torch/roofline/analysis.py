@@ -133,6 +133,20 @@ def collective_bytes(trace) -> dict:
     return out
 
 
+def collectives_by_axis(trace) -> dict:
+    """The collectives of a trace given its mesh, by the mesh axes their
+    groups span (joined with "+", "pod+data" for a group over both; "-"
+    where the group is not known) and then by kind: ``{axes: {kind:
+    bytes, ..., "counts": {kind: n}}}``. "pod" is the slow axis between
+    pods: its traffic is kept apart."""
+    out: dict[str, dict] = {}
+    for (kind, b), axes in zip(trace.collectives, trace.collective_axes):
+        d = out.setdefault("+".join(axes) or "-", {"counts": {}})
+        d[kind] = d.get(kind, 0) + b
+        d["counts"][kind] = d["counts"].get(kind, 0) + 1
+    return out
+
+
 def cost_point(trace) -> dict:
     """One roofline point of a traced step: rank 0's flops, bytes and
     collective bytes, with the collectives by kind."""

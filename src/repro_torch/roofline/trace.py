@@ -17,7 +17,9 @@ storage behind them), and :class:`StepRecorder` records what rank 0 does:
   move nothing and count nothing);
 * ``collectives``: each ``_c10d_functional`` / ``c10d`` / ``_dtensor``
   collective, by the reference's kind name, with the bytes of its result
-  on this rank;
+  on this rank; and, given the mesh, the mesh axes its group spans
+  (``collective_axes``), so that traffic over "pod", the slow axis
+  between pods, is told apart from traffic over "data";
 * ``peak_bytes``: the most bytes of live storage this rank held at once,
   the step's arguments included (each storage counted once, freed when
   its last tensor dies, as the caching allocator sees the eager step).
@@ -81,6 +83,9 @@ class Trace:
     flops: float = 0.0
     bytes: float = 0.0
     collectives: list = dataclasses.field(default_factory=list)  # [(kind, bytes)]
+    # the mesh axes each collective's group spans, in mesh order: one tuple
+    # per ``collectives`` entry, () where the trace was given no mesh
+    collective_axes: list = dataclasses.field(default_factory=list)
     # the collectives made inside ``sharding_ctx.replicated`` (the Replicate()
     # detours around ops DTensor has no rule for), also in ``collectives``
     detour_collectives: list = dataclasses.field(default_factory=list)
@@ -180,9 +185,11 @@ class StepRecorder(TorchDispatchMode):
     ``full``) are made in it: fake, whatever their size. DTensor's
     bookkeeping tensors stay real, since DTensor reads them back."""
 
-    def __init__(self, fake_mode=None):
+    def __init__(self, fake_mode=None, mesh=None):
         super().__init__()
         self.fake_mode = fake_mode
+        self.mesh = mesh
+        self._axes: dict = {}             # a collective's group -> its mesh axes
         self.trace = Trace()
         self.read: set[int] = set()       # ids of the storages a non-view op took
         self.propagating = 0              # see _propagation_marked
@@ -210,6 +217,33 @@ class StepRecorder(TorchDispatchMode):
         """Count the local storage of every tensor of ``tree`` as live."""
         for x in _tensors(tree):
             self._hold_storage(local_tensor(x))
+
+    def _group_axes(self, args, kwargs) -> tuple[str, ...]:
+        """The axes of :attr:`mesh` along which a collective's group (its
+        ``group_name`` or its ``ProcessGroup`` argument) runs: those whose
+        coordinate differs between the group's ranks. ``()`` without a
+        mesh."""
+        import torch.distributed as dist
+        from torch.distributed.distributed_c10d import _resolve_process_group
+
+        if self.mesh is None:
+            return ()
+        flat = tree_flatten((args, kwargs))[0]
+        group = next((a for a in reversed(flat) if isinstance(a, str)), None)
+        if group is None:
+            group = next((a for a in flat if isinstance(a, dist.ProcessGroup)), None)
+        if group is None:
+            return ()
+        key = group if isinstance(group, str) else id(group)
+        if key not in self._axes:
+            pg = _resolve_process_group(group) if isinstance(group, str) else group
+            ranks = dist.get_process_group_ranks(pg)
+            layout = self.mesh.mesh
+            coords = [tuple(int(c) for c in (layout == r).nonzero()[0]) for r in ranks]
+            names = self.mesh.mesh_dim_names or tuple(str(i) for i in range(layout.dim()))
+            self._axes[key] = tuple(n for d, n in enumerate(names)
+                                    if len({c[d] for c in coords}) > 1)
+        return self._axes[key]
 
     # -- the mode ------------------------------------------------------------
     def __enter__(self):
@@ -252,6 +286,7 @@ class StepRecorder(TorchDispatchMode):
             res = (_tensors(args[_OUT_ARG[name]]) if name in _OUT_ARG
                    else ins[:1] if kind == "collective-permute" else outs or ins[:1])
             tr.collectives.append((kind, sum(_nbytes(t) for t in res)))
+            tr.collective_axes.append(self._group_axes(args, kwargs))
             if _in_detour():
                 tr.detour_collectives.append(tr.collectives[-1])
         if not outs:             # metadata (prim.device, sizes) or a work handle
@@ -275,14 +310,15 @@ def _local_bytes(tree) -> int:
     return sum(_nbytes(local_tensor(x)) for x in _tensors(tree))
 
 
-def trace_step(step, *args, fake_mode=None) -> Trace:
+def trace_step(step, *args, fake_mode=None, mesh=None) -> Trace:
     """Run ``step(*args)`` under a :class:`StepRecorder` holding ``args``
     as live storage; its trace, with the local bytes of the arguments the
     step reads (one that no op takes, or whose shape alone is used, is not
     an argument of the step, as ``jax.jit`` prunes it) and of its outputs.
     ``fake_mode``: the ``FakeTensorMode`` of fake ``args`` (see
-    :class:`StepRecorder`); the step runs outside it."""
-    rec = StepRecorder(fake_mode)
+    :class:`StepRecorder`); the step runs outside it. ``mesh``: the
+    ``DeviceMesh`` whose axes each collective is attributed to."""
+    rec = StepRecorder(fake_mode, mesh)
     rec.hold(args)
     t0 = time.time()
     with rec:

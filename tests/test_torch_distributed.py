@@ -16,6 +16,7 @@ rendezvous under the test's temporary directory. Each rank runs all of
 its cases; rank 0 writes the results the tests read.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -47,6 +48,13 @@ DETOUR_ARCHS = ("qwen3-moe-235b-a22b",)
 # over batch and kv heads
 SERVE_CASES = (("recurrentgemma-2b", 1, 72, 6), ("llama3-8b", 2, 24, 4))
 CACHE_DTYPES = ("float32", "bfloat16", "int8")
+# recurrentgemma-2b's prefill_32k / train_4k geometry (fault 14) on (2, 4):
+# query heads that do not divide the model axis (6 on 4, as 10 on 16) over
+# one kv head, and a sequence long enough that the RG-LRU's gate products
+# take the route the repair gives them at production size: (smoke config
+# changes, tokens a sequence; the train step's batch 4, serving's 2 with 2
+# decode steps)
+F14_REPL, F14_SEQ = {"n_heads": 6}, 1024
 COMP_STEPS = 20
 
 
@@ -124,24 +132,26 @@ res["lm_loss_sharded"] = float(m_sh["loss"]); res["lm_loss_one"] = float(m_one["
 res["lm_param_diff_ref"] = max(float(np.abs(a - b).max())
                                for a, b in zip(leaves(p_out)[1], leaves(p_one)[1]))
 
-# -- the qwen3-moe step through the all-to-all MoE (constrainer_ctx moe_a2a) --
-acfg = smoke_config("qwen3-moe-235b-a22b")
-aplan = plan_for(acfg, m22)
-aparams = M.init_params(jax.random.PRNGKey(3), acfg, aplan)
-aopt = init_opt_state(aparams, opt)
-atokens = np.random.default_rng(3).integers(0, acfg.vocab, (4, 16)).astype(np.int32)
-aspecs = M.param_specs(acfg, aplan)
-ap_sh = shardings_for(aspecs, aparams, m22)
-ao_sh = shardings_for(opt_state_specs(aspecs), aopt, m22)
-with constrainer_ctx(m22, aplan, moe_a2a=True):
-    astep = jax.jit(make_train_step(acfg, aplan, opt, compute_dtype=jnp.float32),
-                    in_shardings=(ap_sh, ao_sh, b_sh), out_shardings=(ap_sh, ao_sh, None))
-    ap_out, _, am = astep(aparams, aopt, {"tokens": jnp.asarray(atokens)})
-res["a2a_paths"] = leaves(aparams)[0]
-arrs["a2a_tokens"] = atokens
-for i, (a, b) in enumerate(zip(leaves(aparams)[1], leaves(ap_out)[1])):
-    arrs[f"a2a_init_{i}"], arrs[f"a2a_sharded_{i}"] = a, b
-res["a2a_loss_sharded"] = float(am["loss"])
+# -- the qwen3-moe step through the all-to-all MoE (constrainer_ctx moe_a2a),
+# and kimi-k2's, whose MoE blocks add a shared expert --------------------------
+for pre, arch, seed in (("a2a", "qwen3-moe-235b-a22b", 3), ("a2a_kimi", "kimi-k2-1t-a32b", 4)):
+    acfg = smoke_config(arch)
+    aplan = plan_for(acfg, m22)
+    aparams = M.init_params(jax.random.PRNGKey(seed), acfg, aplan)
+    aopt = init_opt_state(aparams, opt)
+    atokens = np.random.default_rng(seed).integers(0, acfg.vocab, (4, 16)).astype(np.int32)
+    aspecs = M.param_specs(acfg, aplan)
+    ap_sh = shardings_for(aspecs, aparams, m22)
+    ao_sh = shardings_for(opt_state_specs(aspecs), aopt, m22)
+    with constrainer_ctx(m22, aplan, moe_a2a=True):
+        astep = jax.jit(make_train_step(acfg, aplan, opt, compute_dtype=jnp.float32),
+                        in_shardings=(ap_sh, ao_sh, b_sh), out_shardings=(ap_sh, ao_sh, None))
+        ap_out, _, am = astep(aparams, aopt, {"tokens": jnp.asarray(atokens)})
+    res[f"{pre}_paths"] = leaves(aparams)[0]
+    arrs[f"{pre}_tokens"] = atokens
+    for i, (a, b) in enumerate(zip(leaves(aparams)[1], leaves(ap_out)[1])):
+        arrs[f"{pre}_init_{i}"], arrs[f"{pre}_sharded_{i}"] = a, b
+    res[f"{pre}_loss_sharded"] = float(am["loss"])
 
 print("lm", time.time() - t0, flush=True)
 # -- the pipeline (test_distributed.py:124, :154, :178) ---------------------
@@ -384,6 +394,7 @@ def _job4(rank, ref, meta, work):
     res["serve"] = {f"{a}/{dt}": _sharded_serve_vs_one(a, m22, b, s, n, getattr(torch, dt))
                     for a, b, s, n in SERVE_CASES for dt in CACHE_DTYPES}
     res["a2a"] = _a2a_step(m22, ref, meta)
+    res["a2a_kimi"] = _a2a_step(m22, ref, meta, "kimi-k2-1t-a32b", "a2a_kimi")
 
     # -- the pipeline on a (4,) "pod" mesh ---------------------------------
     m4 = init_device_mesh("cpu", (4,), mesh_dim_names=("pod",))
@@ -444,9 +455,10 @@ def _job4(rank, ref, meta, work):
     return res
 
 
-def _sharded_vs_one(arch, mesh):
-    """One float32 train step of ``arch``'s smoke config, batch 4 x 16, as
-    DTensors on ``mesh`` and as plain tensors: (loss diff, param diff)."""
+def _sharded_vs_one(arch, mesh, repl=None, seq=16):
+    """One float32 train step of ``arch``'s smoke config (with the fields
+    ``repl`` changes), batch 4 x ``seq``, as DTensors on ``mesh`` and as
+    plain tensors: (loss diff, param diff)."""
     from repro_torch.configs import smoke_config
     from repro_torch.convert import tree_flatten_with_paths
     from repro_torch.launch.shardings import (Sharding, constrainer_ctx, plan_for, shard_tree,
@@ -456,12 +468,12 @@ def _sharded_vs_one(arch, mesh):
     from repro_torch.optim import AdamWConfig, init_opt_state, opt_state_specs
     from repro_torch.train.train_step import make_train_step
 
-    cfg = smoke_config(arch)
+    cfg = dataclasses.replace(smoke_config(arch), **(repl or {}))
     plan = plan_for(cfg, mesh)
     params = lm.init_params(torch.Generator().manual_seed(0), cfg, plan, device="cpu")
     opt = AdamWConfig(lr=1e-3)
     ostate = init_opt_state(params, opt)
-    batch = {"tokens": torch.randint(0, cfg.vocab, (4, 16),
+    batch = {"tokens": torch.randint(0, cfg.vocab, (4, seq),
                                      generator=torch.Generator().manual_seed(1)).int()}
     step = make_train_step(cfg, plan, opt, compute_dtype=torch.float32)
     p_one, _, m_one = step(params, ostate, batch)
@@ -476,9 +488,10 @@ def _sharded_vs_one(arch, mesh):
                 tree_flatten_with_paths(p_one), tree_flatten_with_paths(p_sh)))}
 
 
-def _sharded_serve_vs_one(arch, mesh, batch, prompt, steps, cache_dtype):
-    """``arch``'s smoke config served as DTensors on ``mesh`` and as plain
-    tensors: prefill of ``batch`` x ``prompt`` tokens, then ``steps`` greedy
+def _sharded_serve_vs_one(arch, mesh, batch, prompt, steps, cache_dtype, repl=None):
+    """``arch``'s smoke config (with the fields ``repl`` changes) served as
+    DTensors on ``mesh`` and as plain tensors: prefill of ``batch`` x
+    ``prompt`` tokens, then ``steps`` greedy
     decode steps, each side fed its own tokens. Returns the largest logit
     and final-state differences, whether the greedy tokens agree, and
     whether the sharded steps left their input states as they were."""
@@ -491,7 +504,7 @@ def _sharded_serve_vs_one(arch, mesh, batch, prompt, steps, cache_dtype):
     from repro_torch.models.sharding_ctx import P
     from repro_torch.serve.serve_step import make_decode_step, make_prefill_step
 
-    cfg = smoke_config(arch)
+    cfg = dataclasses.replace(smoke_config(arch), **(repl or {}))
     plan = plan_for(cfg, mesh)
     params = lm.init_params(torch.Generator().manual_seed(0), cfg, plan, device="cpu")
     tokens = torch.randint(0, cfg.vocab, (batch, prompt),
@@ -579,12 +592,13 @@ def _sharded_grads_vs_one(arch, mesh):
             "lost": sum((a is None) != (b is None) for a, b in zip(g_one, g_sh))}
 
 
-def _a2a_step(mesh, ref, meta):
-    """The reference's qwen3-moe smoke step (its weights, batch 4 x 16) as
-    DTensors on ``mesh`` under ``constrainer_ctx(..., moe_a2a=True)``, so
-    every MoE block dispatches through ``apply_moe_a2a`` on DTensors:
-    (loss, params) against the reference's sharded step, and how many times
-    each MoE route ran."""
+def _a2a_step(mesh, ref, meta, arch="qwen3-moe-235b-a22b", pre="a2a"):
+    """The reference's smoke step of ``arch`` (its weights and batch 4 x 16,
+    stored under ``pre``) as DTensors on ``mesh`` under
+    ``constrainer_ctx(..., moe_a2a=True)``, so every MoE block dispatches
+    through ``apply_moe_a2a`` on DTensors (kimi-k2's with its shared
+    expert): (loss, params) against the reference's sharded step, and how
+    many times each MoE route ran."""
     from repro_torch.configs import smoke_config
     from repro_torch.convert import tree_flatten_with_paths, tree_unflatten
     from repro_torch.launch.shardings import (Sharding, constrainer_ctx, plan_for, shard_tree,
@@ -594,12 +608,12 @@ def _a2a_step(mesh, ref, meta):
     from repro_torch.optim import AdamWConfig, init_opt_state, opt_state_specs
     from repro_torch.train.train_step import make_train_step
 
-    cfg = smoke_config("qwen3-moe-235b-a22b")
+    cfg = smoke_config(arch)
     plan = plan_for(cfg, mesh)
     like = lm.init_params(torch.Generator().manual_seed(0), cfg, plan, device="cpu")
     paths = [p for p, _ in tree_flatten_with_paths(like)]
-    assert paths == meta["a2a_paths"], "parameter trees differ"
-    params = tree_unflatten(like, [torch.from_numpy(ref[f"a2a_init_{i}"])
+    assert paths == meta[f"{pre}_paths"], "parameter trees differ"
+    params = tree_unflatten(like, [torch.from_numpy(ref[f"{pre}_init_{i}"])
                                    for i in range(len(paths))])
     opt = AdamWConfig(lr=1e-3)
     ostate = init_opt_state(params, opt)
@@ -620,16 +634,17 @@ def _a2a_step(mesh, ref, meta):
             p_out, o_out, m_sh = make_train_step(cfg, plan, opt, compute_dtype=torch.float32)(
                 shard_tree(params, shardings_for(pspecs, params, mesh)),
                 shard_tree(ostate, shardings_for(opt_state_specs(pspecs), ostate, mesh)),
-                shard_tree({"tokens": torch.from_numpy(ref["a2a_tokens"])},
+                shard_tree({"tokens": torch.from_numpy(ref[f"{pre}_tokens"])},
                            {"tokens": Sharding(mesh, P(("data",), None))}))
     finally:
         blocks.apply_moe_a2a, blocks.moe_mod.apply_moe = routes["a2a"], routes["plain"]
     leaves = [x for _, x in tree_flatten_with_paths(p_out)]
     return {
         "loss_sharded": float(_dt_full(m_sh["loss"])),
-        "vs_ref_sharded": max(float((_dt_full(a) - torch.from_numpy(ref[f"a2a_sharded_{i}"]))
+        "vs_ref_sharded": max(float((_dt_full(a) - torch.from_numpy(ref[f"{pre}_sharded_{i}"]))
                                     .abs().max()) for i, a in enumerate(leaves)),
         "calls": calls, "moe_layers": sum(k == "moe" for k in cfg.layer_kinds),
+        "shared_experts": cfg.moe.n_shared_experts,
         "all_dtensor": all(type(x).__name__ == "DTensor" for x in leaves)
                        and all(type(x).__name__ == "DTensor"
                                for _, x in tree_flatten_with_paths(o_out)),
@@ -738,6 +753,13 @@ def _job8(rank, ref, meta, work):
     res["xlstm"] = {"step": _sharded_vs_one("xlstm-1.3b", m18),
                     "grads": _sharded_grads_vs_one("xlstm-1.3b", m18),
                     "serve": _sharded_serve_vs_one("xlstm-1.3b", m18, 2, 24, 4, torch.float32)}
+
+    # -- recurrentgemma's fault-14 geometry on (2, 4) ------------------------
+    m24r = init_device_mesh("cpu", (2, 4), mesh_dim_names=("data", "model"))
+    res["rg_f14"] = {
+        "step": _sharded_vs_one("recurrentgemma-2b", m24r, F14_REPL, seq=F14_SEQ),
+        "serve": _sharded_serve_vs_one("recurrentgemma-2b", m24r, 2, F14_SEQ, 2, torch.float32,
+                                       F14_REPL)}
 
     # -- the compressed all-reduce over 8 ranks, 20 steps ------------------
     m8 = init_device_mesh("cpu", (8,), mesh_dim_names=("data",))
@@ -872,19 +894,50 @@ def test_xlstm_serving_past_its_heads_matches_single_process(port8):
     _hold_serving(port8["xlstm"]["serve"], "float32")
 
 
+def test_recurrentgemma_fault14_step_matches_single_process(port8):
+    """recurrentgemma's train_4k geometry (6 query heads on a model axis of
+    4 over one kv head, 1024 tokens, the RG-LRU gates on their repaired
+    route) as DTensors on (2, 4): the train step within the llama3-8b
+    step's bounds of the one-process step (measured 0.0 and 0.0)."""
+    r = port8["rg_f14"]["step"]
+    print(r)
+    assert r["loss_diff"] < 2e-4 and r["param_diff"] < 5e-5, r
+
+
+def test_recurrentgemma_fault14_serving_matches_single_process(port8):
+    """The same geometry's prefill of 1024 tokens and 2 decode steps as
+    DTensors, held as sharded serving is (``_hold_serving``; measured: logits
+    1.0e-6 off, state 9.4e-7 of its largest |value|)."""
+    _hold_serving(port8["rg_f14"]["serve"], "float32")
+
+
+def _hold_a2a(ref, port4, pre, shared):
+    res, _ = ref
+    r = port4[pre]
+    print(pre, "port a2a loss", r["loss_sharded"], "reference", res[f"{pre}_loss_sharded"],
+          "| params vs reference sharded", r["vs_ref_sharded"], "| calls", r["calls"])
+    assert r["calls"] == {"a2a": r["moe_layers"], "plain": 0} and r["moe_layers"] > 0, r
+    assert r["shared_experts"] == shared, r
+    assert r["all_dtensor"], r
+    assert abs(r["loss_sharded"] - res[f"{pre}_loss_sharded"]) < 2e-4
+    assert r["vs_ref_sharded"] < 5e-5
+
+
 def test_sharded_moe_a2a_step_matches_reference(ref, port4):
     """The qwen3-moe step with every MoE block routed through
     ``apply_moe_a2a`` on DTensors, against the reference's sharded step
     under ``constrainer_ctx(..., moe_a2a=True)`` on its ``Auto`` (2, 2) mesh,
     at the reference's bounds."""
-    res, _ = ref
-    r = port4["a2a"]
-    print("port a2a loss", r["loss_sharded"], "reference", res["a2a_loss_sharded"],
-          "| params vs reference sharded", r["vs_ref_sharded"], "| calls", r["calls"])
-    assert r["calls"] == {"a2a": r["moe_layers"], "plain": 0} and r["moe_layers"] > 0, r
-    assert r["all_dtensor"], r
-    assert abs(r["loss_sharded"] - res["a2a_loss_sharded"]) < 2e-4
-    assert r["vs_ref_sharded"] < 5e-5
+    _hold_a2a(ref, port4, "a2a", 0)
+
+
+def test_sharded_moe_a2a_shared_expert_step_matches_reference(ref, port4):
+    """kimi-k2's smoke step, whose MoE blocks add a shared expert, through
+    ``apply_moe_a2a`` on DTensors (the shared expert's branch), against the
+    reference's sharded step under ``constrainer_ctx(..., moe_a2a=True)`` on
+    its ``Auto`` (2, 2) mesh, at the reference's bounds: loss 2e-4,
+    parameters 5e-5 (measured: loss 9.5e-7, parameters 0.0)."""
+    _hold_a2a(ref, port4, "a2a_kimi", 1)
 
 
 def test_sharded_train_step_keeps_dtensor_layouts(port4):

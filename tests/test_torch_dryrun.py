@@ -25,11 +25,14 @@ import dataclasses
 import functools
 import json
 import os
+import signal
 import subprocess
 import sys
+import time
 
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.configs import smoke_config
 from repro_torch.configs.base import ShapeConfig
@@ -45,7 +48,9 @@ SRC = os.path.join(HERE, "..", "src")
 SMALL = {"train": ShapeConfig("train_small", 16, 8, "train"),
          "decode": ShapeConfig("decode_small", 16, 8, "decode"),
          "prefill": ShapeConfig("prefill_small", 16, 8, "prefill"),
-         "decode_b1": ShapeConfig("decode_b1", 16, 1, "decode")}
+         "decode_b1": ShapeConfig("decode_b1", 16, 1, "decode"),
+         "prefill_long": ShapeConfig("prefill_long", 2560, 4, "prefill"),
+         "train_long": ShapeConfig("train_long", 2560, 4, "train")}
 CELLS = (("llama3-8b", "train"), ("qwen3-moe-235b-a22b", "train"), ("llama3-8b", "decode"),
          ("xlstm-1.3b", "prefill"))
 # the port's flops at each point as a share of the reference's HLO flops
@@ -60,8 +65,57 @@ TUPLE_ENTRY_BYTES = 8
 # of 8 (the production mesh's 16 shards the head width, as the reference's
 # spec does), decode and train; a decode of global batch 1 on 2 data ranks
 # (long_500k's batch of one on 16)
+# (long_500k's batch of one on 16); recurrentgemma-2b's prefill_32k and
+# train_4k geometry (fault 14): query heads that do not divide the model
+# axis (6 on 4, as 10 on 16) over one kv head, and sequences long enough
+# that DTensor contracts the RG-LRU's gate products over the width the
+# model axis shards into a pending sum, as at production size (torch 2.11
+# then asked the gate bias to become that sum)
 FAULT_CELLS = (("xlstm-1.3b", "decode", (1, 8)), ("xlstm-1.3b", "train", (1, 8)),
-               ("recurrentgemma-2b", "decode_b1", (2, 2)))
+               ("recurrentgemma-2b", "decode_b1", (2, 2)),
+               ("recurrentgemma-2b", "prefill_long", (2, 4)),
+               ("recurrentgemma-2b", "train_long", (2, 4)))
+# the smoke config's changes for a fault cell: (arch, mesh) -> fields
+FAULT_CONFIG = {("recurrentgemma-2b", (2, 4)): {"n_heads": 6}}
+# multi-pod cells on (2, 2, 2) ("pod", "data", "model"), one with FSDP set
+# by hand over ("pod", "data") in both packages (smoke configs fall under
+# plan_for's 10B mark), and a decode, whose batch of tokens lies over
+# ("pod", "data") (fault 15): (arch, kind, fsdp)
+MULTI_POD_CELLS = (("llama3-8b", "train", False), ("recurrentgemma-2b", "prefill", False),
+                   ("llama3-8b", "train", True), ("llama3-8b", "decode", False))
+MULTI_POD_MESH = (2, 2, 2)
+# each multi-pod trace's own limit, and the fixture's for all of them (a
+# stall fails the cases instead of the suite's clock); measured here
+# 7-24 s a cell (before the multi-pod mesh kept S whole, over 420 s)
+MULTI_POD_SECONDS = 90
+MULTI_POD_DEADLINE = 240
+
+
+def _key(arch, kind, mesh, fsdp=False):
+    return f"{arch}/{kind}/{'x'.join(map(str, mesh))}" + ("/fsdp" if fsdp else "")
+
+
+def _fault_cfg(arch, mesh):
+    return dataclasses.replace(smoke_config(arch), **FAULT_CONFIG.get((arch, tuple(mesh)), {}))
+
+
+class _Deadline:
+    """Raises ``TimeoutError`` in the main thread after ``seconds``."""
+
+    def __init__(self, seconds):
+        self.seconds = seconds
+
+    def _fire(self, *_):
+        raise TimeoutError(f"the multi-pod traces ran past {self.seconds} s")
+
+    def __enter__(self):
+        self.old = signal.signal(signal.SIGALRM, self._fire)
+        signal.alarm(self.seconds)
+
+    def __exit__(self, *exc):
+        signal.alarm(0)
+        signal.signal(signal.SIGALRM, self.old)
+        return False
 
 
 def _env():
@@ -86,10 +140,14 @@ from repro.roofline.analysis import cost_point
 
 small = {k: ShapeConfig(*v) for k, v in json.loads(sys.argv[2]).items()}
 res = {}
-for arch, kind, shp in json.loads(sys.argv[3]):
-    mesh = Mesh(np.array(devices[:shp[0] * shp[1]]).reshape(shp), ("data", "model"))
-    cfg, shape = smoke_config(arch), small[kind]
+for key, arch, kind, shp, repl, fsdp in json.loads(sys.argv[3]):
+    names = ("pod", "data", "model")[-len(shp):]
+    n = int(np.prod(shp))
+    mesh = Mesh(np.array(devices[:n]).reshape(shp), names)
+    cfg, shape = dataclasses.replace(smoke_config(arch), **repl), small[kind]
     plan = plan_for(cfg, mesh)
+    if fsdp:
+        plan = dataclasses.replace(plan, fsdp=True)
     ma = D.lower_cell(cfg, shape, mesh, plan).compile().memory_analysis()
     pts = []
     for mult in ((1, 2) if shp == [2, 2] else ()):
@@ -98,9 +156,9 @@ for arch, kind, shp in json.loads(sys.argv[3]):
         cp = cost_point(D.lower_cell(rcfg, shape, mesh, plan).compile())
         pts.append({"flops": cp["flops"],
                     "slstm": D.slstm_flops_correction(rcfg, shape, rcfg.n_layers, 4)})
-    res[f"{arch}/{kind}"] = {"plan": {"tp": plan.tp, "fsdp": plan.fsdp},
-                             "argument_bytes": int(ma.argument_size_in_bytes),
-                             "output_bytes": int(ma.output_size_in_bytes), "points": pts}
+    res[key] = {"plan": {"tp": plan.tp, "fsdp": plan.fsdp},
+                "argument_bytes": int(ma.argument_size_in_bytes),
+                "output_bytes": int(ma.output_size_in_bytes), "points": pts}
 json.dump(res, open(sys.argv[1], "w"))
 """
 
@@ -111,7 +169,11 @@ def against_reference(tmp_path_factory):
     port's traces of the same cells on fake meshes of the same shapes."""
     out = tmp_path_factory.mktemp("dryrun_ref") / "ref.json"
     small = {k: [s.name, s.seq_len, s.global_batch, s.kind] for k, s in SMALL.items()}
-    cells = [(a, k, (2, 2)) for a, k in CELLS] + list(FAULT_CELLS)
+    cells = ([(_key(a, k, (2, 2)), a, k, (2, 2), {}, False) for a, k in CELLS]
+             + [(_key(a, k, m), a, k, m, FAULT_CONFIG.get((a, m), {}), False)
+                for a, k, m in FAULT_CELLS]
+             + [(_key(a, k, MULTI_POD_MESH, f), a, k, MULTI_POD_MESH, {}, f)
+                for a, k, f in MULTI_POD_CELLS])
     proc = subprocess.Popen([sys.executable, "-c", _REF, str(out), json.dumps(small),
                              json.dumps(cells)], env=_env(), stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
@@ -129,15 +191,29 @@ def against_reference(tmp_path_factory):
                 # each smoke stack is 1x or 2x its pattern, and the port's layer
                 # loop is the same program unrolled or not: that point is the
                 # full-depth trace
-                port[f"{arch}/{kind}"] = {"plan": {"tp": plan.tp, "fsdp": plan.fsdp},
-                                          "full": pts[cfg.n_layers // pat - 1], "points": pts}
+                port[_key(arch, kind, (2, 2))] = {
+                    "plan": {"tp": plan.tp, "fsdp": plan.fsdp},
+                    "full": pts[cfg.n_layers // pat - 1], "points": pts}
         for arch, kind, shp in FAULT_CELLS:
             with fake_world(shp[0] * shp[1]):
                 mesh = mesh_mod.make_host_mesh(*shp, device_type="cpu")
+                cfg = _fault_cfg(arch, shp)
+                plan = plan_for(cfg, mesh)
+                port[_key(arch, kind, shp)] = {
+                    "plan": {"tp": plan.tp, "fsdp": plan.fsdp},
+                    "full": dryrun.lower_cell(cfg, SMALL[kind], mesh, plan)}
+        with _Deadline(MULTI_POD_DEADLINE), fake_world(8):
+            mesh = mesh_mod._device_mesh(MULTI_POD_MESH, ("pod", "data", "model"), "cpu")
+            for arch, kind, fsdp in MULTI_POD_CELLS:
                 cfg = smoke_config(arch)
                 plan = plan_for(cfg, mesh)
-                port[f"{arch}/{kind}"] = {"plan": {"tp": plan.tp, "fsdp": plan.fsdp},
-                                          "full": dryrun.lower_cell(cfg, SMALL[kind], mesh, plan)}
+                if fsdp:
+                    plan = dataclasses.replace(plan, fsdp=True)
+                t0 = time.time()
+                full = dryrun.lower_cell(cfg, SMALL[kind], mesh, plan)
+                port[_key(arch, kind, MULTI_POD_MESH, fsdp)] = {
+                    "plan": {"tp": plan.tp, "fsdp": plan.fsdp},
+                    "fsdp_axis": plan.fsdp_axis, "full": full, "s": time.time() - t0}
     finally:
         log, _ = proc.communicate(timeout=600)
     assert proc.returncode == 0, log[-3000:]
@@ -149,7 +225,7 @@ def test_bytes_and_plan_match_reference(against_reference, arch, kind):
     """The plan and the argument and output bytes per device equal the
     reference's compiled program's (the output's tuple table aside)."""
     ref, port = against_reference
-    r, p = ref[f"{arch}/{kind}"], port[f"{arch}/{kind}"]
+    r, p = ref[_key(arch, kind, (2, 2))], port[_key(arch, kind, (2, 2))]
     assert p["plan"] == r["plan"]
     assert p["full"].argument_bytes == r["argument_bytes"]
     assert (p["full"].output_bytes + TUPLE_ENTRY_BYTES * p["full"].n_outputs
@@ -163,7 +239,7 @@ def test_fault_cells_match_reference(against_reference, arch, kind, mesh):
     program's on the same (data, model) mesh (the output's tuple table
     aside)."""
     ref, port = against_reference
-    r, p = ref[f"{arch}/{kind}"], port[f"{arch}/{kind}"]
+    r, p = ref[_key(arch, kind, mesh)], port[_key(arch, kind, mesh)]
     assert p["plan"] == r["plan"] == {"tp": mesh[1], "fsdp": False}
     assert p["full"].argument_bytes == r["argument_bytes"]
     assert (p["full"].output_bytes + TUPLE_ENTRY_BYTES * p["full"].n_outputs
@@ -176,8 +252,8 @@ def test_point_flops_bracketed_by_reference(against_reference, arch, kind):
     its sLSTM correction, at least the measured floor of that."""
     ref, port = against_reference
     cfg = smoke_config(arch)
-    for mult, r, p in zip((1, 2), ref[f"{arch}/{kind}"]["points"],
-                          port[f"{arch}/{kind}"]["points"]):
+    for mult, r, p in zip((1, 2), ref[_key(arch, kind, (2, 2))]["points"],
+                          port[_key(arch, kind, (2, 2))]["points"]):
         n = len(cfg.block_pattern) * mult
         assert dryrun.slstm_flops_correction(
             dataclasses.replace(cfg, n_layers=n), SMALL[kind], n, 4) == r["slstm"]
@@ -192,12 +268,185 @@ def test_replicate_detours_are_counted(against_reference):
     with -s: their share of the collective bytes); llama3-8b has none."""
     _, port = against_reference
     for key in ("qwen3-moe-235b-a22b/train", "xlstm-1.3b/prefill", "llama3-8b/train"):
-        tr = port[key]["full"]
+        tr = port[key + "/2x2"]["full"]
         det = analysis.collective_bytes(dataclasses.replace(tr, collectives=tr.detour_collectives))
         total = analysis.collective_bytes(tr)
         print(key, "detours:", det["counts"], det["total"], "of", total["total"], "bytes")
         assert all(c in tr.collectives for c in tr.detour_collectives)
         assert (det["total"] > 0) == (not key.startswith("llama3-8b"))
+
+
+@pytest.mark.parametrize("arch,kind,fsdp", MULTI_POD_CELLS)
+def test_multi_pod_cells_match_reference(against_reference, arch, kind, fsdp):
+    """Smoke cells on a (2, 2, 2) ("pod", "data", "model") mesh of fake
+    ranks, each traced within ``MULTI_POD_SECONDS`` (the fixture's traces
+    stop at ``MULTI_POD_DEADLINE``), against the reference's compiled
+    cells on 8 forced devices: the plan, with FSDP (set by hand) over
+    ("pod", "data"), and the argument and output bytes per device (the
+    output's tuple table aside)."""
+    ref, port = against_reference
+    key = _key(arch, kind, MULTI_POD_MESH, fsdp)
+    r, p = ref[key], port[key]
+    print(key, f"{p['s']:.1f} s")
+    assert p["s"] < MULTI_POD_SECONDS
+    assert p["plan"] == r["plan"] == {"tp": 2, "fsdp": fsdp}
+    assert p["fsdp_axis"] == ("pod", "data")
+    assert p["full"].argument_bytes == r["argument_bytes"]
+    assert (p["full"].output_bytes + TUPLE_ENTRY_BYTES * p["full"].n_outputs
+            == r["output_bytes"])
+
+
+def test_multi_pod_collectives_by_axis(against_reference):
+    """The multi-pod trace attributes each collective to the mesh axes of
+    its group: the training step's traffic over "pod" (the slow axis
+    between pods) is reported apart from that over "data", by kind, and
+    the axes' bytes add up to the trace's total; with FSDP the weights are
+    all-gathered over "pod" too."""
+    _, port = against_reference
+    for fsdp in (False, True):
+        tr = port[_key("llama3-8b", "train", MULTI_POD_MESH, fsdp)]["full"]
+        by = analysis.collectives_by_axis(tr)
+        print(fsdp, json.dumps(by))
+        assert len(tr.collective_axes) == len(tr.collectives)
+        assert {"pod", "data", "model"} <= set(by)
+        assert all(axes.split("+") == [a for a in ("pod", "data", "model") if a in axes]
+                   for axes in by)
+        assert sum(v for d in by.values() for k, v in d.items() if k != "counts") \
+            == analysis.collective_bytes(tr)["total"]
+        assert by["pod"]["counts"].get("all-reduce", 0) > 0
+    assert by["pod"]["counts"]["all-gather"] > 0
+
+
+def test_rglru_gates_never_contract_into_a_pending_sum(monkeypatch):
+    """Fault 14, the op alone: at recurrentgemma-2b's production widths on
+    the (16, 16) mesh of fake ranks, ``x @ wa`` with ``x`` sharded on its
+    width contracts into a ``Partial`` sum (this torch then reduce-scatters
+    it to add the ``Shard(0)`` bias, the check's control; torch 2.11 asked
+    the bias to become a ``Partial``, a redistribution it does not have).
+    The repaired
+    ``rglru._gates`` makes ``x`` whole along its width first: none of its
+    redistributions comes from or goes to a ``Partial``, and both gates
+    come out column-sharded as the biases are."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    import torch.distributed.tensor._api as api
+    import torch.distributed.tensor._dispatch as dispatch
+    import torch.distributed.tensor._redistribute as redistribute
+    from repro_torch.configs import get_config
+    from repro_torch.models import rglru
+
+    seen = []
+    real = redistribute.redistribute_local_tensor
+
+    def spy(local, current, target, *args, **kwargs):
+        seen.append((tuple(current.placements), tuple(target.placements)))
+        return real(local, current, target, *args, **kwargs)
+
+    # the name as DTensor's dispatcher, its API and its redistribution hold it
+    for mod in (redistribute, dispatch, api):
+        monkeypatch.setattr(mod, "redistribute_local_tensor", spy)
+    cfg = get_config("recurrentgemma-2b")
+    d, fake = cfg.d_model, FakeTensorMode()
+    col, bias = [Replicate(), Shard(1)], [Replicate(), Shard(0)]
+    with fake_world(256):
+        mesh = mesh_mod.make_host_mesh(16, 16, device_type="cpu")
+        x = _dt((32, 32768, d), mesh, [Shard(0), Shard(2)], fake).to(torch.bfloat16)
+        p = {k: _dt((d, d), mesh, col, fake) for k in ("wa", "wxg")}
+        p.update({k: _dt((d,), mesh, bias, fake) for k in ("ba", "bxg", "lam")})
+        unrepaired = x.to(torch.float32) @ p["wa"]
+        seen.clear()
+        unrepaired + p["ba"]             # the control: the pending sum is redistributed
+        control = list(seen)
+        seen.clear()
+        log_a, gated = rglru._gates(p, x)
+    print("unrepaired", control, "repaired", seen)
+    assert any(isinstance(pl, Partial) for pl in unrepaired.placements)
+    assert any(isinstance(pl, Partial) for pair in control for side in pair for pl in side)
+    assert seen and not any(isinstance(pl, Partial) for pair in seen for side in pair
+                            for pl in side), seen
+    assert tuple(log_a.placements) == tuple(gated.placements) == (Shard(0), Shard(2))
+
+
+class _DTensorOps(TorchDispatchMode):
+    """Records the ops dispatched with a ``DTensor`` operand (those whose
+    layout ``DTensor``'s sharding propagation decides), then lets
+    ``DTensor`` run them."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor
+
+        if any(issubclass(t, DTensor) for t in types):
+            self.ops.append(str(func))
+            return NotImplemented
+        return func(*args, **(kwargs or {}))
+
+
+def test_decode_embeds_tokens_over_two_axes_on_local_shards():
+    """Fault 15, the op alone: a multi-pod decode's tokens lie over two
+    mesh axes ("pod", "data"), and torch 2.11's ``DTensor`` has no rule for
+    indexing the embedding by them ("does not support things like hybrid
+    sharding strategies yet"; this torch plans it for minutes). The
+    decode embeds as the forward does (``lm._embed``: each rank indexes the
+    whole table with its own tokens), so no ``aten.index`` on a ``DTensor``
+    reaches ``DTensor``'s sharding propagation (plain indexing does, the
+    check's control, on (2, 2)); the rows are the table's."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from repro_torch.models import lm
+
+    table = torch.arange(64 * 8, dtype=torch.float32).reshape(64, 8)
+    tokens = torch.tensor([5, 0, 63, 7, 7, 1, 2, 40])
+    with fake_world(4):
+        mesh = mesh_mod.make_host_mesh(2, 2, device_type="cpu")
+        with _DTensorOps() as control:
+            distribute_tensor(table, mesh, [Replicate(), Shard(0)])[
+                distribute_tensor(tokens, mesh, [Shard(0), Replicate()])]
+    assert any("index" in op for op in control.ops), control.ops
+    with fake_world(8):
+        mesh = mesh_mod._device_mesh(MULTI_POD_MESH, ("pod", "data", "model"), "cpu")
+        t_dt = distribute_tensor(table, mesh, [Replicate(), Replicate(), Shard(0)])
+        k_dt = distribute_tensor(tokens, mesh, [Shard(0), Shard(0), Replicate()])
+        with _DTensorOps() as seen:
+            out = lm._embed(t_dt, k_dt)
+    assert not any("index" in op for op in seen.ops), seen.ops
+    assert tuple(out.placements) == (Shard(0), Shard(0), Replicate())
+    # rank 0 holds the batch's first two tokens (8 over pod x data = 4 ranks)
+    assert torch.equal(out.to_local(), table[tokens[:2]])
+
+
+def test_mlstm_final_state_on_batch_shards():
+    """Fault 16, the op alone: a multi-pod training step's batch lies over
+    ("pod", "data"), and torch 2.11's ``DTensor`` einsum of the mLSTM's
+    final state ("bsn,bsnv,bsnk->bnvk") views that batch's local shard at
+    the wrong size (xlstm-1.3b train_4k on the (2, 16, 16) mesh; at cut
+    depth on the card, a batch of 256 raised and one of 32 did not). The
+    block folds the state on each rank's batch shard
+    (``sharding_ctx.batch_shards``, its dict result laid out as the batch
+    is): no op on a ``DTensor`` runs inside, and rank 0's state is the
+    plain function's on its shard of the batch."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from repro_torch.models import xlstm
+    from repro_torch.models.sharding_ctx import batch_shards
+
+    g = torch.Generator().manual_seed(0)
+    b, s, nh, dh = 8, 5, 2, 4
+    k, v = (torch.randn(b, s, nh, dh, generator=g) for _ in range(2))
+    i_raw, f_raw = (torch.randn(b, s, nh, generator=g) for _ in range(2))
+    batch = [Shard(0), Shard(0), Replicate()]
+    with fake_world(8):
+        mesh = mesh_mod._device_mesh(MULTI_POD_MESH, ("pod", "data", "model"), "cpu")
+        args = [distribute_tensor(t, mesh, batch) for t in (k, v, i_raw, f_raw)]
+        with _DTensorOps() as seen:
+            got = batch_shards(xlstm.mlstm_final_state, *args)
+    want = xlstm.mlstm_final_state(k[:2], v[:2], i_raw[:2], f_raw[:2])
+    assert not seen.ops, seen.ops
+    assert set(got) == {"C", "n", "m"}
+    for name, t in got.items():
+        assert tuple(t.placements) == tuple(batch), name
+        assert torch.equal(t.to_local(), want[name]), name
 
 
 # ---------------------------------------------------------------------------
@@ -389,9 +638,9 @@ TINY = {"train_small": ShapeConfig("train_small", 16, 8, "train"),
 @pytest.fixture
 def small_cells(monkeypatch):
     """run_cell on smoke configs, the small shapes and the production
-    meshes cut to (2, 2) and (1, 1, 1), with fake CPU tensors. (On a 3-D
-    mesh of more than one rank DTensor's redistribution planner takes
-    minutes a step here.)"""
+    meshes cut to (2, 2) and (1, 1, 1), with fake CPU tensors (the
+    multi-pod layouts are held on (2, 2, 2) by
+    ``test_multi_pod_cells_match_reference``; here the CLI)."""
     monkeypatch.setattr(dryrun, "get_config", smoke_config)
     monkeypatch.setattr(dryrun, "SHAPES", TINY)
     monkeypatch.setattr(mesh_mod, "PRODUCTION_MESHES",
