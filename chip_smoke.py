@@ -2592,10 +2592,18 @@ def dryrun_l2_phase(out, arch="llama3-8b", shape="train_4k", mesh="single"):
     assert rec["chips"] == 256 and rl["flops_per_chip"] > 0
 
 
+# phase l3's second step: xlstm-1.3b at its widths cut to one pattern
+# repeat (7 mLSTM blocks, 1 sLSTM), whose sLSTM runs as the scan op and its
+# backward op: what the ops' fake implementations account for against what
+# the real ops hold, and their flop formulas against FlopCounterMode's
+ESTIMATE_XLSTM = {"layers": 8, "batch": 1, "seq": 2048}
+
+
 def estimate_phase(dev, out, cfg=None, batch=8, seq=512, seed=0):
     """Phase (l3): the dry run's estimate of one training step against the
-    step on the card. smollm-135m (``cfg`` replaces it to rehearse on the
-    CPU) at batch x seq, bf16 compute on float32 masters, remat
+    step on the card. smollm-135m (``cfg`` replaces it: xlstm-1.3b at one
+    pattern repeat in phase l3_estimate_xlstm, smaller configs to rehearse
+    on the CPU) at batch x seq, bf16 compute on float32 masters, remat
     ``"nothing"`` (phase j2's setup): ``lower_cell`` on a fake (1, 1) mesh,
     then the same step on real tensors after a warm-up step. Held: the
     estimate's peak above its arguments within ``ESTIMATE_PEAK_REL`` of
@@ -2673,10 +2681,15 @@ REFERENCE_FAULT_CELLS = {
     ("recurrentgemma-2b", "long_500k"): (488_327_304, 16_838_116),
     ("recurrentgemma-2b", "prefill_32k"): (471_841_024, 33_676_120),
     ("recurrentgemma-2b", "train_4k"): (2_829_389_828, 2_829_129_480),
+    ("xlstm-1.3b", "prefill_32k"): (243_736_736, 88_334_184),
+    ("xlstm-1.3b", "train_4k"): (1_460_188_100, 1_459_928_424),
 }
-# the cells whose traces take minutes (recurrentgemma-2b's whole-sequence
-# steps, fault 14): a second dry-run process traces them beside the first
-SLOW_FAULT_CELLS = (("recurrentgemma-2b", "prefill_32k"), ("recurrentgemma-2b", "train_4k"))
+# the cells whose traces take minutes, in groups: a dry-run process of its
+# own traces each group beside the first process (recurrentgemma-2b's
+# whole-sequence steps, fault 14; xlstm-1.3b's, whose sLSTM scan is one op
+# since it no longer loops over the positions under the trace)
+SLOW_FAULT_CELLS = ((("recurrentgemma-2b", "prefill_32k"), ("recurrentgemma-2b", "train_4k")),
+                    (("xlstm-1.3b", "prefill_32k"), ("xlstm-1.3b", "train_4k")))
 
 
 def dryrun_faults_phase(out, cells=REFERENCE_FAULT_CELLS, device_type="cuda", cfg_of=None,
@@ -2720,17 +2733,19 @@ def dryrun_faults_phase(out, cells=REFERENCE_FAULT_CELLS, device_type="cuda", cf
 
 def dryrun_worker_phases(part):
     """The (name, function, keywords) of the phases dry-run process
-    ``part`` runs: 0 phase l2 and l4's quick cells, 1 l4's
-    ``SLOW_FAULT_CELLS``."""
-    slow = {c: REFERENCE_FAULT_CELLS[c] for c in SLOW_FAULT_CELLS}
-    if part == 1:
-        return [("l4_dryrun_faults", dryrun_faults_phase, {"cells": slow})]
+    ``part`` runs: 0 phase l2 and l4's quick cells, 1 and up l4's
+    ``SLOW_FAULT_CELLS`` group ``part - 1``."""
+    if part:
+        group = SLOW_FAULT_CELLS[part - 1]
+        return [("l4_dryrun_faults", dryrun_faults_phase,
+                 {"cells": {c: REFERENCE_FAULT_CELLS[c] for c in group}})]
+    slow = {c for group in SLOW_FAULT_CELLS for c in group}
     quick = {c: w for c, w in REFERENCE_FAULT_CELLS.items() if c not in slow}
     return [("l2_dryrun", dryrun_l2_phase, {}),
             ("l4_dryrun_faults", dryrun_faults_phase, {"cells": quick})]
 
 
-DRYRUN_WORKERS = 2
+DRYRUN_WORKERS = 1 + len(SLOW_FAULT_CELLS)
 
 
 def dryrun_worker(path, part=0):
@@ -4629,6 +4644,22 @@ def main():
         out = report["m_families"] = {}
         families_phase(dev, out)
         print(json.dumps({"m_families_s": out["s"]}))
+
+    # after m, so that m's families meet the allocator as l4 leaves it (with
+    # this phase before m, recurrentgemma-2b's bf16 training step once ran out
+    # of memory with 30 GiB reserved but unallocated)
+    @phase("l3_estimate_xlstm")
+    def _l3x():
+        from repro_torch.configs import get_config
+
+        out = report["l3_estimate_xlstm"] = {}
+        gc.collect()
+        torch.cuda.empty_cache()
+        ops.reset_launches()
+        estimate_phase(dev, out, cfg=dataclasses.replace(
+            get_config("xlstm-1.3b"), n_layers=ESTIMATE_XLSTM["layers"]),
+            batch=ESTIMATE_XLSTM["batch"], seq=ESTIMATE_XLSTM["seq"])
+        assert not any(ops.LAUNCHES.values()), f"the step launched {ops.LAUNCHES}"
 
     dry_stop()                       # a phase before l2 failed the script's own way
     for _, log, _ in dry_procs:

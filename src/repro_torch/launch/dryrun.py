@@ -157,8 +157,9 @@ def slstm_flops_correction(cfg: ModelConfig, shape: ShapeConfig, n_layers: int,
                            n_chips: int) -> float:
     """sLSTM scans over time; its per-token gate / recurrence FLOPs, which
     XLA's cost analysis counts once per scan. Kept for parity: the port's
-    trace sees every step of ``slstm_forward``'s time loop, so
-    :func:`run_cell` adds nothing."""
+    scan is one op (``repro_torch::slstm_scan`` and its backward), whose
+    registered flop formula counts the recurrent product of every
+    position, so :func:`run_cell` adds nothing."""
     kinds = cfg.layer_kinds[:n_layers]
     n_sl = sum(1 for k in kinds if k == SLSTM)
     if n_sl == 0:
@@ -189,11 +190,13 @@ def _memory(tr: Trace) -> dict:
 def run_cell(arch: str, shape_name: str, mesh_kind: str, do_roofline: bool = True,
              cache_dtype_name: str = "bfloat16", moe_a2a: bool = False,
              xlstm_chunk: int = 0, hbm_bytes: int = HBM_BYTES,
-             device_type: str = "cuda") -> dict:
+             device_type: str = "cuda", on_gate=None) -> dict:
     """One cell's record (the reference's keys; ``memory["fits_hbm"]``
     against ``hbm_bytes``, one H100's 80 GiB unless given). The fake
     tensors lie on ``device_type``'s device: the card's unless the caller
-    asks for the CPU."""
+    asks for the CPU. ``on_gate``, if given, is called with the record of
+    the full-depth step before the roofline points run (``main`` writes
+    it, so that a cell stopped in its points keeps its gate)."""
     from repro_torch.roofline.analysis import collective_bytes, collectives_by_axis, \
         cost_point, extrapolate, model_flops
 
@@ -243,19 +246,24 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, do_roofline: bool = Tru
         rec["t_memory_floor_s"] = k * tr.argument_bytes / HBM_BW
         if not do_roofline:
             return rec
+        if on_gate is not None:
+            on_gate(rec)
 
         # -- 2. roofline points: the 1x / 2x pattern -------------------------
         pat = len(cfg.block_pattern)
         pts = []
+        t_points = time.time()
         for mult in (1, 2):
             rcfg = dataclasses.replace(cfg, n_layers=pat * mult, unroll_layers=True)
             pts.append(cost_point(lower_cell(rcfg, shape, mesh, plan, cache_dtype=cache_dtype,
                                              moe_a2a=moe_a2a)))
+        points_s = time.time() - t_points
     n_rep_full = cfg.n_layers / pat
     terms = dataclasses.replace(extrapolate(pts[0], pts[1], 1, 2, n_rep_full),
                                 peak=PEAK_FLOPS_BF16)
-    # no slstm_flops_correction: slstm_forward loops over time in Python, so
-    # the trace already holds every step's flops (XLA counts a scan's body once)
+    # no slstm_flops_correction: the sLSTM's scan op is counted by its flop
+    # formula, every position's recurrent product (XLA counts a scan's body
+    # once)
 
     tokens = shape.global_batch * (shape.seq_len if shape.kind != "decode" else 1)
     mf = model_flops(cfg.active_param_count(), tokens, shape.is_train)
@@ -265,6 +273,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, do_roofline: bool = Tru
         (mf / n_chips) / terms.flops_per_chip if terms.flops_per_chip else 0.0
     )
     rec["roofline"]["points"] = pts
+    rec["roofline"]["points_s"] = round(points_s, 1)
     return rec
 
 
@@ -298,17 +307,25 @@ def main(argv=None) -> None:
     for arch, shape_name in cells:
         for mesh_kind in meshes:
             key = f"{arch}/{shape_name}/{mesh_kind}"
-            if key in results and "error" not in results[key]:
+            if key in results and "error" not in results[key] and \
+                    results[key].get("stage") != "gate":
                 print(f"[skip] {key}")
                 continue
             print(f"[run ] {key}", flush=True)
             t0 = time.time()
+
+            def gate(rec, key=key, t0=t0):
+                # the full-depth step's record while the roofline points run
+                results[key] = {**rec, "stage": "gate", "wall_s": round(time.time() - t0, 1)}
+                with open(args.out, "w") as f:
+                    json.dump(results, f, indent=1)
+
             try:
                 rec = run_cell(arch, shape_name, mesh_kind,
                                do_roofline=not args.no_roofline,
                                cache_dtype_name=args.cache_dtype,
                                moe_a2a=(args.moe_dispatch == "a2a"),
-                               xlstm_chunk=args.xlstm_chunk)
+                               xlstm_chunk=args.xlstm_chunk, on_gate=gate)
                 rec["wall_s"] = round(time.time() - t0, 1)
                 results[key] = rec
                 rl = rec.get("roofline", {})

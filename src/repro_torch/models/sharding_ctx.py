@@ -232,7 +232,7 @@ def shards_whole_along(fn, dim: int, x: torch.Tensor) -> torch.Tensor:
     return _on_local(fn, x.device_mesh, pl, (x,))
 
 
-def batch_shards(fn, *args):
+def batch_shards(fn, *args, weights=(), heads=None):
     """``fn(*args)`` on each rank's shard of the batch (dim 0), for an
     ``fn`` computed independently along it: every ``DTensor`` argument is
     laid out with dim 0 sharded as the first one's is and every other dim
@@ -243,15 +243,48 @@ def batch_shards(fn, *args):
     a permuted local gradient that cannot be viewed); and its final state:
     torch 2.11's einsum views the local shard of a batch split over two
     mesh axes ("pod", "data") at the wrong size. Differentiable. Without a
-    ``DTensor`` argument this is ``fn(*args)``."""
-    from torch.distributed.tensor import DTensor, Replicate, Shard
+    ``DTensor`` argument this is ``fn(*args, *weights)``.
+
+    With ``heads``, for an ``fn`` that is also independent along a head
+    dim and returns a tuple (the sLSTM's scan, whose recurrence is
+    block-diagonal by head): ``(n_heads, dims, out_dims)``, the head dim
+    of each of ``args`` and ``weights`` and of each result. The first mesh
+    axis past the batch's whose size (above 1) divides ``n_heads`` splits
+    the heads; with none, the heads stay whole. ``weights`` (given with
+    ``heads``) follow ``args`` into ``fn``, with no batch dim: whole on
+    every rank but for the head split; each rank's gradient of a weight is
+    its share of the sum over the batch's ranks (``Partial()`` there)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
     lead = next((a for a in args if isinstance(a, DTensor)), None)
     if lead is None:
-        return fn(*args)
-    pl = tuple(p if isinstance(p, Shard) and p.dim == 0 else Replicate()
-               for p in lead.placements)
-    return _on_local(fn, lead.device_mesh, pl, args)
+        return fn(*args, *weights)
+    mesh = lead.device_mesh
+    batch = [isinstance(p, Shard) and p.dim == 0 for p in lead.placements]
+    if heads is None:
+        pl = tuple(Shard(0) if b else Replicate() for b in batch)
+        return _on_local(fn, mesh, pl, args)
+    n_heads, dims, out_dims = heads
+    head_axis = next((i for i, (b, k) in enumerate(zip(batch, mesh.shape))
+                      if not b and k > 1 and n_heads % k == 0), None)
+
+    def layout(batch_dim, head_dim):
+        return tuple(Shard(batch_dim) if b and batch_dim is not None
+                     else Shard(head_dim) if i == head_axis else Replicate()
+                     for i, b in enumerate(batch))
+
+    local = []
+    for i, a in enumerate((*args, *weights)):
+        if not isinstance(a, DTensor):
+            local.append(a)
+            continue
+        is_weight = i >= len(args)
+        pl = layout(None if is_weight else 0, dims[i])
+        grad_pl = [Partial() if b else p for b, p in zip(batch, pl)] if is_weight else None
+        local.append(_ContiguousGrad.apply(
+            a.redistribute(mesh, pl).to_local(grad_placements=grad_pl)))
+    return tuple(DTensor.from_local(t.contiguous(), mesh, layout(0, d), run_check=False)
+                 for t, d in zip(fn(*local), out_dims))
 
 
 def _on_local(fn, mesh, pl, args):

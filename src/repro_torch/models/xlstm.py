@@ -313,39 +313,218 @@ def spec_slstm_block(cfg: ModelConfig, plan: ParallelPlan) -> dict:
     }
 
 
-def slstm_forward(p: dict, x: torch.Tensor, state: dict | None = None
-                  ) -> tuple[torch.Tensor, dict]:
-    """x (B,S,D). A sequential loop over time (sLSTM is not parallelisable)."""
-    b, s, d = x.shape
-    nh = p["r"].shape[1]
-    dh = d // nh
-    if state is None:
-        state = _zero_slstm_state(b, nh, dh, x.device)
-    gx = split_last(split_last((x @ p["w"] + p["b"]).to(torch.float32), 4), nh)
-    r32 = p["r"].to(torch.float32)
-    c, n, m, h = state["c"], state["n"], state["m"], state["h"]
-    hs = []
+# The sLSTM's recurrence over time as one operator, the counterpart of the
+# reference's ``lax.scan``: its forward loops over the positions on the
+# tensors it is given, and its backward (a second operator) runs back over
+# them from the states the forward saved. Under the dry run each is one
+# traced op with a fake implementation and a flop formula, where the loop
+# written inline was some twenty ops a position.
+
+def slstm_scan_ref(gx, r, c, n, m, h, save: bool = True) -> tuple:
+    """The sLSTM's time loop. gx (B,S,4,NH,dh) float32 input gate terms
+    (z, i, f, o), r (4,NH,dh,dh) float32 recurrent weights, the state
+    c, n, m, h (B,NH,dh). Returns hs (B,S,NH,dh), the final c, n, m, h,
+    and, with ``save``, the gates' pre-activations (B,S,4,NH,dh) and the
+    states c, n, m after each position (B,S,NH,dh), which the backward
+    reads (empty tensors without ``save``). Each position's arithmetic is
+    the loop ``slstm_forward`` ran inline before it became an operator."""
+    b, s = gx.shape[:2]
+    seq = (b, s) + tuple(h.shape[1:])
+    hs = gx.new_empty(seq)
+    saved = ((gx.new_empty(gx.shape), *(gx.new_empty(seq) for _ in range(3))) if save
+             else tuple(gx.new_empty((0,)) for _ in range(4)))
     for t in range(s):
-        g_t = gx[:, t]
-        # einsum("bnd,gnde->gbne") as a broadcast matmul over (gate, head):
-        # torch 2.11's DTensor cannot flatten einsum's (gate, head width) with
-        # the head width sharded
-        rec = (split_last(h, nh).transpose(0, 1)[None] @ r32).transpose(1, 2)
-        z_r, i_r, f_r, o_r = (g_t[:, gi] + rec[gi] for gi in range(4))
+        # einsum("bnd,gnde->gbne") as a broadcast matmul over (gate, head)
+        rec = (h.transpose(0, 1)[None] @ r).transpose(1, 2)
+        g_t = gx[:, t] + rec.transpose(0, 1)
+        z_r, i_r, f_r, o_r = g_t.unbind(1)
         z = torch.tanh(z_r)
         o = torch.sigmoid(o_r)
-        lf = _logsigmoid(f_r)
+        lf = F.logsigmoid(f_r)
         m_new = torch.maximum(lf + m, i_r)
         ip = torch.exp(i_r - m_new)
         fp = torch.exp(lf + m - m_new)
         c = fp * c + ip * z
         n = fp * n + ip
-        h = merge_last(o * c / torch.clamp_min(n, 1e-6))
+        h = o * c / torch.clamp_min(n, 1e-6)
         m = m_new
-        hs.append(h)
-    hs = torch.stack(hs, dim=1)                                   # (B,S,D)
-    out = _group_norm(hs.to(x.dtype), p["gn"], nh) @ p["w_down"]
-    return out, {"c": c, "n": n, "m": m, "h": h}
+        hs[:, t] = h
+        if save:
+            for buf, x in zip(saved, (g_t, c, n, m)):
+                buf[:, t] = x
+    return (hs, *(x.contiguous() for x in (c, n, m, h)), *saved)
+
+
+def slstm_scan_backward_ref(dhs, dc, dn, dm, dh, r, pre, cs, ns, ms, hs, c0, n0, m0, h0
+                            ) -> tuple:
+    """Backpropagation through :func:`slstm_scan_ref`'s loop from the
+    states it saved, back over the positions: the gradients of gx, r and
+    the initial c, n, m, h, given those of hs and the final c, n, m, h.
+    Each position's derivative follows the forward's arithmetic as
+    autograd differentiates it: ``torch.maximum`` gives each side half
+    the gradient at a tie, as ``jnp.maximum`` does; ``clamp_min(n, 1e-6)``
+    gives all of it to n where n >= 1e-6 and none below."""
+    s = pre.shape[1]
+    rt = r.transpose(-1, -2)
+    dgx = pre.new_empty(pre.shape)
+    for t in range(s - 1, -1, -1):
+        c_prev, n_prev, m_prev = ((x[:, t - 1] if t else x0) for x, x0 in
+                                  ((cs, c0), (ns, n0), (ms, m0)))
+        c, n, m_new = cs[:, t], ns[:, t], ms[:, t]
+        z_r, i_r, f_r, o_r = pre[:, t].unbind(1)
+        z = torch.tanh(z_r)
+        o = torch.sigmoid(o_r)
+        lf = F.logsigmoid(f_r)
+        a = lf + m_prev
+        ip = torch.exp(i_r - m_new)
+        fp = torch.exp(a - m_new)
+        den = torch.clamp_min(n, 1e-6)
+        # h = (o * c) / den
+        dh_t = dhs[:, t] + dh
+        doc = dh_t / den
+        dden = -dh_t * ((o * c / den) / den)
+        dc = dc + doc * o
+        dn = dn + torch.where(n >= 1e-6, dden, 0.0)
+        # c = fp * c_prev + ip * z; n = fp * n_prev + ip
+        dfp = dc * c_prev + dn * n_prev
+        dip = dc * z + dn
+        dz = dc * ip
+        dc, dn = dc * fp, dn * fp
+        # ip = exp(i - m_new), fp = exp(a - m_new), m_new = max(a, i)
+        di = dip * ip
+        da = dfp * fp
+        dmx = dm - di - da
+        half = torch.where(a == i_r, 0.5, 1.0) * dmx
+        da = da + torch.where(a >= i_r, half, 0.0)
+        di = di + torch.where(i_r >= a, half, 0.0)
+        # a = lf + m_prev, lf = logsigmoid(f)
+        dm = da
+        dg = torch.stack((dz * (1 - z * z), di, da * torch.sigmoid(-f_r),
+                          doc * c * o * (1 - o)), dim=1)
+        dgx[:, t] = dg
+        # rec = h_prev @ r per (gate, head): dh_prev = sum_g dg_g @ r_g^T
+        dh = (dg.transpose(0, 1).transpose(1, 2) @ rt).sum(0).transpose(0, 1)
+    # dr[g,n] = sum over (b, t) of h_prev^T dg, one product over all positions
+    b, _, nh, dh_ = hs.shape
+    h_prev = torch.cat((h0[:, None], hs[:, :-1]), dim=1)
+    hp = h_prev.permute(2, 3, 0, 1).reshape(1, nh, dh_, b * s)
+    dgp = dgx.permute(2, 3, 0, 1, 4).reshape(4, nh, b * s, dh_)
+    dr = hp @ dgp
+    return tuple(x.contiguous() for x in (dgx, dr, dc, dn, dm, dh))
+
+
+@torch.library.custom_op("repro_torch::slstm_scan", mutates_args=())
+def _slstm_scan_op(gx: torch.Tensor, r: torch.Tensor, c: torch.Tensor, n: torch.Tensor,
+                   m: torch.Tensor, h: torch.Tensor, save: bool
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+                              torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+                              torch.Tensor]:
+    return slstm_scan_ref(gx, r, c, n, m, h, save)
+
+
+@_slstm_scan_op.register_fake
+def _(gx, r, c, n, m, h, save):
+    seq = tuple(gx.shape[:2]) + tuple(h.shape[1:])
+    saved = ((gx.new_empty(gx.shape), *(gx.new_empty(seq) for _ in range(3))) if save
+             else tuple(gx.new_empty((0,)) for _ in range(4)))
+    return (gx.new_empty(seq), *(x.new_empty(x.shape) for x in (c, n, m, h)), *saved)
+
+
+@torch.library.custom_op("repro_torch::slstm_scan_backward", mutates_args=())
+def _slstm_scan_backward_op(dhs: torch.Tensor, dc: torch.Tensor, dn: torch.Tensor,
+                            dm: torch.Tensor, dh: torch.Tensor, r: torch.Tensor,
+                            pre: torch.Tensor, cs: torch.Tensor, ns: torch.Tensor,
+                            ms: torch.Tensor, hs: torch.Tensor, c0: torch.Tensor,
+                            n0: torch.Tensor, m0: torch.Tensor, h0: torch.Tensor
+                            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+                                       torch.Tensor, torch.Tensor]:
+    return slstm_scan_backward_ref(dhs, dc, dn, dm, dh, r, pre, cs, ns, ms, hs, c0, n0, m0, h0)
+
+
+@_slstm_scan_backward_op.register_fake
+def _(dhs, dc, dn, dm, dh, r, pre, cs, ns, ms, hs, c0, n0, m0, h0):
+    return tuple(x.new_empty(x.shape) for x in (pre, r, c0, n0, m0, h0))
+
+
+def _scan_setup(ctx, inputs, output):
+    _, r, c, n, m, h, _ = inputs
+    hs, *_, pre, cs, ns, ms = output
+    ctx.mark_non_differentiable(pre, cs, ns, ms)
+    ctx.set_materialize_grads(False)
+    ctx.save_for_backward(r, pre, cs, ns, ms, hs, c, n, m, h)
+
+
+def _scan_backward(ctx, dhs, dc, dn, dm, dh, *_):
+    r, pre, cs, ns, ms, hs, c0, n0, m0, h0 = ctx.saved_tensors
+    if not pre.numel():
+        raise RuntimeError("slstm_scan ran without save=True, so it kept nothing to "
+                           "differentiate")
+    dhs, dc, dn, dm, dh = (torch.zeros_like(like) if g is None else g for g, like in
+                           zip((dhs, dc, dn, dm, dh), (hs, c0, n0, m0, h0)))
+    dgx, dr, dc0, dn0, dm0, dh0 = torch.ops.repro_torch.slstm_scan_backward(
+        dhs, dc, dn, dm, dh, r, pre, cs, ns, ms, hs, c0, n0, m0, h0)
+    return dgx, dr, dc0, dn0, dm0, dh0, None
+
+
+_slstm_scan_op.register_autograd(_scan_backward, setup_context=_scan_setup)
+
+
+def _register_flop_formulas():
+    """The recurrent product's flops, as the trace and ``FlopCounterMode``
+    count a matmul's: 2·B·S·4·NH·dh² forward (a position's (B,dh) x
+    (dh,dh) product per gate and head), twice that backward (the carried
+    gradient's product per position and r's over all positions)."""
+    from torch.utils.flop_counter import flop_registry, register_flop_formula
+
+    def fwd(gx_shape, r_shape, *_, out_shape=None, **__):
+        g, nh, dh, _ = r_shape
+        return 2 * gx_shape[0] * gx_shape[1] * g * nh * dh * dh
+
+    def bwd(dhs_shape, dc_shape, dn_shape, dm_shape, dh_shape, r_shape, *_, out_shape=None,
+            **__):
+        g, nh, dh, _ = r_shape
+        return 4 * dhs_shape[0] * dhs_shape[1] * g * nh * dh * dh
+
+    for op, formula in ((torch.ops.repro_torch.slstm_scan, fwd),
+                        (torch.ops.repro_torch.slstm_scan_backward, bwd)):
+        if op not in flop_registry:
+            register_flop_formula(op)(formula)
+
+
+_register_flop_formulas()
+
+
+def _scan_local(gx, c, n, m, h, r):
+    """The op on one rank's tensors (all of them, off a mesh), from a zero
+    state where none is given; keeps what the backward reads only where a
+    gradient can be asked for. Returns hs, c, n, m, h."""
+    if c is None:
+        b, _, _, nh, dh = gx.shape
+        st = _zero_slstm_state(b, nh, dh, gx.device)
+        c, n, m, h = st["c"], st["n"], st["m"], st["h"].reshape(b, nh, dh)
+    save = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (gx, r, c, n, m, h))
+    return torch.ops.repro_torch.slstm_scan(gx, r, c, n, m, h, save)[:5]
+
+
+def slstm_forward(p: dict, x: torch.Tensor, state: dict | None = None
+                  ) -> tuple[torch.Tensor, dict]:
+    """x (B,S,D). The recurrence over time (sLSTM is not parallelisable)
+    is one op, ``torch.ops.repro_torch.slstm_scan``, and one backward op:
+    the reference's ``lax.scan``. On ``DTensor``s each rank runs it on its
+    shard of the batch, with r and each head's width whole, and of the
+    heads where the model axis divides them (``batch_shards``); the dry
+    run traces it as one op a direction and counts its flops by the
+    op's formula."""
+    nh = p["r"].shape[1]
+    gx = split_last(split_last((x @ p["w"] + p["b"]).to(torch.float32), 4), nh)
+    r32 = p["r"].to(torch.float32)
+    st = (None,) * 4 if state is None else (
+        state["c"], state["n"], state["m"], split_last(state["h"], nh))
+    hs, c, n, m, h = batch_shards(_scan_local, gx, *st, weights=(r32,),
+                                  heads=(nh, (3, 1, 1, 1, 1, 1), (2, 1, 1, 1, 1)))
+    out = _group_norm(merge_last(hs).to(x.dtype), p["gn"], nh) @ p["w_down"]
+    return out, {"c": c, "n": n, "m": m, "h": merge_last(h)}
 
 
 def _zero_slstm_state(batch: int, nh: int, dh: int, device=None) -> dict:

@@ -262,18 +262,22 @@ def test_point_flops_bracketed_by_reference(against_reference, arch, kind):
 
 
 def test_replicate_detours_are_counted(against_reference):
-    """The MoE dispatch (qwen3-moe) and xLSTM's logsigmoid run through
-    ``sharding_ctx.replicated``, whose all-gathers GSPMD would not make.
-    They are counted in the trace as the port runs them (printed
-    with -s: their share of the collective bytes); llama3-8b has none."""
+    """The MoE dispatch (qwen3-moe) and the logsigmoid of the mLSTM's
+    decode step (xlstm decode) run through ``sharding_ctx.replicated``,
+    whose all-gathers GSPMD would not make. They are counted in the trace
+    as the port runs them (printed with -s: their share of the collective
+    bytes); llama3-8b has none, nor has xlstm's prefill, whose mLSTM and
+    sLSTM run on batch shards (the sLSTM's scan is one op there)."""
     _, port = against_reference
-    for key in ("qwen3-moe-235b-a22b/train", "xlstm-1.3b/prefill", "llama3-8b/train"):
-        tr = port[key + "/2x2"]["full"]
+    for key, detours in (("qwen3-moe-235b-a22b/train/2x2", True),
+                         ("xlstm-1.3b/decode/1x8", True), ("xlstm-1.3b/prefill/2x2", False),
+                         ("llama3-8b/train/2x2", False)):
+        tr = port[key]["full"]
         det = analysis.collective_bytes(dataclasses.replace(tr, collectives=tr.detour_collectives))
         total = analysis.collective_bytes(tr)
         print(key, "detours:", det["counts"], det["total"], "of", total["total"], "bytes")
         assert all(c in tr.collectives for c in tr.detour_collectives)
-        assert (det["total"] > 0) == (not key.startswith("llama3-8b"))
+        assert (det["total"] > 0) == detours
 
 
 @pytest.mark.parametrize("arch,kind,fsdp", MULTI_POD_CELLS)
@@ -688,7 +692,9 @@ def test_main_flags_resume_and_errors(small_cells, monkeypatch, tmp_path, capsys
     """Every flag of the reference's CLI: --arch/--shape/--mesh both/
     --no-roofline/--out, then --all with --cache-dtype int8, --moe-dispatch
     a2a (forced off in decode) and --xlstm-chunk; a rerun skips the cells
-    that are done and retries the one that failed."""
+    that are done and retries the one that failed, and the one whose
+    record holds only its full-depth step (written before its roofline
+    points ran)."""
     out = tmp_path / "r.json"
     dryrun.main(["--arch", "llama3-8b", "--shape", "decode_small", "--mesh", "both",
                  "--no-roofline", "--out", str(out)])
@@ -717,8 +723,11 @@ def test_main_flags_resume_and_errors(small_cells, monkeypatch, tmp_path, capsys
     res = json.loads(out.read_text())
     # the second pass skipped the done cells and ran the failed one again
     assert [a for a, _ in seen] == ["qwen3-moe-235b-a22b"] * 2 + ["whisper-tiny"] * 2
-    assert seen[0][1] == {"do_roofline": True, "cache_dtype_name": "int8", "moe_a2a": True,
-                          "xlstm_chunk": 16}
+    kw = dict(seen[0][1])
+    assert callable(kw.pop("on_gate"))
+    assert kw == {"do_roofline": True, "cache_dtype_name": "int8", "moe_a2a": True,
+                  "xlstm_chunk": 16}
+    assert all("stage" not in v for v in res.values())
     assert res["whisper-tiny/decode_small/single"]["error"] == "ValueError: no such cell"
     moe = res["qwen3-moe-235b-a22b/decode_small/single"]
     assert "all-to-all" not in moe["full_collectives"]  # a2a is forced off in decode
@@ -729,6 +738,13 @@ def test_main_flags_resume_and_errors(small_cells, monkeypatch, tmp_path, capsys
     printed = capsys.readouterr().out
     assert "[skip] qwen3-moe-235b-a22b/decode_small/single" in printed
     assert "done: 4/5 cells ok" in printed
+    # a cell stopped in its roofline points left its gate record: run again
+    res["qwen3-moe-235b-a22b/decode_small/single"]["stage"] = "gate"
+    out.write_text(json.dumps(res))
+    seen.clear()
+    dryrun.main(["--all", "--cache-dtype", "int8", "--out", str(out)])
+    assert [a for a, _ in seen] == ["qwen3-moe-235b-a22b", "whisper-tiny"]
+    assert "stage" not in json.loads(out.read_text())["qwen3-moe-235b-a22b/decode_small/single"]
 
 
 def test_default_out_is_the_ports_own(monkeypatch, tmp_path):

@@ -4,12 +4,18 @@ several at once: which cells run on the production mesh of fake ranks,
 which raise, and which do not finish in the time given.
 
     python3 tools/dryrun_census.py [--cells ARCH/SHAPE ...] [--mesh single]
-        [--jobs N] [--timeout S] [--deadline S] [--out DIR]
+        [--roofline] [--jobs N] [--timeout S] [--deadline S] [--out DIR]
 
 Each cell (default: every cell of ``configs.arch_shape_cells()``) runs as
 ``python -m repro_torch.launch.dryrun --arch A --shape S --mesh M
 --no-roofline --out DIR/cells/A__S__M.json`` (the full-depth step and its
-microbatch escalation, no roofline points), at most ``--jobs`` at once, each
+microbatch escalation, no roofline points); with ``--roofline``, without
+``--no-roofline``, so the cell also runs its 1x / 2x pattern points and
+the record holds its roofline terms (``bottleneck``, ``t_compute_s``,
+``t_memory_s``, ``t_collective_s`` at ``launch/mesh.py``'s H100 rates,
+``PEAK_FLOPS_BF16``), its ``useful_flops_ratio`` and the points' seconds;
+a cell stopped in its points keeps its full-depth numbers. At most
+``--jobs`` at once, each
 stopped with its process group after ``--timeout`` seconds, or when
 the whole census has run ``--deadline`` seconds (so that it ends, and
 writes its record, inside a time limit of its own; the cells not started
@@ -64,17 +70,15 @@ def _cells(args):
     return arch_shape_cells()
 
 
-def _summary(arch, shape, mesh, path, rc, wall, timed_out, log, stopped_by="timeout"):
-    rec = {"cell": f"{arch}/{shape}/{mesh}", "wall_s": round(wall, 1)}
-    if timed_out:
-        return dict(rec, status="timeout", stopped_by=stopped_by, phase=_phase(log))
-    key = f"{arch}/{shape}/{mesh}"
-    got = json.loads(path.read_text()).get(key) if path.exists() else None
-    if got is None or "error" in got:
-        err = (got or {}).get("error") or (log.strip().splitlines() or ["no output"])[-1]
-        return dict(rec, status="error", rc=rc, error=err[-400:])
+ROOFLINE_KEYS = ("bottleneck", "t_compute_s", "t_memory_s", "t_collective_s",
+                 "useful_flops_ratio", "flops_per_chip", "bytes_per_chip",
+                 "coll_bytes_per_chip", "points_s")
+
+
+def _gate(got):
+    """The full-depth step's numbers of a cell's record."""
     mem = got["memory"]
-    return dict(rec, status="ok", plan=got["plan"], microbatches=got["microbatches"],
+    return dict(plan=got["plan"], microbatches=got["microbatches"],
                 microbatch_trail=got["microbatch_trail"],
                 peak_per_device=mem["approx_peak_per_device"],
                 argument_bytes_per_device=mem["argument_bytes_per_device"],
@@ -83,10 +87,33 @@ def _summary(arch, shape, mesh, path, rc, wall, timed_out, log, stopped_by="time
                 fits_hbm=mem["fits_hbm"], lower_s=got["lower_s"], compile_s=got["compile_s"])
 
 
+def _summary(arch, shape, mesh, path, rc, wall, timed_out, log, stopped_by="timeout"):
+    rec = {"cell": f"{arch}/{shape}/{mesh}", "wall_s": round(wall, 1)}
+    key = f"{arch}/{shape}/{mesh}"
+    try:
+        got = json.loads(path.read_text()).get(key) if path.exists() else None
+    except json.JSONDecodeError:        # killed while it wrote
+        got = None
+    if timed_out:
+        rec = dict(rec, status="timeout", stopped_by=stopped_by, phase=_phase(log))
+        if got is not None and got.get("stage") == "gate":
+            rec.update(_gate(got), stopped_in="roofline points", gate_wall_s=got["wall_s"])
+        return rec
+    if got is None or "error" in got:
+        err = (got or {}).get("error") or (log.strip().splitlines() or ["no output"])[-1]
+        return dict(rec, status="error", rc=rc, error=err[-400:])
+    rec = dict(rec, status="ok", **_gate(got))
+    if "roofline" in got:
+        rec["roofline"] = {k: got["roofline"].get(k) for k in ROOFLINE_KEYS}
+    return rec
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cells", nargs="*", default=None, help="ARCH/SHAPE entries")
     ap.add_argument("--mesh", default="single", choices=["single", "multi"])
+    ap.add_argument("--roofline", action="store_true",
+                    help="run each cell's 1x / 2x roofline points too")
     ap.add_argument("--jobs", type=int, default=4)
     ap.add_argument("--timeout", type=float, default=900.0)
     ap.add_argument("--deadline", type=float, default=None,
@@ -104,6 +131,7 @@ def main():
         counts = {s: sum(r["status"] == s for r in results)
                   for s in ("ok", "error", "timeout", "not_started")}
         summary = {"cells": len(results), **counts, "jobs": args.jobs,
+                   "roofline": args.roofline,
                    "timeout_s": args.timeout, "deadline_s": args.deadline,
                    "wall_s": round(time.time() - t_all, 1), "finished": final}
         (args.out / "census.json").write_text(json.dumps({"summary": summary,
@@ -122,8 +150,9 @@ def main():
             path.unlink(missing_ok=True)
             log = open(path.with_suffix(".log"), "w+")
             proc = subprocess.Popen(
-                [sys.executable, "-c", _LAUNCH, "--arch", arch,
-                 "--shape", shape, "--mesh", args.mesh, "--no-roofline", "--out", str(path)],
+                [sys.executable, "-c", _LAUNCH, "--arch", arch, "--shape", shape,
+                 "--mesh", args.mesh, *([] if args.roofline else ["--no-roofline"]),
+                 "--out", str(path)],
                 cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT,
                 start_new_session=True)
             running.append((arch, shape, path, proc, log, time.time()))
