@@ -81,11 +81,12 @@ def _placed(tree, shardings, device):
 
 def lower_cell(cfg: ModelConfig, shape: ShapeConfig, mesh, plan: ParallelPlan,
                microbatches: int = 1, cache_dtype: torch.dtype = torch.bfloat16,
-               moe_a2a: bool = False) -> Trace:
+               moe_a2a: bool = False, holders: bool = False) -> Trace:
     """Run one train, prefill or decode step of ``cfg`` at ``shape`` on
     ``mesh`` (a ``DeviceMesh`` of a fake process group) as ``DTensor``s
     of fake tensors on the mesh's device type, and return rank 0's
-    :class:`~repro_torch.roofline.trace.Trace`."""
+    :class:`~repro_torch.roofline.trace.Trace` (with ``holders``, each
+    storage's provenance and those live at the peak)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     t0 = time.time()
@@ -144,7 +145,7 @@ def lower_cell(cfg: ModelConfig, shape: ShapeConfig, mesh, plan: ParallelPlan,
     from torch.distributed.tensor.experimental import implicit_replication
 
     with constrainer_ctx(mesh, plan, moe_a2a=moe_a2a), implicit_replication():
-        tr = trace_step(step, *args, fake_mode=fake, mesh=mesh)
+        tr = trace_step(step, *args, fake_mode=fake, mesh=mesh, holders=holders)
     tr.setup_s = setup_s
     return tr
 
@@ -184,6 +185,7 @@ def _memory(tr: Trace) -> dict:
         "temp_bytes_per_device": tr.peak_bytes - tr.argument_bytes,
         "alias_bytes_per_device": tr.alias_bytes,
         "approx_peak_per_device": tr.peak_bytes,
+        "local_fallbacks": tr.local_fallbacks,
     }
 
 

@@ -199,6 +199,11 @@ def embed_inputs(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
             vis = batch["image_embeds"]                    # (B, n_img, 1024)
         vis = vis.to(params["vision_adapter"].dtype) @ params["vision_adapter"]
         x = vis if x is None else torch.cat([vis, x.to(vis.dtype)], dim=1)
+        # the adapter's columns lie over the model axis, so a DTensor x comes
+        # out with its width sharded: laid out as an activation, the first
+        # layer's q, k and v are (batch, head) shards, as a text model's are
+        # (else their products leave a pending sum and attention runs whole)
+        x = constrain(x, "act")
     return x
 
 
@@ -357,6 +362,82 @@ def forward(params: dict, batch: dict, cfg: ModelConfig,
     return _logits(params, x, cfg), {"moe_aux": aux}
 
 
+class _VocabParallelCE(torch.autograd.Function):
+    """logsumexp and the gold logit of one rank's shard of the vocabulary
+    (B, S, V/tp) float32, reduced over the ranks that hold V (``groups``):
+    the max, the sum of exp and the gold logit are taken on the shard and
+    all-reduced as (B, S) tensors. The backward is local: the softmax of
+    the shard times the normaliser's gradient, plus the one-hot's share of
+    the gold logit's (Megatron's vocabulary-parallel cross entropy)."""
+
+    @staticmethod
+    def forward(ctx, lg, tgt, ids, groups):
+        from torch.distributed import _functional_collectives as funcol
+
+        def reduce(x, op):
+            for g in groups:
+                x = funcol.wait_tensor(funcol.all_reduce(x, op, g))
+            return x
+
+        # the max is a shift that cancels in the gradient (softmax sums to one)
+        m = reduce(torch.amax(lg, dim=-1), "max")
+        e = torch.exp(lg - m[..., None])
+        se = reduce(torch.sum(e, dim=-1), "sum")
+        hit = tgt[..., None] == ids
+        gold = reduce(torch.sum(torch.where(hit, lg, 0.0), dim=-1), "sum")
+        ctx.save_for_backward(e, se, hit)
+        return m + torch.log(se), gold
+
+    @staticmethod
+    def backward(ctx, g_logz, g_gold):
+        e, se, hit = ctx.saved_tensors
+        grad = e * (g_logz / se)[..., None] + torch.where(hit, g_gold[..., None], 0.0)
+        return grad, None, None, None
+
+
+def _log_normaliser_and_gold(logits: torch.Tensor, n_prefix: int, tgt: torch.Tensor
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """logsumexp over the vocabulary and the logit of each target ``tgt``
+    (B, S-1) of the next-token logits ``logits[:, n_prefix:-1]`` in float32:
+    the reference's logsumexp and one-hot contraction.
+
+    On ``DTensor``s every (B, S, V) tensor stays each rank's shard of the
+    logits (B over the data ranks, V over the model ranks, the constrainer's
+    ``"logits"`` layout), sliced and cast there, and only (B, S) tensors
+    are reduced over the ranks that hold V (:class:`_VocabParallelCE`; its
+    sums add the shards' partial sums, so its rounding differs from the
+    one-device sum's). The one-hot compares the targets with the rank's
+    own vocabulary ids. Where no rank splits V (a mesh of one model rank),
+    each rank runs the one-device arithmetic on its rows, bitwise the
+    plain tensors' on one device."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
+
+    def whole(lg, tgt):
+        logz = torch.logsumexp(lg, dim=-1)
+        onehot = tgt[..., None] == torch.arange(lg.shape[-1], device=lg.device)
+        return logz, torch.einsum("bsv,bsv->bs", lg, onehot.to(lg.dtype))
+
+    if not isinstance(logits, DTensor):
+        return whole(logits[:, n_prefix:, :][:, :-1, :].to(torch.float32), tgt)
+    mesh = logits.device_mesh
+    pl = [p if isinstance(p, Shard) and p.dim in (0, 2) else Replicate()
+          for p in logits.placements]
+    vocab = [i for i, p in enumerate(pl) if p == Shard(2)]
+    rows = [p if p == Shard(0) else Replicate() for p in pl]
+    lg = logits.redistribute(mesh, pl).to_local()[:, n_prefix:, :][:, :-1, :].to(torch.float32)
+    if not isinstance(tgt, DTensor):
+        tgt = DTensor.from_local(tgt, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    tgt = tgt.redistribute(mesh, rows).to_local()
+    if vocab:
+        ids = distribute_tensor(torch.arange(logits.shape[-1], device=lg.device), mesh,
+                                [Shard(0) if i in vocab else Replicate()
+                                 for i in range(mesh.ndim)], src_data_rank=None).to_local()
+        terms = _VocabParallelCE.apply(lg, tgt, ids, [(mesh, i) for i in vocab])
+    else:   # V whole on every rank: the one-device arithmetic on each rank's rows
+        terms = whole(lg, tgt)
+    return tuple(DTensor.from_local(t, mesh, rows, run_check=False) for t in terms)
+
+
 def loss_fn(params: dict, batch: dict, cfg: ModelConfig,
             plan: ParallelPlan = DEFAULT_PLAN) -> tuple[torch.Tensor, dict]:
     """Next-token CE over the text tokens (image positions excluded) plus
@@ -366,13 +447,10 @@ def loss_fn(params: dict, batch: dict, cfg: ModelConfig,
     tokens = batch["tokens"].long()
     n_prefix = logits.shape[1] - tokens.shape[1]   # image tokens prepended
     tgt = tokens[:, 1:]
-    lg = logits[:, n_prefix:, :][:, :-1, :].to(torch.float32)
     mask = batch.get("loss_mask")
-    mask = torch.ones(tgt.shape, dtype=torch.float32, device=lg.device) if mask is None \
+    mask = torch.ones(tgt.shape, dtype=torch.float32, device=logits.device) if mask is None \
         else mask[:, 1:]
-    logz = torch.logsumexp(lg, dim=-1)
-    onehot = tgt[..., None] == torch.arange(lg.shape[-1], device=lg.device)
-    gold = torch.einsum("bsv,bsv->bs", lg, onehot.to(lg.dtype))
+    logz, gold = _log_normaliser_and_gold(logits, n_prefix, tgt)
     ce = torch.sum((logz - gold) * mask) / torch.clamp_min(torch.sum(mask), 1.0)
     loss = ce + aux["moe_aux"]
     return loss, {"ce": ce, "moe_aux": aux["moe_aux"]}

@@ -21,7 +21,7 @@ import torch.nn.functional as F
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import ParallelPlan, dense_init, gelu
-from repro_torch.models.sharding_ctx import P, whole_along
+from repro_torch.models.sharding_ctx import P, split_shards, whole_along
 
 _C = 8.0
 CONV_K = 4
@@ -63,7 +63,9 @@ def _causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                    state: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """Depthwise causal conv, kernel CONV_K. x (B,S,D); state (B,K-1,D).
     ``torch.cat`` promotes a bf16 state to x's dtype, as the reference's
-    concatenate does."""
+    concatenate does. The returned state is a copy of the last K-1
+    positions: a view would keep the whole (B,S+K-1,D) concatenation alive
+    in the layer's state."""
     if state is None:
         state = torch.zeros((x.shape[0], CONV_K - 1, x.shape[-1]), dtype=x.dtype,
                             device=x.device)
@@ -72,7 +74,7 @@ def _causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     out = xp[:, 0:s, :] * w[0]
     for i in range(1, CONV_K):
         out = out + xp[:, i:i + s, :] * w[i]
-    return out + b, xp[:, -(CONV_K - 1):, :]
+    return out + b, xp[:, -(CONV_K - 1):, :].clone()
 
 
 def _gates(p: dict, xc: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -128,15 +130,31 @@ def associative_scan(elems):
     return [_interleave(e, o) for e, o in zip(even, odd)]
 
 
-def rglru_scan(p: dict, xc: torch.Tensor, h0: torch.Tensor | None = None
-               ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Parallel linear-recurrence scan. xc (B,S,D) -> (h (B,S,D), h_last)."""
-    log_a, gi = _gates(p, xc)                      # (B,S,D) fp32
+def _scan(log_a: torch.Tensor, gi: torch.Tensor, h0: torch.Tensor | None, dtype
+          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The scan of (log a, gated input) (B,S,D) from h0 (B,1,D) or zero:
+    (h (B,S,D) in ``dtype``, a copy of h's last position (B,1,D) fp32)."""
     if h0 is not None:
         gi = gi.clone()
-        gi[:, 0, :] = gi[:, 0, :] + h0.to(torch.float32) * torch.exp(log_a[:, 0, :])
+        gi[:, 0, :] = gi[:, 0, :] + h0[:, 0, :].to(torch.float32) * torch.exp(log_a[:, 0, :])
     _, h = associative_scan([log_a, gi])
-    return h.to(xc.dtype), h[:, -1, :]
+    return h.to(dtype), h[:, -1:, :].clone()
+
+
+def rglru_scan(p: dict, xc: torch.Tensor, h0: torch.Tensor | None = None
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Parallel linear-recurrence scan. xc (B,S,D) -> (h (B,S,D), h_last).
+
+    The scan is elementwise along B and D, so on ``DTensor``s each rank
+    scans its own (B/dp, S, D/tp) shard (``split_shards`` along D; the
+    reference's layout), with no collective and no global-size tensor.
+    ``h_last`` is a copy (B,D), not a view that would keep the whole scan
+    alive in the layer's state."""
+    log_a, gi = _gates(p, xc)                      # (B,S,D) fp32
+    h, h_last = split_shards(lambda a, g, h_0: _scan(a, g, h_0, xc.dtype),
+                             (log_a, gi, None if h0 is None else h0[:, None, :]),
+                             (2, 2, 2), (2, 2))
+    return h, h_last[:, 0, :]
 
 
 def rglru_step(p: dict, xc: torch.Tensor, h: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -24,6 +24,9 @@ import torch
 from repro_torch.convert import tree_map
 
 _CONSTRAINER: Callable[[torch.Tensor, str], torch.Tensor] | None = None
+# the times local_shards ran its function on DTensors laid out other than
+# on its dims (the dry run's record reads it: ``Trace.local_fallbacks``)
+LOCAL_FALLBACKS = [0]
 _MOE_CTX: dict | None = None   # {"mesh", "dp", "tp"} -> all-to-all MoE dispatch
 
 
@@ -202,7 +205,8 @@ def local_shards(fn, dims: tuple[int, ...], *args):
     back as a ``DTensor`` of the same layout. The same numbers as ``fn`` on
     the global tensors, with none of ``DTensor``'s per-op dispatch (nor its
     limits: torch 2.11 cannot flatten two sharded dims, which einsum's
-    batched products do). Differentiable. Otherwise ``fn(*args)``."""
+    batched products do). Differentiable. Otherwise ``fn(*args)`` on the
+    ``DTensor``s, counted in ``LOCAL_FALLBACKS``."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
 
     lead = next((a for a in args if isinstance(a, DTensor)), None)
@@ -211,6 +215,7 @@ def local_shards(fn, dims: tuple[int, ...], *args):
     pl = tuple(lead.placements)
     if not all(isinstance(p, Replicate) or (isinstance(p, Shard) and p.dim in dims)
                for p in pl):
+        LOCAL_FALLBACKS[0] += 1
         return fn(*args)
     return _on_local(fn, lead.device_mesh, pl, args)
 
@@ -265,8 +270,7 @@ def batch_shards(fn, *args, weights=(), heads=None):
         pl = tuple(Shard(0) if b else Replicate() for b in batch)
         return _on_local(fn, mesh, pl, args)
     n_heads, dims, out_dims = heads
-    head_axis = next((i for i, (b, k) in enumerate(zip(batch, mesh.shape))
-                      if not b and k > 1 and n_heads % k == 0), None)
+    head_axis = split_heads_axis(lead, n_heads)
 
     def layout(batch_dim, head_dim):
         return tuple(Shard(batch_dim) if b and batch_dim is not None
@@ -285,6 +289,62 @@ def batch_shards(fn, *args, weights=(), heads=None):
             a.redistribute(mesh, pl).to_local(grad_placements=grad_pl)))
     return tuple(DTensor.from_local(t.contiguous(), mesh, layout(0, d), run_check=False)
                  for t, d in zip(fn(*local), out_dims))
+
+
+def split_heads_axis(x: torch.Tensor, n_heads: int) -> int | None:
+    """The mesh dim over which :func:`batch_shards` splits ``n_heads`` heads
+    of ``DTensor`` ``x``: the first past those that shard its batch (dim 0)
+    whose size, above 1, divides ``n_heads``; ``None`` where none does (or
+    ``x`` is a plain tensor)."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    if not isinstance(x, DTensor):
+        return None
+    return next((i for i, (p, k) in enumerate(zip(x.placements, x.device_mesh.shape))
+                 if not (isinstance(p, Shard) and p.dim == 0) and k > 1 and n_heads % k == 0),
+                None)
+
+
+def split_shards(fn, args, dims, out_dims, positions: int | None = None):
+    """``fn(*args)`` on each rank's share, for an ``fn`` computed
+    independently along the batch (dim 0 of every argument and result) and
+    along one more dim of some of its arguments and results: ``dims`` (one
+    entry an argument) and ``out_dims`` (one a result of the tuple ``fn``
+    returns) name that dim, or ``None`` for a tensor each rank needs whole
+    (``fn``'s row t of the mLSTM's parallel form reads query row t and
+    every key; the RG-LRU's scan, elementwise along its width, needs
+    nothing whole). Every ``DTensor`` argument is laid out with the batch
+    split as the first one's is and its dim split over every other mesh
+    axis above size 1 (whole on every rank where ``None``); each result
+    comes back a ``DTensor`` laid out so. Each rank's gradient of a whole
+    argument is its share of the sum over those axes (``Partial()``
+    there). The split dims must divide evenly. With ``positions`` (the
+    length of a split dim), ``fn`` also gets ``rows=``: the positions of
+    the rank's share of that dim, where an axis splits it. Differentiable.
+    Without a ``DTensor`` argument this is ``fn(*args)``."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard, distribute_tensor
+
+    lead = next((a for a in args if isinstance(a, DTensor)), None)
+    if lead is None:
+        return fn(*args)
+    mesh = lead.device_mesh
+    batch = [isinstance(p, Shard) and p.dim == 0 for p in lead.placements]
+    split = [not b and k > 1 for b, k in zip(batch, mesh.shape)]
+
+    def layout(dim, whole):
+        return tuple(Shard(0) if b else Replicate() if not r else
+                     Shard(dim) if dim is not None else whole
+                     for b, r in zip(batch, split))
+
+    local = [a if not isinstance(a, DTensor) else _ContiguousGrad.apply(
+        a.redistribute(mesh, layout(d, Replicate())).to_local(
+            grad_placements=layout(d, Partial()))) for a, d in zip(args, dims)]
+    kw = {} if positions is None or not any(split) else {"rows": distribute_tensor(
+        torch.arange(positions, device=lead.to_local().device), mesh,
+        [Shard(0) if r else Replicate() for r in split], src_data_rank=None).to_local()}
+    return tuple(DTensor.from_local(t.contiguous(), mesh, layout(d, Replicate()),
+                                    run_check=False)
+                 for t, d in zip(fn(*local, **kw), out_dims))
 
 
 def _on_local(fn, mesh, pl, args):

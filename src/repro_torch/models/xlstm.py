@@ -28,7 +28,8 @@ from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import ParallelPlan, dense_init, inv_sqrt
 from repro_torch.models.sharding_ctx import (P, batch_shards, merge_last, replicated,
-                                             split_last)
+                                             split_heads_axis, split_last, split_shards,
+                                             whole_along)
 from repro_torch.models.rglru import CONV_K, _causal_conv1d
 
 
@@ -124,14 +125,20 @@ def _mlstm_qkvif(p: dict, x: torch.Tensor, conv_state=None):
     return q, k, v, i_raw, f_raw, z, conv_new
 
 
-def mlstm_parallel(q, k, v, i_raw, f_raw) -> torch.Tensor:
-    """Stabilised parallel (quadratic) form. q/k/v (B,S,NH,dh) -> (B,S,NH,dh)."""
-    b, s, nh, dh = q.shape
+def mlstm_parallel(q, k, v, i_raw, f_raw, rows=None) -> torch.Tensor:
+    """Stabilised parallel (quadratic) form. q/k/v (B,S,NH,dh) -> (B,S,NH,dh).
+
+    ``rows``: the positions of ``q``'s rows, where ``q`` holds T of the S
+    query positions (a rank's block, :func:`_mlstm_parallel_shards`); the
+    result is then those T rows (B,T,NH,dh), each against every key."""
+    b, s, nh, dh = k.shape
     lf = _logsigmoid(f_raw)                           # (B,S,NH)
     lfc = torch.cumsum(lf, dim=1)                      # inclusive Σ log f
     # pair weight (t, j): lfc_t - lfc_j + i_j, j <= t
-    dmat = lfc[:, :, None, :] - lfc[:, None, :, :] + i_raw[:, None, :, :]
-    causal = _causal_mask(s, q.device)
+    lfc_t = lfc if rows is None else lfc.index_select(1, rows)
+    dmat = lfc_t[:, :, None, :] - lfc[:, None, :, :] + i_raw[:, None, :, :]
+    causal = (_causal_mask(s, q.device) if rows is None
+              else rows[:, None] >= torch.arange(s, device=q.device)[None, :])
     dmat = torch.where(causal[None, :, :, None], dmat,
                        torch.full((), -math.inf, device=q.device))  # (B,T,J,NH)
     m = torch.amax(dmat, dim=2)                        # (B,T,NH)
@@ -147,6 +154,26 @@ def mlstm_parallel(q, k, v, i_raw, f_raw) -> torch.Tensor:
     denom = torch.maximum(torch.abs(torch.sum(sc, dim=3).permute(0, 2, 1)),
                           torch.exp(-m))                                      # (B,T,NH)
     return (num / denom[..., None]).to(q.dtype)
+
+
+def _mlstm_parallel_shards(q, k, v, i_raw, f_raw) -> torch.Tensor:
+    """:func:`mlstm_parallel` on each rank's share of ``DTensor``s: its shard
+    of the batch, and of the heads where a mesh axis past the batch's
+    divides them (``batch_shards``); else of the query rows over the
+    other axes, each row block against every key (``split_shards``: the
+    reference's split of the positions over "model", as its 4 heads do
+    not divide the production mesh's 16). The result, rows split, is made
+    whole along the positions (gathered over "model"): torch 2.11 cannot
+    flatten (B, S) with both dims sharded, which the head merge does. A
+    plain tensor: ``mlstm_parallel``."""
+    nh = q.shape[2]
+    if split_heads_axis(q, nh) is not None:
+        return batch_shards(lambda *a: (mlstm_parallel(*a),), q, k, v, i_raw, f_raw,
+                            heads=(nh, (2,) * 5, (2,)))[0]
+    h, = split_shards(lambda *a, rows=None: (mlstm_parallel(*a, rows=rows),),
+                      (q, k, v, i_raw, f_raw), (1, None, None, None, None), (1,),
+                      positions=q.shape[1])
+    return whole_along(h, 1)
 
 
 def mlstm_step(state: dict, q, k, v, i_raw, f_raw):
@@ -235,6 +262,16 @@ def mlstm_final_state(k, v, i_raw, f_raw) -> dict:
     return {"C": c, "n": n, "m": m}
 
 
+def _mlstm_final_state_shards(k, v, i_raw, f_raw) -> dict:
+    """:func:`mlstm_final_state` on each rank's share of ``DTensor``s: its
+    batch shard and its share of the key width (``split_shards``), the
+    layout of the state's spec (C's and n's key dim over "model"); the
+    values and the m stabiliser whole. A plain tensor: ``mlstm_final_state``."""
+    c, n, m = split_shards(lambda *a: tuple(mlstm_final_state(*a).values()),
+                           (k, v, i_raw, f_raw), (3, None, None, None), (3, 2, None))
+    return {"C": c, "n": n, "m": m}
+
+
 def mlstm_block_forward(p: dict, x: torch.Tensor, state: dict | None = None,
                         chunk_size: int = 0) -> tuple[torch.Tensor, dict]:
     nh = p["wq"].shape[0]
@@ -249,10 +286,10 @@ def mlstm_block_forward(p: dict, x: torch.Tensor, state: dict | None = None,
         h, cell = mlstm_chunkwise(q, k, v, i_raw, f_raw, chunk_size)
         new_state = {"conv": conv_new, **cell}
     else:
-        # on DTensors, on each rank's batch shard (see sharding_ctx.batch_shards)
-        h = batch_shards(mlstm_parallel, q, k, v, i_raw, f_raw)
+        # on DTensors, on each rank's share (batch and heads, or query rows)
+        h = _mlstm_parallel_shards(q, k, v, i_raw, f_raw)
         # fold the sequence into the final recurrent state (prefill -> decode)
-        cell = batch_shards(mlstm_final_state, k, v, i_raw, f_raw)
+        cell = _mlstm_final_state_shards(k, v, i_raw, f_raw)
         new_state = {"conv": conv_new, **cell}
     hflat = merge_last(h)
     out = (_group_norm(hflat, p["gn"], nh) * F.silu(z)) @ p["w_down"]

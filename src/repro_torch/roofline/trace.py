@@ -22,7 +22,15 @@ storage behind them), and :class:`StepRecorder` records what rank 0 does:
   between pods, is told apart from traffic over "data";
 * ``peak_bytes``: the most bytes of live storage this rank held at once,
   the step's arguments included (each storage counted once, freed when
-  its last tensor dies, as the caching allocator sees the eager step).
+  its last tensor dies, as the caching allocator sees the eager step);
+* ``local_fallbacks``: the times ``sharding_ctx.local_shards`` found its
+  ``DTensor``s laid out other than on the dims it computes along and ran
+  its function on them whole (0 where every rank computes its own share).
+
+With ``holders=True`` the recorder also keeps, for each storage the step
+made, its bytes, shape, dtype and the port's frames that made it
+(:class:`Holder`): ``Trace.made``, and ``Trace.peak_holders``, the
+storages live at the peak, largest first (``tools/peak_holders.py``).
 
 ``DTensor`` computes each op on its local shards, so the recorder returns
 ``NotImplemented`` for an op on ``DTensor``s and records the local ops
@@ -96,6 +104,41 @@ class Trace:
     n_outputs: int = 0
     setup_s: float = 0.0     # building the step's inputs (set by the caller)
     step_s: float = 0.0      # the traced step's wall time
+    local_fallbacks: int = 0
+    # with StepRecorder(holders=True): every storage the step made, and those
+    # live at the peak (the arguments' too), largest first
+    made: list = dataclasses.field(default_factory=list)
+    peak_holders: list = dataclasses.field(default_factory=list)
+
+
+@dataclasses.dataclass
+class Holder:
+    """A storage of the step: its bytes, the shape and dtype of the tensor
+    it was made for, and the port's frames on the stack then, innermost
+    first (``"models/rglru.py:120 associative_scan"``); ``("argument",)``
+    for a step's argument."""
+
+    nbytes: int
+    shape: tuple
+    dtype: str
+    frames: tuple
+
+
+_PORT_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_SELF = os.path.abspath(__file__)
+
+
+def _port_frames(depth: int = 8) -> tuple:
+    """The innermost ``depth`` frames of the port's code on the stack,
+    the recorder's own left out."""
+    out = []
+    f = sys._getframe(2)
+    while f is not None and len(out) < depth:
+        name = f.f_code.co_filename
+        if name.startswith(_PORT_DIR) and name != _SELF:
+            out.append(f"{os.path.relpath(name, _PORT_DIR)}:{f.f_lineno} {f.f_code.co_name}")
+        f = f.f_back
+    return tuple(out)
 
 
 def _tensors(tree) -> list[torch.Tensor]:
@@ -185,10 +228,17 @@ class StepRecorder(TorchDispatchMode):
     ``full``) are made in it: fake, whatever their size. DTensor's
     bookkeeping tensors stay real, since DTensor reads them back."""
 
-    def __init__(self, fake_mode=None, mesh=None):
+    def __init__(self, fake_mode=None, mesh=None, holders: bool = False):
         super().__init__()
         self.fake_mode = fake_mode
         self.mesh = mesh
+        self.holders = holders
+        # with holders: [Holder, born, died] a storage, in the order made;
+        # the event count (a storage made or freed) and its value at the peak
+        self._made: list = []
+        self._events = 0
+        self._peak_event = 0
+        self._arguments = True            # hold() registers the arguments
         self._axes: dict = {}             # a collective's group -> its mesh axes
         self.trace = Trace()
         self.read: set[int] = set()       # ids of the storages a non-view op took
@@ -198,8 +248,11 @@ class StepRecorder(TorchDispatchMode):
         self._stack = contextlib.ExitStack()
 
     # -- live storage ------------------------------------------------------
-    def _free(self, key: int) -> None:
+    def _free(self, key: int, entry=None) -> None:
         self._cur -= self._live.pop(key, 0)
+        if entry is not None:
+            self._events += 1
+            entry[2] = self._events
 
     def _hold_storage(self, t: torch.Tensor) -> None:
         st = t.untyped_storage()
@@ -208,15 +261,31 @@ class StepRecorder(TorchDispatchMode):
             return
         n = st.nbytes()
         self._live[key] = n
-        weakref.finalize(st, self._free, key)
+        entry = None
+        if self.holders:
+            self._events += 1
+            frames = ("argument",) if self._arguments else _port_frames()
+            entry = [Holder(n, tuple(t.shape), str(t.dtype).replace("torch.", ""), frames),
+                     self._events, None]
+            self._made.append(entry)
+        weakref.finalize(st, self._free, key, entry)
         self._cur += n
         if self._cur > self.trace.peak_bytes:
             self.trace.peak_bytes = self._cur
+            self._peak_event = self._events
 
     def hold(self, tree) -> None:
         """Count the local storage of every tensor of ``tree`` as live."""
         for x in _tensors(tree):
             self._hold_storage(local_tensor(x))
+
+    def collect_holders(self) -> None:
+        """Fill the trace's ``made`` and ``peak_holders`` (with ``holders``)."""
+        at = self._peak_event
+        self.trace.made = [h for h, _, _ in self._made if h.frames != ("argument",)]
+        live = [h for h, born, died in self._made
+                if born <= at and (died is None or died > at)]
+        self.trace.peak_holders = sorted(live, key=lambda h: -h.nbytes)
 
     def _group_axes(self, args, kwargs) -> tuple[str, ...]:
         """The axes of :attr:`mesh` along which a collective's group (its
@@ -247,6 +316,7 @@ class StepRecorder(TorchDispatchMode):
 
     # -- the mode ------------------------------------------------------------
     def __enter__(self):
+        self._arguments = False
         self._stack.enter_context(_propagation_marked(self))
         return super().__enter__()
 
@@ -310,21 +380,28 @@ def _local_bytes(tree) -> int:
     return sum(_nbytes(local_tensor(x)) for x in _tensors(tree))
 
 
-def trace_step(step, *args, fake_mode=None, mesh=None) -> Trace:
+def trace_step(step, *args, fake_mode=None, mesh=None, holders: bool = False) -> Trace:
     """Run ``step(*args)`` under a :class:`StepRecorder` holding ``args``
     as live storage; its trace, with the local bytes of the arguments the
     step reads (one that no op takes, or whose shape alone is used, is not
     an argument of the step, as ``jax.jit`` prunes it) and of its outputs.
     ``fake_mode``: the ``FakeTensorMode`` of fake ``args`` (see
     :class:`StepRecorder`); the step runs outside it. ``mesh``: the
-    ``DeviceMesh`` whose axes each collective is attributed to."""
-    rec = StepRecorder(fake_mode, mesh)
+    ``DeviceMesh`` whose axes each collective is attributed to.
+    ``holders``: keep each storage's provenance (:class:`StepRecorder`)."""
+    from repro_torch.models import sharding_ctx
+
+    rec = StepRecorder(fake_mode, mesh, holders)
     rec.hold(args)
+    fallbacks = sharding_ctx.LOCAL_FALLBACKS[0]
     t0 = time.time()
     with rec:
         out = step(*args)
     tr = rec.trace
     tr.step_s = time.time() - t0
+    tr.local_fallbacks = sharding_ctx.LOCAL_FALLBACKS[0] - fallbacks
+    if holders:
+        rec.collect_holders()
     arg_storages = {id(local_tensor(x).untyped_storage()) for x in _tensors(args)}
     tr.argument_bytes = sum(_nbytes(local_tensor(x)) for x in _tensors(args)
                             if id(local_tensor(x).untyped_storage()) in rec.read)

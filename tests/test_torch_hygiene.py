@@ -79,7 +79,8 @@ def _port_files():
             + [ROOT / "chip_smoke.py", ROOT / "tools" / "fused_embed_variants.py",
                ROOT / "tools" / "profiler_windows.py",
                ROOT / "tools" / "long_context_decode.py",
-               ROOT / "tools" / "dryrun_census.py", ROOT / "tools" / "decode_drift.py"])
+               ROOT / "tools" / "dryrun_census.py", ROOT / "tools" / "decode_drift.py",
+               ROOT / "tools" / "peak_holders.py"])
 
 
 def _imported_modules(path):

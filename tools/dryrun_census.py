@@ -25,7 +25,9 @@ card's machine (this CPU-only torch cannot run a fake CUDA step).
 
 Writes ``DIR/census.json``: per cell ``ok`` / ``error`` / ``timeout``, its
 wall seconds, and for a cell that ran its microbatches, peak, argument and
-output bytes per rank and traced-step seconds; for one that raised, the
+output bytes per rank, the times ``local_shards`` fell back to running
+whole on ``DTensor``s (``local_fallbacks``, 0 where every rank computes
+its share) and traced-step seconds; for one that raised, the
 error's last line; for one stopped at ``--timeout``, the phase it was in:
 the innermost lines of the port on its stack (``faulthandler``'s dump,
 asked for with SIGUSR1 just before the kill, in the cell's log). Prints
@@ -84,7 +86,8 @@ def _gate(got):
                 argument_bytes_per_device=mem["argument_bytes_per_device"],
                 output_bytes_per_device=mem["output_bytes_per_device"],
                 output_leaves=mem.get("output_leaves"),
-                fits_hbm=mem["fits_hbm"], lower_s=got["lower_s"], compile_s=got["compile_s"])
+                fits_hbm=mem["fits_hbm"], local_fallbacks=mem.get("local_fallbacks"),
+                lower_s=got["lower_s"], compile_s=got["compile_s"])
 
 
 def _summary(arch, shape, mesh, path, rc, wall, timed_out, log, stopped_by="timeout"):
