@@ -2680,25 +2680,28 @@ def estimate_phase(dev, out, cfg=None, batch=8, seq=512, seed=0):
     assert rec["estimate_flops"] == rec["card_flops"], rec
 
 
-# The reference's compiled cells on the production mesh: its ``lower_cell``
-# compiled for 256 forced CPU devices on an ``Auto`` (16, 16) ("data",
-# "model") mesh (jax 0.9.0), ``memory_analysis()`` per device: (argument
-# bytes, output bytes, peak GiB at one microbatch: argument plus temp
-# bytes). Its output size also counts the result tuple's 8-byte pointer
-# per output leaf (``tests/test_torch_dryrun.py``). ``None``: not compared
-# (the bytes of the cells held for their peak alone; the peak of the
-# decode and long-context cells, held for their bytes alone)
+# The reference's compiled cells on the production mesh that phase l4
+# holds: its ``lower_cell`` compiled for 256 forced CPU devices on an
+# ``Auto`` (16, 16) ("data", "model") mesh (jax 0.9.0),
+# ``memory_analysis()`` per device: (argument bytes, output bytes). Its
+# output size also counts the result tuple's 8-byte pointer per output leaf
+# (``tests/test_torch_dryrun.py``); ``None``: not compared (the cells held
+# for their peak alone). Each cell's one-microbatch peak a device, argument
+# plus temp bytes, is the port's table of every single-mesh cell
+# (``launch.dryrun.REFERENCE_PEAK_GIB``)
 REFERENCE_FAULT_CELLS = {
-    ("xlstm-1.3b", "decode_32k"): (596_606_400, 353_335_984, None),
-    ("xlstm-1.3b", "long_500k"): (287_481_668, 44_167_236, None),
-    ("recurrentgemma-2b", "long_500k"): (488_327_304, 16_838_116, None),
-    ("recurrentgemma-2b", "prefill_32k"): (471_841_024, 33_676_120, 6.00),
-    ("recurrentgemma-2b", "train_4k"): (2_829_389_828, 2_829_129_480, 26.29),
-    ("xlstm-1.3b", "prefill_32k"): (243_736_736, 88_334_184, 19.36),
-    ("xlstm-1.3b", "train_4k"): (1_460_188_100, 1_459_928_424, 40.00),
-    ("pixtral-12b", "prefill_32k"): (None, None, 4.12),
-    ("smollm-135m", "train_4k"): (None, None, 4.07),
-    ("llama3-8b", "train_4k"): (None, None, 21.42),
+    ("xlstm-1.3b", "decode_32k"): (596_606_400, 353_335_984),
+    ("xlstm-1.3b", "long_500k"): (287_481_668, 44_167_236),
+    ("recurrentgemma-2b", "long_500k"): (488_327_304, 16_838_116),
+    ("recurrentgemma-2b", "decode_32k"): (None, None),
+    ("recurrentgemma-2b", "prefill_32k"): (471_841_024, 33_676_120),
+    ("recurrentgemma-2b", "train_4k"): (2_829_389_828, 2_829_129_480),
+    ("xlstm-1.3b", "prefill_32k"): (243_736_736, 88_334_184),
+    ("xlstm-1.3b", "train_4k"): (1_460_188_100, 1_459_928_424),
+    ("pixtral-12b", "prefill_32k"): (None, None),
+    ("smollm-135m", "train_4k"): (None, None),
+    ("llama3-8b", "train_4k"): (None, None),
+    ("mistral-nemo-12b", "train_4k"): (None, None),
 }
 # a cell's one-microbatch peak a rank over the reference's, at most: an
 # eager trace with no fusion and no buffer reuse runs at 1.0-2.3x XLA's
@@ -2712,17 +2715,20 @@ L2_CELLS = (("llama3-8b", "train_4k"),)
 # own traces each group beside the first process (recurrentgemma-2b's
 # whole-sequence steps, fault 14; xlstm-1.3b's, whose sLSTM scan is one op
 # since it no longer loops over the positions under the trace; the cells
-# added for their peak)
+# added for their peak; mistral-nemo-12b's FSDP training step, fault 23)
 SLOW_FAULT_CELLS = ((("recurrentgemma-2b", "prefill_32k"), ("recurrentgemma-2b", "train_4k")),
                     (("xlstm-1.3b", "prefill_32k"), ("xlstm-1.3b", "train_4k")),
-                    (("pixtral-12b", "prefill_32k"), ("smollm-135m", "train_4k")))
+                    (("pixtral-12b", "prefill_32k"), ("smollm-135m", "train_4k")),
+                    (("mistral-nemo-12b", "train_4k"),))
 
 
 def reference_peak_bytes(arch, shape):
-    """The reference's one-microbatch peak a device of a cell of
-    ``REFERENCE_FAULT_CELLS``, in bytes; ``None`` where it has none."""
-    want = REFERENCE_FAULT_CELLS.get((arch, shape))
-    return None if want is None or want[2] is None else want[2] * 2 ** 30
+    """The reference's one-microbatch peak a device of a single-mesh cell,
+    in bytes (``launch.dryrun.REFERENCE_PEAK_GIB``); ``None`` where it has
+    none."""
+    from repro_torch.launch.dryrun import reference_peak_bytes as peak
+
+    return peak(arch, shape)
 
 
 def dryrun_faults_phase(out, cells=REFERENCE_FAULT_CELLS, device_type="cuda", cfg_of=None,
@@ -2730,13 +2736,17 @@ def dryrun_faults_phase(out, cells=REFERENCE_FAULT_CELLS, device_type="cuda", cf
     """Phase (l4): the cells the port's dry run once raised on (xlstm's 4
     heads on the 16-way model axis; long_500k's batch of one on 16 data
     ranks; recurrentgemma-2b's prefill_32k and train_4k, fault 14) and
-    those where a rank built global-size tensors (faults 17-20), each one
-    step at one microbatch on the production mesh of fake ranks
-    (``lower_cell``, no roofline points): the plan, the argument bytes per
-    rank equal to the reference's and the output bytes plus the tuple's
-    8 B a leaf equal to its, by ``tests/test_torch_dryrun.py``'s rules;
-    the peak a rank at most ``PEAK_OVER_REFERENCE`` times the reference's;
-    no ``local_shards`` fallback; seconds a cell. ``cfg_of``,
+    those where a rank built global-size tensors (faults 17-23: the decode
+    and long-context cells gathered the whole embedding table, mistral-nemo
+    -12b's FSDP training step its logits' product), each one step at one
+    microbatch on the production mesh of fake ranks (``lower_cell``, no
+    roofline points): the plan, the argument bytes per rank equal to the
+    reference's and the output bytes plus the tuple's 8 B a leaf equal to
+    its, by ``tests/test_torch_dryrun.py``'s rules; the peak a rank at most
+    ``PEAK_OVER_REFERENCE`` times the reference's; no ``local_shards``
+    fallback; in a decode cell whose table's rows lie over ranks, no
+    storage the lookup makes as large as the whole (V, D) table (traced
+    with the recorder's holders); seconds a cell. ``cfg_of``,
     ``mesh_shape`` and ``shapes`` (a name -> ``ShapeConfig`` map) replace
     the production ones to rehearse on the CPU; an expected ``None`` is
     not compared."""
@@ -2754,13 +2764,23 @@ def dryrun_faults_phase(out, cells=REFERENCE_FAULT_CELLS, device_type="cuda", cf
             mesh = make_host_mesh(*mesh_shape, device_type=device_type)
             cfg = cfg_of(arch)
             plan = plan_for(cfg, mesh)
-            tr = dryrun.lower_cell(cfg, shapes[shape], mesh, plan)
+            decode = shapes[shape].kind == "decode"
+            tr = dryrun.lower_cell(cfg, shapes[shape], mesh, plan, holders=decode)
         rec = out["cells"][f"{arch}/{shape}"] = {
             "plan": {"tp": plan.tp, "fsdp": plan.fsdp}, "argument_bytes": tr.argument_bytes,
             "output_bytes": tr.output_bytes, "n_outputs": tr.n_outputs,
             "peak_bytes": tr.peak_bytes, "local_fallbacks": tr.local_fallbacks,
             "step_s": tr.step_s, "s": time.perf_counter() - t0}
-        want, ref_peak = want or (None, None, None), reference_peak_bytes(arch, shape)
+        # the bf16 table whole, where its rows lie over the model ranks, against
+        # the storages the lookup made
+        table = (cfg.vocab * cfg.d_model * 2
+                 if decode and cfg.vocab and plan.tp > 1 and cfg.vocab % plan.tp == 0 else None)
+        if table is not None:
+            rec["largest_lookup_storage_bytes"] = max(
+                (h.nbytes for h in tr.made if any(f.endswith(" _embed") for f in h.frames)),
+                default=0)
+            rec["whole_table_bytes"] = table
+        want, ref_peak = want or (None, None), reference_peak_bytes(arch, shape)
         rec["reference"] = {"argument_bytes": want[0], "output_bytes": want[1],
                             "peak_bytes": ref_peak}
         if ref_peak is not None:
@@ -2772,6 +2792,8 @@ def dryrun_faults_phase(out, cells=REFERENCE_FAULT_CELLS, device_type="cuda", cf
         assert rec["local_fallbacks"] == 0, rec
         if ref_peak is not None:
             assert rec["peak_over_reference"] <= PEAK_OVER_REFERENCE, rec
+        if table is not None:
+            assert rec["largest_lookup_storage_bytes"] < table, rec
 
 
 def dryrun_worker_phases(part):

@@ -151,6 +151,47 @@ def lower_cell(cfg: ModelConfig, shape: ShapeConfig, mesh, plan: ParallelPlan,
 
 
 # ---------------------------------------------------------------------------
+# the reference's compiled peak
+# ---------------------------------------------------------------------------
+
+# The reference's one-microbatch peak a device of each single-mesh cell, in
+# GiB: its ``repro.launch.dryrun.lower_cell`` at one microbatch compiled for
+# 256 forced CPU devices (``--xla_cpu_max_isa=AVX``, jax 0.9.0) on a
+# (16, 16) ("data", "model") mesh of ``Auto`` axes, argument plus temp
+# bytes of ``.compile().memory_analysis()``. A reference value (what XLA's
+# buffer assignment needs), not a card's; constants, as its bytes are
+REFERENCE_PEAK_GIB = {
+    ("llama3-8b", "train_4k"): 21.42, ("llama3-8b", "prefill_32k"): 5.69,
+    ("llama3-8b", "decode_32k"): 16.63,
+    ("qwen2.5-32b", "train_4k"): 21.53, ("qwen2.5-32b", "prefill_32k"): 5.48,
+    ("qwen2.5-32b", "decode_32k"): 29.14,
+    ("mistral-nemo-12b", "train_4k"): 13.36, ("mistral-nemo-12b", "prefill_32k"): 4.12,
+    ("mistral-nemo-12b", "decode_32k"): 18.10,
+    ("smollm-135m", "train_4k"): 4.07, ("smollm-135m", "prefill_32k"): 0.66,
+    ("smollm-135m", "decode_32k"): 6.75,
+    ("pixtral-12b", "train_4k"): 13.46, ("pixtral-12b", "prefill_32k"): 4.12,
+    ("pixtral-12b", "decode_32k"): 18.10,
+    ("qwen3-moe-235b-a22b", "train_4k"): 404.29, ("qwen3-moe-235b-a22b", "prefill_32k"): 288.22,
+    ("qwen3-moe-235b-a22b", "decode_32k"): 46.24,
+    ("kimi-k2-1t-a32b", "train_4k"): 738.11, ("kimi-k2-1t-a32b", "prefill_32k"): 523.36,
+    ("kimi-k2-1t-a32b", "decode_32k"): 50.61,
+    ("whisper-tiny", "train_4k"): 56.75, ("whisper-tiny", "prefill_32k"): 1.40,
+    ("whisper-tiny", "decode_32k"): 0.99,
+    ("recurrentgemma-2b", "train_4k"): 26.29, ("recurrentgemma-2b", "prefill_32k"): 6.00,
+    ("recurrentgemma-2b", "decode_32k"): 1.63, ("recurrentgemma-2b", "long_500k"): 1.03,
+    ("xlstm-1.3b", "train_4k"): 40.00, ("xlstm-1.3b", "prefill_32k"): 19.36,
+    ("xlstm-1.3b", "decode_32k"): 1.38, ("xlstm-1.3b", "long_500k"): 0.74,
+}
+
+
+def reference_peak_bytes(arch: str, shape_name: str) -> int | None:
+    """The reference's one-microbatch peak a device of a single-mesh cell
+    (:data:`REFERENCE_PEAK_GIB`), in bytes; ``None`` for a cell it lacks."""
+    gib = REFERENCE_PEAK_GIB.get((arch, shape_name))
+    return None if gib is None else int(gib * 2 ** 30)
+
+
+# ---------------------------------------------------------------------------
 # analytic corrections for time-scans a compiler's cost analysis cannot see
 # ---------------------------------------------------------------------------
 

@@ -119,6 +119,9 @@ def make_constrainer(mesh, plan: ParallelPlan, seq_shard: bool = True):
     """Logical name -> ``DTensor.redistribute`` on this mesh.
 
     act:    (B, S, D)  B over dp, S over tp (sequence parallelism)
+    act_saved: (B, S, D)  B over dp, S over tp, on every torch: a training
+            step's activation between pattern repeats, which remat keeps
+            for the backward (a layout nothing computes on)
     logits: (B, S, V)  V over tp
     moe_buf:(E, C, D)  E over tp, C over dp
     A plain tensor passes through unchanged. Where ``DTensor`` cannot
@@ -133,6 +136,7 @@ def make_constrainer(mesh, plan: ParallelPlan, seq_shard: bool = True):
     tp = plan.tp_axis
     table = {
         "act": P(dp, tp if seq_shard else None, None),
+        "act_saved": P(dp, tp, None),
         "logits": P(dp, None, tp),
         "tokens": P(dp, None),
         "moe_buf": P(tp, dp if two_sharded else None, None),

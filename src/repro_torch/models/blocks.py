@@ -171,7 +171,7 @@ def _apply_block(p: dict, kind: str, x: torch.Tensor, cfg: ModelConfig,
     elif kind == MLSTM:
         h = rms_norm(x, p["norm1"], cfg.norm_eps)
         out, new_state = xlstm_mod.mlstm_block_forward(
-            p["mlstm"], h, state, chunk_size=cfg.xlstm_chunk)
+            p["mlstm"], h, state, chunk_size=cfg.xlstm_chunk, final_state=state is not None)
         x = constrain(x + out, "act")
     elif kind == SLSTM:
         h = rms_norm(x, p["norm1"], cfg.norm_eps)

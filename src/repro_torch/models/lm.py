@@ -160,15 +160,64 @@ def param_specs(cfg: ModelConfig, plan: ParallelPlan = DEFAULT_PLAN) -> dict:
 # embedding of mixed inputs
 # ---------------------------------------------------------------------------
 
+def _mesh_offset(mesh, axes: list[int], size: int) -> int:
+    """The first index of this rank's block of a dim split evenly over the
+    mesh dims ``axes`` (in mesh order, the major first, as ``DTensor``
+    nests the shards of one dim) into blocks of ``size``."""
+    coord = mesh.get_coordinate()
+    block = 0
+    for i in axes:
+        block = block * mesh.size(i) + coord[i]
+    return block * size
+
+
+class _VocabParallelEmbed(torch.autograd.Function):
+    """``table[tokens]`` on one rank's shard of the vocabulary, the rows of
+    ids ``lo`` onwards (``tbl`` (V/tp, D)): each token of the shard gets
+    its row, every other token a zero row, and the rows are summed over
+    the ranks that hold V (``groups``), where each token has one non-zero
+    term, so the sum is exact. The backward is local: the rows' gradient
+    scatter-added into the shard's rows of its own tokens (Megatron's
+    vocabulary-parallel embedding)."""
+
+    @staticmethod
+    def forward(ctx, tbl, tok, lo, groups):
+        from torch.distributed import _functional_collectives as funcol
+
+        idx = tok - lo
+        hit = (idx >= 0) & (idx < tbl.shape[0])
+        idx = torch.where(hit, idx, 0)
+        rows = tbl[idx]
+        rows.masked_fill_(~hit[..., None], 0)
+        for g in groups:
+            rows = funcol.wait_tensor(funcol.all_reduce(rows, "sum", g))
+        ctx.save_for_backward(idx, hit)
+        ctx.n_rows = tbl.shape[0]
+        return rows
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, hit = ctx.saved_tensors
+        grad = g.new_zeros((ctx.n_rows, g.shape[-1]))
+        grad.index_put_((idx,), g.masked_fill(~hit[..., None], 0), accumulate=True)
+        return grad, None, None, None
+
+
 def _embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    """``table[tokens]``. A ``DTensor`` table is gathered whole (as
-    ``DTensor``'s own indexing gathers it) and each rank indexes it with its
-    own tokens; the table's gradient is then a sum over the ranks whose
-    tokens differ (``Partial`` on their axes). torch 2.11's ``DTensor`` has
-    no working rule for the backward of indexing a table by sharded tokens,
-    nor for indexing by tokens sharded over two mesh axes (a multi-pod
-    decode's batch over ("pod", "data"))."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate
+    """``table[tokens]``. On ``DTensor``s whose table splits V over mesh
+    axes that do not split the tokens (``spec_embed``'s layout), each rank
+    looks up its own tokens in its own vocabulary shard, gathered whole
+    along D where FSDP splits it (:class:`_VocabParallelEmbed`); the
+    (B/dp, S, D) rows come out in the tokens' layout, and each rank's
+    table gradient is its shard's, summed over the ranks whose tokens
+    differ (``Partial`` on their axes). No rank holds the whole (V, D)
+    table. Where no axis splits V (whisper-tiny's 51865 rows, a mesh of one
+    model rank) the table is gathered whole and indexed by each rank's
+    tokens. Neither route indexes a ``DTensor``: torch 2.11's
+    ``DTensor`` has no working rule for the backward of indexing a table
+    by sharded tokens, nor for indexing by tokens sharded over two mesh
+    axes (a multi-pod decode's batch over ("pod", "data"))."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
     if not isinstance(table, DTensor):
         return table[tokens]
@@ -176,8 +225,19 @@ def _embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     rep = [Replicate()] * mesh.ndim
     if not isinstance(tokens, DTensor):
         tokens = DTensor.from_local(tokens, mesh, rep, run_check=False)
-    grads = [Replicate() if isinstance(p, Replicate) else Partial() for p in tokens.placements]
-    local = table.redistribute(mesh, rep).to_local(grad_placements=grads)[tokens.to_local()]
+    vocab = [i for i, p in enumerate(table.placements) if p == Shard(0)]
+    if any(not isinstance(tokens.placements[i], Replicate) for i in vocab):
+        vocab = []
+    grads = [Shard(0) if i in vocab else Replicate() if isinstance(p, Replicate) else Partial()
+             for i, p in enumerate(tokens.placements)]
+    tbl = table.redistribute(mesh, [Shard(0) if i in vocab else Replicate()
+                                    for i in range(mesh.ndim)]).to_local(grad_placements=grads)
+    if vocab:
+        local = _VocabParallelEmbed.apply(tbl, tokens.to_local(),
+                                          _mesh_offset(mesh, vocab, tbl.shape[0]),
+                                          [(mesh, i) for i in vocab])
+    else:
+        local = tbl[tokens.to_local()]
     return DTensor.from_local(local, mesh, tokens.placements, run_check=False)
 
 
@@ -255,8 +315,9 @@ def _run_stacks(params, x, cfg, plan, states=None, causal=True, decode_pos=None)
     training forward), each repeat of the pattern runs under
     ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of its
     scan body, policy ``cfg.remat_policy``): its activations are recomputed
-    in the backward. The numbers do not change; prefill and decode run as
-    without remat."""
+    in the backward, and on ``DTensor``s its input is kept split along S
+    (the constrainer's ``"act_saved"``). The numbers do not change; prefill
+    and decode run as without remat."""
     n_rep, pat, tail = _pattern_layout(cfg)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     positions = torch.arange(x.shape[1], device=x.device) if decode_pos is None else None
@@ -266,7 +327,11 @@ def _run_stacks(params, x, cfg, plan, states=None, causal=True, decode_pos=None)
     if in_place and n_rep:
         layer_states = _own_caches(layer_states, pat)
 
+    remat = cfg.remat and states is None and torch.is_grad_enabled()
+
     def body(r, x, aux, layer_states):
+        if remat:
+            x = constrain(x, "act")
         new_states = []
         for pi, kind in enumerate(pat):
             st = None if layer_states is None else _layer(layer_states[pi], r)
@@ -278,7 +343,7 @@ def _run_stacks(params, x, cfg, plan, states=None, causal=True, decode_pos=None)
         return x, aux, new_states
 
     run = body
-    if cfg.remat and states is None and torch.is_grad_enabled():
+    if remat:
         from torch.utils.checkpoint import checkpoint
 
         run = functools.partial(checkpoint, body, use_reentrant=False,
@@ -286,6 +351,13 @@ def _run_stacks(params, x, cfg, plan, states=None, causal=True, decode_pos=None)
 
     ys = []
     for r in range(n_rep):
+        if remat:
+            # what the checkpoint keeps of a repeat is its input: on DTensors
+            # split along S over the model axis (the reference's activation
+            # layout), made the activation's layout again inside the repeat,
+            # so that where S is whole (torch 2.11, multi-pod) a rank does not
+            # keep every repeat's (B/dp, S, D) input
+            x = constrain(x, "act_saved")
         x, aux_total, new_states = run(r, x, aux_total, layer_states)
         ys.append(new_states)
 
@@ -333,10 +405,46 @@ def _decoder_layer(params, state, i: int, n_rep: int):
     return lp, st
 
 
+def _head_product(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
+    """The logits ``einsum("bsd,vd->bsv", x, head)``. On ``DTensor``s whose
+    head splits V over mesh axes that do not split x's batch, each rank
+    multiplies its batch rows, whole along S and D, by its vocabulary rows,
+    gathered whole along D where FSDP splits them, and keeps its
+    (B/dp, S, V/tp) shard of the logits, the constrainer's ``"logits"``
+    layout; x's gradient is a sum over the vocabulary's ranks, the head's
+    over the batch's (``Partial`` there). ``DTensor``'s own planner, given
+    S over the model axis (torch 2.13's sequence parallelism) and the
+    head's D over the data axis (FSDP), would make the global (B·S, V)
+    product on every rank at full widths. Elsewhere the einsum as it is."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    if not isinstance(x, DTensor) or not isinstance(head, DTensor):
+        return torch.einsum("bsd,vd->bsv", x, head)
+    mesh = head.device_mesh
+    vocab = {i for i, p in enumerate(head.placements) if p == Shard(0)}
+    rows = {i for i, p in enumerate(x.placements) if p == Shard(0)}
+    if not vocab or vocab & rows:
+        return torch.einsum("bsd,vd->bsv", x, head)
+
+    def layout(mine, other):
+        """Dim 0 split over the axes ``mine``, whole elsewhere; the gradient a
+        sum over the axes ``other``."""
+        return ([Shard(0) if i in mine else Replicate() for i in range(mesh.ndim)],
+                [Shard(0) if i in mine else Partial() if i in other else Replicate()
+                 for i in range(mesh.ndim)])
+
+    (x_pl, x_grad), (h_pl, h_grad) = layout(rows, vocab), layout(vocab, rows)
+    xl = x.redistribute(mesh, x_pl).to_local(grad_placements=x_grad)
+    hl = head.redistribute(mesh, h_pl).to_local(grad_placements=h_grad)
+    return DTensor.from_local(torch.einsum("bsd,vd->bsv", xl, hl), mesh,
+                              [Shard(0) if i in rows else Shard(2) if i in vocab else Replicate()
+                               for i in range(mesh.ndim)], run_check=False)
+
+
 def _logits(params, x, cfg) -> torch.Tensor:
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-    logits = constrain(torch.einsum("bsd,vd->bsv", x, head), "logits")
+    logits = constrain(_head_product(x, head), "logits")
     if cfg.logit_softcap:
         c = cfg.logit_softcap
         logits = c * torch.tanh(div(logits, c))

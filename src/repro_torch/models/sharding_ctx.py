@@ -305,7 +305,7 @@ def split_heads_axis(x: torch.Tensor, n_heads: int) -> int | None:
                 None)
 
 
-def split_shards(fn, args, dims, out_dims, positions: int | None = None):
+def split_shards(fn, args, dims, out_dims, positions: int | None = None, weights=()):
     """``fn(*args)`` on each rank's share, for an ``fn`` computed
     independently along the batch (dim 0 of every argument and result) and
     along one more dim of some of its arguments and results: ``dims`` (one
@@ -320,13 +320,16 @@ def split_shards(fn, args, dims, out_dims, positions: int | None = None):
     argument is its share of the sum over those axes (``Partial()``
     there). The split dims must divide evenly. With ``positions`` (the
     length of a split dim), ``fn`` also gets ``rows=``: the positions of
-    the rank's share of that dim, where an axis splits it. Differentiable.
-    Without a ``DTensor`` argument this is ``fn(*args)``."""
+    the rank's share of that dim, where an axis splits it. ``weights``
+    follow ``args`` into ``fn``, with no batch dim: whole on every rank,
+    each rank's gradient its share of the sum over the batch's and the
+    split axes. Differentiable. Without a ``DTensor`` argument this is
+    ``fn(*args, *weights)``."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard, distribute_tensor
 
     lead = next((a for a in args if isinstance(a, DTensor)), None)
     if lead is None:
-        return fn(*args)
+        return fn(*args, *weights)
     mesh = lead.device_mesh
     batch = [isinstance(p, Shard) and p.dim == 0 for p in lead.placements]
     split = [not b and k > 1 for b, k in zip(batch, mesh.shape)]
@@ -339,6 +342,10 @@ def split_shards(fn, args, dims, out_dims, positions: int | None = None):
     local = [a if not isinstance(a, DTensor) else _ContiguousGrad.apply(
         a.redistribute(mesh, layout(d, Replicate())).to_local(
             grad_placements=layout(d, Partial()))) for a, d in zip(args, dims)]
+    summed = [Partial() if b or r else Replicate() for b, r in zip(batch, split)]
+    local += [w if not isinstance(w, DTensor) else _ContiguousGrad.apply(
+        w.redistribute(mesh, [Replicate()] * mesh.ndim).to_local(grad_placements=summed))
+        for w in weights]
     kw = {} if positions is None or not any(split) else {"rows": distribute_tensor(
         torch.arange(positions, device=lead.to_local().device), mesh,
         [Shard(0) if r else Replicate() for r in split], src_data_rank=None).to_local()}

@@ -27,9 +27,9 @@ import torch.nn.functional as F
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import ParallelPlan, dense_init, inv_sqrt
-from repro_torch.models.sharding_ctx import (P, batch_shards, merge_last, replicated,
-                                             split_heads_axis, split_last, split_shards,
-                                             whole_along)
+from repro_torch.models.sharding_ctx import (P, _sharded_ranks, batch_shards, merge_last,
+                                             replicated, split_heads_axis, split_last,
+                                             split_shards, whole_along)
 from repro_torch.models.rglru import CONV_K, _causal_conv1d
 
 
@@ -106,22 +106,174 @@ def _group_norm(x: torch.Tensor, scale: torch.Tensor, nh: int) -> torch.Tensor:
     return (merge_last(xh) * scale.to(torch.float32)).to(x.dtype)
 
 
-def _mlstm_qkvif(p: dict, x: torch.Tensor, conv_state=None):
-    """x (B,S,D) -> q,k,v (B,S,NH,dh), i,f raw gates (B,S,NH), z, conv_state."""
-    nh = p["wq"].shape[0]
-    up = x @ p["w_up"]
-    xi, z = torch.chunk(up, 2, dim=-1)
+def _mlstm_out(h, z, gn, w_down) -> torch.Tensor:
+    """The block's tail: h (B,S,NH,dh) merged, group-normed, gated by
+    silu(z) (B,S,di) and projected down to (B,S,D)."""
+    return (_group_norm(merge_last(h), gn, h.shape[-2]) * F.silu(z)) @ w_down
+
+
+def _inner_width_split(p: dict, x: torch.Tensor) -> bool:
+    """Whether the block keeps xi and z at each rank's share of the inner
+    width (the ``DTensor`` route of :func:`_mlstm_qkvif`): where the up
+    projection's columns lie over mesh ranks and a rank's rows of x (B/dp
+    x S) outnumber its width D, so that gathering ``w_up`` (D x 2·di)
+    moves fewer bytes than gathering the product (B/dp x S x 2·di):
+    prefill and training, not a decode step."""
+    return (_sharded_ranks(p["w_up"], 1) > 1
+            and x.shape[0] * x.shape[1] > _sharded_ranks(x, 0) * x.shape[-1])
+
+
+def _up_halves(w_up: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The xi and z halves of ``DTensor`` ``w_up`` (D, 2·di), each (D, di)
+    laid out as ``w_up`` is, its columns over the model axis: ``w_up`` is
+    gathered whole along its columns (weight bytes), split, and each half's
+    share taken on each rank. ``torch.chunk`` of the (B, S, 2·di) product
+    would gather the activations instead: ranks 0-7 of 16 hold xi's
+    columns, 8-15 z's."""
+    w = whole_along(w_up, 1)
+    di = w.shape[1] // 2
+    return tuple(h.redistribute(w_up.device_mesh, w_up.placements)
+                 for h in (w[:, :di], w[:, di:]))
+
+
+def _gathered(x, group, dim: int = -1) -> torch.Tensor:
+    """Local ``x`` gathered whole along ``dim`` over the ranks of
+    ``group``."""
+    from torch.distributed import _functional_collectives as funcol
+
+    return funcol.wait_tensor(funcol.all_gather_tensor(x.contiguous(), dim % x.dim(), group))
+
+
+def _gathered_heads(xs, nh: int, group) -> list[torch.Tensor]:
+    """Each local (b, S, di/k) tensor of ``xs`` gathered whole along its
+    width over the k ranks of ``group`` and viewed as (b, S, nh, dh): the
+    transient gather of :class:`_HeadProducts`."""
+    return [g.reshape(*g.shape[:-1], nh, g.shape[-1] // nh)
+            for g in (_gathered(x, group) for x in xs)]
+
+
+def _gathered_heads_backward(xc, xi, wq, wk, wv, w_i, w_f, gq, gk, gv, gi, gf, nh: int,
+                             group):
+    """:class:`_HeadProducts`' gradients: the inputs gathered again, the
+    head weights' shards from them, and each input's gradient of the head
+    products, a sum over the ranks' shares of the output width,
+    reduce-scattered to its shard; the gates' terms are local (their
+    gradients are whole on every rank of the group)."""
+    from torch.distributed import _functional_collectives as funcol
+
+    xch, xih = _gathered_heads((xc, xi), nh, group)
+    gw = [torch.einsum("bsnd,bsne->nde", a, g) for a, g in ((xch, gq), (xch, gk), (xih, gv))]
+    gxs = []
+    for terms in (((gq, wq), (gk, wk)), ((gv, wv),)):
+        g = sum(torch.einsum("bsne,nde->bsnd", gt, w) for gt, w in terms)
+        g = g.reshape(*g.shape[:-2], g.shape[-2] * g.shape[-1])
+        gxs.append(funcol.wait_tensor(
+            funcol.reduce_scatter_tensor(g.contiguous(), "sum", g.dim() - 1, group)))
+    gxs[1] = gxs[1] + gi @ w_i.transpose(0, 1) + gf @ w_f.transpose(0, 1)
+    gw += [torch.einsum("bsd,bsn->dn", xi, g) for g in (gi, gf)]
+    return (*gxs, *gw)
+
+
+class _HeadProducts(torch.autograd.Function):
+    """The mLSTM's q, k (of xc) and v (of xi) products
+    ``einsum("bsnd,nde->bsne", ·, w)`` and its gates' ``xi @ w_i``,
+    ``xi @ w_f`` on one rank's shards: xc and xi (b, S, di/k) split along
+    their inner width over the k ranks of ``group`` (heads that k does not
+    divide), the head weights' output width split over them (NH, dh,
+    dh/k), so q, k, v are each rank's (b, S, NH, dh/k) share, and the
+    gates' rows (di/k, NH), their (b, S, NH) products whole on each rank.
+    Each input is gathered whole along its width for the products (and
+    the gates' weights for theirs: each product the one-device dot), and
+    again in the backward: the step keeps only the shards for it
+    (``DTensor``'s einsums would keep the gathered inputs, and its gate
+    products' backward would make xi's gradient whole)."""
+
+    @staticmethod
+    def forward(ctx, xc, xi, wq, wk, wv, w_i, w_f, nh, group):
+        xch, xih = _gathered_heads((xc, xi), nh, group)
+        ctx.save_for_backward(xc, xi, wq, wk, wv, w_i, w_f)
+        ctx.nh, ctx.group = nh, group
+        xw = xih.reshape(*xih.shape[:-2], xih.shape[-2] * xih.shape[-1])
+        return (*(torch.einsum("bsnd,nde->bsne", a, w)
+                  for a, w in ((xch, wq), (xch, wk), (xih, wv))),
+                *(xw @ _gathered(w, group, 0) for w in (w_i, w_f)))
+
+    @staticmethod
+    def backward(ctx, gq, gk, gv, gi, gf):
+        return (*_gathered_heads_backward(*ctx.saved_tensors, gq, gk, gv, gi, gf, ctx.nh,
+                                          ctx.group), None, None)
+
+
+def _laid_out(x, placements):
+    """``DTensor`` ``x`` redistributed to ``placements`` where it lies
+    otherwise (a redistribution to its own layout still adds an autograd
+    node, whose backward gathered the gradient)."""
+    return x if tuple(x.placements) == tuple(placements) else x.redistribute(
+        x.device_mesh, placements)
+
+
+def _head_products(xc, xi, wq, wk, wv, w_i, w_f):
+    """q, k, v (B,S,NH,dh) from xc and xi (B,S,di), and the gates'
+    products ``xi @ w_i``, ``xi @ w_f`` (B,S,NH). On ``DTensor``s whose
+    inner width lies over ranks that do not divide the heads, through
+    :class:`_HeadProducts` on each rank's shards, q, k, v coming out with
+    their head width over those ranks as wq's is, the gates' products
+    whole over them; elsewhere the einsums of the head views
+    (``split_last``) and the products as they are."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    nh = wq.shape[0]
+    if not isinstance(xc, DTensor) or nh % _sharded_ranks(xc, -1) == 0:
+        xch, xih = split_last(xc, nh), split_last(xi, nh)
+        return (*(torch.einsum("bsnd,nde->bsne", a, w)
+                  for a, w in ((xch, wq), (xch, wk), (xih, wv))), xi @ w_i, xi @ w_f)
+    mesh = xc.device_mesh
+    width = [isinstance(p, Shard) and p.dim == xc.dim() - 1 for p in xc.placements]
+    batch = [isinstance(p, Shard) and p.dim == 0 for p in xc.placements]
+    axis = width.index(True)
+
+    def layout(dim, other):
+        """``dim`` split over the width's axis (whole where ``None``), the
+        batch's axes laid out as ``other``."""
+        return [(Replicate() if dim is None else Shard(dim)) if i == axis
+                else other if b else Replicate() for i, b in enumerate(batch)]
+
+    acts = [_laid_out(a, layout(2, Shard(0))).to_local() for a in (xc, xi)]
+    ws = [_laid_out(w, layout(w.dim() - 1, Replicate())).to_local(
+        grad_placements=layout(w.dim() - 1, Partial())) for w in (wq, wk, wv)]
+    ws += [_laid_out(w, layout(0, Replicate())).to_local(grad_placements=layout(0, Partial()))
+           for w in (w_i, w_f)]
+    out = _HeadProducts.apply(*acts, *ws, nh, (mesh, axis))
+    return (*(DTensor.from_local(t, mesh, layout(3, Shard(0)), run_check=False)
+              for t in out[:3]),
+            *(DTensor.from_local(t, mesh, layout(None, Shard(0)), run_check=False)
+              for t in out[3:]))
+
+
+def _mlstm_qkvif(p: dict, x: torch.Tensor, conv_state=None, z_weight: bool = False):
+    """x (B,S,D) -> q,k,v (B,S,NH,dh), i,f raw gates (B,S,NH), z, conv_state.
+
+    On ``DTensor``s whose inner width lies over mesh ranks (outside a
+    decode step, :func:`_inner_width_split`), xi and z come out at each
+    rank's share of it: x (made whole along S) times each half
+    of ``w_up`` (:func:`_up_halves`), and the head products through
+    :func:`_head_products`; with ``z_weight`` the z half of ``w_up`` takes
+    z's place (the tail that runs on row blocks makes each block's z).
+    Elsewhere the up product is split in two."""
+    if _inner_width_split(p, x):
+        w_xi, w_z = _up_halves(p["w_up"])
+        x = whole_along(x, 1)
+        xi = x @ w_xi
+        z = w_z if z_weight else x @ w_z
+    else:
+        up = x @ p["w_up"]
+        xi, z = torch.chunk(up, 2, dim=-1)
     xc, conv_new = _causal_conv1d(xi, p["conv_w"], p["conv_b"], conv_state)
     xc = F.silu(xc)
-    # heads that do not divide the model axis: the inner width is made whole
-    # first (split_last), the products below shard the head width as wq does
-    xch = split_last(xc, nh)
-    xih = split_last(xi, nh)
-    q = torch.einsum("bsnd,nde->bsne", xch, p["wq"])
-    k = torch.einsum("bsnd,nde->bsne", xch, p["wk"])
-    v = torch.einsum("bsnd,nde->bsne", xih, p["wv"])
-    i_raw = (xi @ p["w_i"] + p["b_i"]).to(torch.float32)
-    f_raw = (xi @ p["w_f"] + p["b_f"]).to(torch.float32)
+    q, k, v, i_pre, f_pre = _head_products(xc, xi, p["wq"], p["wk"], p["wv"], p["w_i"],
+                                           p["w_f"])
+    i_raw = (i_pre + p["b_i"]).to(torch.float32)
+    f_raw = (f_pre + p["b_f"]).to(torch.float32)
     return q, k, v, i_raw, f_raw, z, conv_new
 
 
@@ -156,16 +308,17 @@ def mlstm_parallel(q, k, v, i_raw, f_raw, rows=None) -> torch.Tensor:
     return (num / denom[..., None]).to(q.dtype)
 
 
-def _mlstm_parallel_shards(q, k, v, i_raw, f_raw) -> torch.Tensor:
+def _mlstm_parallel_shards(q, k, v, i_raw, f_raw, keep_rows: bool = False) -> torch.Tensor:
     """:func:`mlstm_parallel` on each rank's share of ``DTensor``s: its shard
     of the batch, and of the heads where a mesh axis past the batch's
     divides them (``batch_shards``); else of the query rows over the
     other axes, each row block against every key (``split_shards``: the
     reference's split of the positions over "model", as its 4 heads do
     not divide the production mesh's 16). The result, rows split, is made
-    whole along the positions (gathered over "model"): torch 2.11 cannot
-    flatten (B, S) with both dims sharded, which the head merge does. A
-    plain tensor: ``mlstm_parallel``."""
+    whole along the positions (gathered over "model": torch 2.11 cannot
+    flatten (B, S) with both dims sharded, which the head merge does), or,
+    with ``keep_rows``, comes back rows split for a tail that runs on the
+    row blocks. A plain tensor: ``mlstm_parallel``."""
     nh = q.shape[2]
     if split_heads_axis(q, nh) is not None:
         return batch_shards(lambda *a: (mlstm_parallel(*a),), q, k, v, i_raw, f_raw,
@@ -173,7 +326,7 @@ def _mlstm_parallel_shards(q, k, v, i_raw, f_raw) -> torch.Tensor:
     h, = split_shards(lambda *a, rows=None: (mlstm_parallel(*a, rows=rows),),
                       (q, k, v, i_raw, f_raw), (1, None, None, None, None), (1,),
                       positions=q.shape[1])
-    return whole_along(h, 1)
+    return h if keep_rows else whole_along(h, 1)
 
 
 def mlstm_step(state: dict, q, k, v, i_raw, f_raw):
@@ -273,27 +426,51 @@ def _mlstm_final_state_shards(k, v, i_raw, f_raw) -> dict:
 
 
 def mlstm_block_forward(p: dict, x: torch.Tensor, state: dict | None = None,
-                        chunk_size: int = 0) -> tuple[torch.Tensor, dict]:
+                        chunk_size: int = 0, final_state: bool = True
+                        ) -> tuple[torch.Tensor, dict | None]:
+    """The mLSTM block on x (B,S,D): (out (B,S,D), its recurrent state).
+    Without ``final_state`` the parallel form does not fold the sequence
+    into the state, and the state is ``None``: a training step's forward,
+    whose state nothing reads (the reference's XLA drops that fold as dead
+    code; run eagerly, its tensors stayed live in the backward's recompute).
+
+    On ``DTensor``s every tensor of the inner width stays each rank's
+    share of it (:func:`_mlstm_qkvif`). Where the heads do not divide the
+    model axis (4 on the production mesh's 16) the parallel form runs on
+    blocks of query rows, and so does the tail: each rank's rows of h,
+    of z (from its rows of x and the z half of ``w_up``) and of the
+    output, the inner width whole on its rows, a share of the (B, S, di)
+    tensors all the same; the group norm needs each head whole, which the
+    row blocks have."""
     nh = p["wq"].shape[0]
     conv_state = None if state is None else state["conv"]
-    q, k, v, i_raw, f_raw, z, conv_new = _mlstm_qkvif(p, x, conv_state)
-    if x.shape[1] == 1 and state is not None:
+    step = x.shape[1] == 1 and state is not None
+    chunked = not step and bool(chunk_size) and x.shape[1] > chunk_size
+    rows = (not step and not chunked and _inner_width_split(p, x)
+            and split_heads_axis(x, nh) is None)
+    q, k, v, i_raw, f_raw, z, conv_new = _mlstm_qkvif(p, x, conv_state, z_weight=rows)
+    if step:
         cell = {"C": state["C"], "n": state["n"], "m": state["m"]}
         cell_new, h = mlstm_step(cell, q[:, 0], k[:, 0], v[:, 0], i_raw[:, 0], f_raw[:, 0])
         h = h[:, None]
         new_state = {"conv": conv_new, **cell_new}
-    elif chunk_size and x.shape[1] > chunk_size:
+    elif chunked:
         h, cell = mlstm_chunkwise(q, k, v, i_raw, f_raw, chunk_size)
         new_state = {"conv": conv_new, **cell}
     else:
         # on DTensors, on each rank's share (batch and heads, or query rows)
-        h = _mlstm_parallel_shards(q, k, v, i_raw, f_raw)
+        h = _mlstm_parallel_shards(q, k, v, i_raw, f_raw, keep_rows=rows)
         # fold the sequence into the final recurrent state (prefill -> decode)
-        cell = _mlstm_final_state_shards(k, v, i_raw, f_raw)
-        new_state = {"conv": conv_new, **cell}
-    hflat = merge_last(h)
-    out = (_group_norm(hflat, p["gn"], nh) * F.silu(z)) @ p["w_down"]
-    return out, new_state
+        new_state = None
+        if final_state:
+            cell = _mlstm_final_state_shards(k, v, i_raw, f_raw)
+            new_state = {"conv": conv_new, **cell}
+        if rows:
+            out, = split_shards(lambda h, x, w_z, gn, w_down: (_mlstm_out(h, x @ w_z, gn,
+                                                                          w_down),),
+                                (h, x), (1, 1), (1,), weights=(z, p["gn"], p["w_down"]))
+            return out, new_state
+    return _mlstm_out(h, z, p["gn"], p["w_down"]), new_state
 
 
 def init_mlstm_state_cell(batch: int, nh: int, dh: int, device=None) -> dict:

@@ -30,7 +30,13 @@ storage behind them), and :class:`StepRecorder` records what rank 0 does:
 With ``holders=True`` the recorder also keeps, for each storage the step
 made, its bytes, shape, dtype and the port's frames that made it
 (:class:`Holder`): ``Trace.made``, and ``Trace.peak_holders``, the
-storages live at the peak, largest first (``tools/peak_holders.py``).
+storages live at the peak, largest first (``tools/peak_holders.py``). A
+storage made in the backward is named by the forward frames of the
+autograd node that made it (each node is tagged with the port's frames
+when the forward makes it or first hands it on), after any port frames of
+the backward code itself (a custom ``backward``, a recompute): the
+frames of the backward's caller alone would name every such storage by
+the training step's call to ``torch.autograd.grad``.
 
 ``DTensor`` computes each op on its local shards, so the recorder returns
 ``NotImplemented`` for an op on ``DTensor``s and records the local ops
@@ -51,6 +57,7 @@ import weakref
 
 import torch
 from torch._subclasses.fake_tensor import FakeTensor
+from torch.overrides import TorchFunctionMode
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 
@@ -116,29 +123,72 @@ class Holder:
     """A storage of the step: its bytes, the shape and dtype of the tensor
     it was made for, and the port's frames on the stack then, innermost
     first (``"models/rglru.py:120 associative_scan"``); ``("argument",)``
-    for a step's argument."""
+    for a step's argument. ``backward``: the name of the autograd node
+    that made it in the backward (``"MmBackward0"``), whose forward frames
+    then end ``frames``; ``None`` in the forward."""
 
     nbytes: int
     shape: tuple
     dtype: str
     frames: tuple
+    backward: str | None = None
 
 
 _PORT_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SELF = os.path.abspath(__file__)
 
 
-def _port_frames(depth: int = 8) -> tuple:
-    """The innermost ``depth`` frames of the port's code on the stack,
-    the recorder's own left out."""
+_FRAMES_KEY = "repro_torch_frames"     # an autograd node's metadata: its forward frames
+_ENGINE_ENTRY = "_engine_run_backward"  # torch.autograd's call into the engine
+
+
+def _port_frames(depth: int = 8, start: int = 2, in_backward: bool = False) -> tuple:
+    """The innermost ``depth`` frames of the port's code on the stack from
+    ``start`` frames up, the recorder's own left out; ``in_backward``:
+    only those the autograd engine runs (a custom ``backward``, a
+    recompute), not its caller's."""
     out = []
-    f = sys._getframe(2)
+    f = sys._getframe(start)
     while f is not None and len(out) < depth:
+        if in_backward and f.f_code.co_name == _ENGINE_ENTRY:
+            break
         name = f.f_code.co_filename
         if name.startswith(_PORT_DIR) and name != _SELF:
             out.append(f"{os.path.relpath(name, _PORT_DIR)}:{f.f_lineno} {f.f_code.co_name}")
         f = f.f_back
     return tuple(out)
+
+
+def _made_where(depth: int = 8) -> tuple[tuple, str | None]:
+    """The frames that name a storage made now, and the autograd node that
+    makes it where the backward runs (see the module docstring)."""
+    node = torch._C._current_autograd_node()
+    if node is None:
+        return _port_frames(depth, start=3), None
+    live = _port_frames(depth, start=3, in_backward=True)
+    return (live + node.metadata.get(_FRAMES_KEY, ()))[:depth], node.name()
+
+
+class _NodeFrames(TorchFunctionMode):
+    """Tags each autograd node an op makes with the port's frames at that
+    point, once (:data:`_FRAMES_KEY` in its metadata): the nodes of the
+    tensors it makes or takes and the untagged nodes behind them (a
+    composite op's inner nodes, an einsum's ``bmm``). A node this mode
+    does not see made (a custom ``autograd.Function``'s, a
+    ``redistribute``'s) is tagged where it is first used."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        frames = None
+        todo = [t.grad_fn for t in _tensors((out, args, kwargs))]
+        while todo:
+            node = todo.pop()
+            if node is None or _FRAMES_KEY in node.metadata:
+                continue
+            frames = frames or _port_frames(start=2)
+            node.metadata[_FRAMES_KEY] = frames
+            todo.extend(n for n, _ in node.next_functions)
+        return out
 
 
 def _tensors(tree) -> list[torch.Tensor]:
@@ -264,9 +314,9 @@ class StepRecorder(TorchDispatchMode):
         entry = None
         if self.holders:
             self._events += 1
-            frames = ("argument",) if self._arguments else _port_frames()
-            entry = [Holder(n, tuple(t.shape), str(t.dtype).replace("torch.", ""), frames),
-                     self._events, None]
+            frames, node = (("argument",), None) if self._arguments else _made_where()
+            entry = [Holder(n, tuple(t.shape), str(t.dtype).replace("torch.", ""), frames,
+                            node), self._events, None]
             self._made.append(entry)
         weakref.finalize(st, self._free, key, entry)
         self._cur += n
@@ -318,6 +368,8 @@ class StepRecorder(TorchDispatchMode):
     def __enter__(self):
         self._arguments = False
         self._stack.enter_context(_propagation_marked(self))
+        if self.holders:
+            self._stack.enter_context(_NodeFrames())
         return super().__enter__()
 
     def __exit__(self, *exc):

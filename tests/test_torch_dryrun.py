@@ -262,15 +262,18 @@ def test_point_flops_bracketed_by_reference(against_reference, arch, kind):
 
 
 def test_replicate_detours_are_counted(against_reference):
-    """The MoE dispatch (qwen3-moe) and the logsigmoid of the mLSTM's
-    decode step (xlstm decode) run through ``sharding_ctx.replicated``,
+    """The MoE dispatch (qwen3-moe) runs through ``sharding_ctx.replicated``,
     whose all-gathers GSPMD would not make. They are counted in the trace
     as the port runs them (printed with -s: their share of the collective
     bytes); llama3-8b has none, nor has xlstm's prefill, whose mLSTM and
-    sLSTM run on batch shards (the sLSTM's scan is one op there)."""
+    sLSTM run on batch shards (the sLSTM's scan is one op there), nor its
+    decode on (1, 8): the logsigmoid of the mLSTM's decode step still runs
+    through ``replicated``, but its gates come out of the head products
+    whole on every model rank (``xlstm._HeadProducts``), so the detour
+    moves nothing."""
     _, port = against_reference
     for key, detours in (("qwen3-moe-235b-a22b/train/2x2", True),
-                         ("xlstm-1.3b/decode/1x8", True), ("xlstm-1.3b/prefill/2x2", False),
+                         ("xlstm-1.3b/decode/1x8", False), ("xlstm-1.3b/prefill/2x2", False),
                          ("llama3-8b/train/2x2", False)):
         tr = port[key]["full"]
         det = analysis.collective_bytes(dataclasses.replace(tr, collectives=tr.detour_collectives))

@@ -25,7 +25,9 @@ card's machine (this CPU-only torch cannot run a fake CUDA step).
 
 Writes ``DIR/census.json``: per cell ``ok`` / ``error`` / ``timeout``, its
 wall seconds, and for a cell that ran its microbatches, peak, argument and
-output bytes per rank, the times ``local_shards`` fell back to running
+output bytes per rank (on the single mesh also the reference's
+one-microbatch peak a device, ``launch.dryrun.REFERENCE_PEAK_GIB``, and the
+port's one-microbatch peak over it, ``peak_over_reference``), the times ``local_shards`` fell back to running
 whole on ``DTensor``s (``local_fallbacks``, 0 where every rank computes
 its share) and traced-step seconds; for one that raised, the
 error's last line; for one stopped at ``--timeout``, the phase it was in:
@@ -90,6 +92,19 @@ def _gate(got):
                 lower_s=got["lower_s"], compile_s=got["compile_s"])
 
 
+def _against_reference(arch, shape, trail):
+    """The reference's one-microbatch peak of a single-mesh cell (the
+    port's table, ``launch.dryrun.REFERENCE_PEAK_GIB``) and the port's
+    one-microbatch peak over it."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch.dryrun import reference_peak_bytes
+
+    ref = reference_peak_bytes(arch, shape)
+    one = trail[0]["peak_per_device"] if trail else None
+    return {"reference_peak_per_device": ref,
+            "peak_over_reference": None if ref is None or one is None else one / ref}
+
+
 def _summary(arch, shape, mesh, path, rc, wall, timed_out, log, stopped_by="timeout"):
     rec = {"cell": f"{arch}/{shape}/{mesh}", "wall_s": round(wall, 1)}
     key = f"{arch}/{shape}/{mesh}"
@@ -106,6 +121,8 @@ def _summary(arch, shape, mesh, path, rc, wall, timed_out, log, stopped_by="time
         err = (got or {}).get("error") or (log.strip().splitlines() or ["no output"])[-1]
         return dict(rec, status="error", rc=rc, error=err[-400:])
     rec = dict(rec, status="ok", **_gate(got))
+    if mesh == "single":
+        rec.update(_against_reference(arch, shape, rec["microbatch_trail"]))
     if "roofline" in got:
         rec["roofline"] = {k: got["roofline"].get(k) for k in ROOFLINE_KEYS}
     return rec

@@ -11,7 +11,9 @@ production mesh of fake ranks, as the dry run does, with the recorder
 keeping each storage's provenance (``roofline.trace.StepRecorder``,
 ``holders=True``), and prints rank 0's peak, its argument bytes, and the
 ``--top`` storages live at the peak: bytes, shape, dtype and the port's
-innermost frames that made each (``argument`` for a step argument). A
+innermost frames that made each (``argument`` for a step argument; for a
+storage made in the backward, ``[backward <node>]`` and the frames of the
+forward op that node differentiates). A
 dimension at its global size where the reference's layout shards it is a
 rank computing more than its share. ``--smoke`` takes the arch's smoke
 config and a (2, 4) mesh, to try the tool on the CPU in seconds
@@ -75,8 +77,11 @@ def main(argv=None):
           f"{rec['argument_bytes'] / mib:.1f} MiB, local_shards fallbacks "
           f"{rec['local_fallbacks']}, traced in {rec['step_s']:.1f} s")
     for h in rec["holders"]:
+        made = " < ".join(h["frames"][:4])
+        if h["backward"]:
+            made = f"[backward {h['backward']}] {made}"
         print(f"{h['nbytes'] / mib:10.1f} MiB  {str(tuple(h['shape'])):28s} {h['dtype']:9s} "
-              + " < ".join(h["frames"][:4]))
+              + made)
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(rec, indent=1))
